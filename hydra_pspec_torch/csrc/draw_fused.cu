@@ -1,0 +1,180 @@
+// draw_fused: the elementwise and row-reduction passes of one GCR draw.
+//
+// Replaces the VPU phases of the TPU kernel body
+// hydra_pspec_tpu/ops/pallas/megastep.py::_draw_body:
+//   draw_rhs        rc = ni_d + nih * omega_b * tmask          (:139-142)
+//   draw_system     dd, dinv, S = (dd dd^T P~ + I) dinv dinv^T and the
+//                   scaled RHS dinv (dd F rc + omega_a tmask)  (:153-174)
+//   row_scale_sumsq sk = dd (dinv x), beta = sum_t |sk|^2; also the
+//                   flagged-data bmask = sum_t |F w sig|^2     (:195-201, 233)
+//   draw_resid      res = dw - sig - Fg da, chi, noise_nu, the lean
+//                   chi_t (megachain.py:427-434), w sig for the bmask,
+//                   and amps = da + a0                           (:208-227)
+// Written in CUDA C++ (not Triton), one route for the whole library.
+//
+// Bound on the H100: pure streaming over (B, n, t) complex fields, a few
+// FLOP per 8-byte element, so HBM bandwidth bound (3.35 TB/s). Design: one
+// block per row of n (or t) elements, consecutive threads on consecutive
+// elements (coalesced), row sums by a fixed-order block reduction so every
+// result is deterministic and independent of the batch.
+#include "hk_common.cuh"
+
+namespace {
+constexpr int ROW_THREADS = 256;
+
+__global__ void __launch_bounds__(ROW_THREADS)
+rhs_kernel(const float2* __restrict__ nid, const float* __restrict__ nih,
+           const float2* __restrict__ ob, float2* __restrict__ rc, int t,
+           int ntimes) {
+  const long long row = blockIdx.x;  // b * n + i
+  const float h = nih[row];
+  for (int j = threadIdx.x; j < t; j += blockDim.x) {
+    const long long o = row * t + j;
+    const float mk = j < ntimes ? 1.f : 0.f;
+    const float2 w = ob[o], d = nid[o];
+    rc[o] = make_float2(d.x + h * (w.x * mk), d.y + h * (w.y * mk));
+  }
+}
+
+__device__ __forceinline__ float dd_of(float ps, float nf) {
+  return sqrtf(fmaxf(ps, 0.f) / nf);
+}
+
+__device__ __forceinline__ float dinv_of(float dd, float ptjj) {
+  return rsqrtf(fmaxf(1.f + dd * dd * ptjj, FLT_MIN));
+}
+
+__global__ void __launch_bounds__(ROW_THREADS)
+system_kernel(const float2* __restrict__ pt, const float* __restrict__ ps,
+              const float2* __restrict__ frc, const float2* __restrict__ oa,
+              float2* __restrict__ S, float2* __restrict__ xs,
+              float* __restrict__ dd_out, float* __restrict__ dinv_out,
+              int n, int t, int ntimes, float nf) {
+  const int i = blockIdx.x, b = blockIdx.y;
+  const float2* ptb = pt + (long long)b * n * n;
+  const float* psb = ps + (long long)b * n;
+  const float ddi = dd_of(psb[i], nf);
+  const float dvi = dinv_of(ddi, ptb[(long long)i * n + i].x);
+  const long long row = (long long)b * n + i;
+  if (threadIdx.x == 0) {
+    dd_out[row] = ddi;
+    dinv_out[row] = dvi;
+  }
+  for (int j = threadIdx.x; j < n; j += blockDim.x) {
+    const float ddj = dd_of(psb[j], nf);
+    const float dvj = dinv_of(ddj, ptb[(long long)j * n + j].x);
+    const float outer = ddi * ddj, dscale = dvi * dvj;
+    const float2 p = ptb[(long long)i * n + j];
+    S[row * n + j] = make_float2((outer * p.x + (i == j ? 1.f : 0.f)) * dscale,
+                                 (outer * p.y) * dscale);
+  }
+  for (int j = threadIdx.x; j < t; j += blockDim.x) {
+    const long long o = row * t + j;
+    const float mk = j < ntimes ? 1.f : 0.f;
+    const float2 f = frc[o], w = oa[o];
+    xs[o] = make_float2(dvi * (ddi * f.x + w.x * mk),
+                        dvi * (ddi * f.y + w.y * mk));
+  }
+}
+
+__global__ void __launch_bounds__(ROW_THREADS)
+scale_sumsq_kernel(const float2* __restrict__ x, const float* __restrict__ s1,
+                   const float* __restrict__ s2, float2* __restrict__ y,
+                   float* __restrict__ sums, int t) {
+  __shared__ float red[32];
+  const long long row = blockIdx.x;
+  const float a = s1 ? s1[row] : 1.f;
+  const float c = s2 ? s2[row] : 1.f;
+  float acc = 0.f;
+  for (int j = threadIdx.x; j < t; j += blockDim.x) {
+    const long long o = row * t + j;
+    const float2 v = x[o];
+    const float2 u = make_float2(c * (a * v.x), c * (a * v.y));
+    if (y) y[o] = u;
+    acc += abs2(u);
+  }
+  acc = block_sum(acc, red);
+  if (threadIdx.x == 0) sums[row] = acc;
+}
+
+__global__ void __launch_bounds__(ROW_THREADS)
+resid_kernel(const float2* __restrict__ dw, const float2* __restrict__ sig,
+             const float2* __restrict__ fa, const float* __restrict__ ninvf,
+             const float* __restrict__ w, const float2* __restrict__ da,
+             const float2* __restrict__ a0, float* __restrict__ chi,
+             float* __restrict__ noise, float* __restrict__ chit,
+             float2* __restrict__ amp, float2* __restrict__ ws, int n, int m,
+             int t, int ntimes) {
+  __shared__ float red[32];
+  const int r = blockIdx.x, b = blockIdx.y;
+  if (r >= n) {  // amplitude rows: amps = da + a0
+    if (amp == nullptr) return;
+    const long long row = (long long)b * m + (r - n);
+    for (int j = threadIdx.x; j < t; j += blockDim.x) {
+      const long long o = row * t + j;
+      const float2 d = da[o], z = a0[o];
+      amp[o] = make_float2(d.x + z.x, d.y + z.y);
+    }
+    return;
+  }
+  const long long row = (long long)b * n + r;
+  const float nv = ninvf[row], wv = w[row];
+  const float wn = wv * nv;
+  float acc_noise = 0.f, acc_chit = 0.f;
+  for (int j = threadIdx.x; j < t; j += blockDim.x) {
+    const long long o = row * t + j;
+    const float2 s = sig[o], d = dw[o], f = fa[o];
+    const float rr = d.x - s.x - f.x, ri = d.y - s.y - f.y;
+    const float res2 = rr * rr + ri * ri;
+    const float c = res2 * nv;
+    if (chi) chi[o] = c;
+    if (ws) ws[o] = make_float2(wv * s.x, wv * s.y);
+    acc_noise += res2 * wn;
+    acc_chit += j < ntimes ? c : 0.f;
+  }
+  acc_noise = block_sum(acc_noise, red);
+  if (chit) acc_chit = block_sum(acc_chit, red);
+  if (threadIdx.x == 0) {
+    noise[row] = acc_noise;
+    if (chit) chit[row] = acc_chit;
+  }
+}
+}  // namespace
+
+HK_API int hk_draw_rhs(const float2* nid, const float* nih, const float2* ob,
+                       float2* rc, int batch, int n, int t, int ntimes,
+                       cudaStream_t stream) {
+  rhs_kernel<<<batch * n, ROW_THREADS, 0, stream>>>(nid, nih, ob, rc, t,
+                                                     ntimes);
+  return (int)cudaGetLastError();
+}
+
+HK_API int hk_draw_system(const float2* pt, const float* ps, const float2* frc,
+                          const float2* oa, float2* S, float2* xs, float* dd,
+                          float* dinv, int batch, int n, int t, int ntimes,
+                          int nfreqs, cudaStream_t stream) {
+  dim3 grid(n, batch);
+  system_kernel<<<grid, ROW_THREADS, 0, stream>>>(
+      pt, ps, frc, oa, S, xs, dd, dinv, n, t, ntimes, (float)nfreqs);
+  return (int)cudaGetLastError();
+}
+
+HK_API int hk_row_scale_sumsq(const float2* x, const float* s1,
+                              const float* s2, float2* y, float* sums,
+                              int rows, int t, cudaStream_t stream) {
+  scale_sumsq_kernel<<<rows, ROW_THREADS, 0, stream>>>(x, s1, s2, y, sums, t);
+  return (int)cudaGetLastError();
+}
+
+HK_API int hk_draw_resid(const float2* dw, const float2* sig, const float2* fa,
+                         const float* ninvf, const float* w, const float2* da,
+                         const float2* a0, float* chi, float* noise,
+                         float* chit, float2* amp, float2* ws, int batch,
+                         int n, int m, int t, int ntimes,
+                         cudaStream_t stream) {
+  dim3 grid(n + m, batch);
+  resid_kernel<<<grid, ROW_THREADS, 0, stream>>>(
+      dw, sig, fa, ninvf, w, da, a0, chi, noise, chit, amp, ws, n, m, t,
+      ntimes);
+  return (int)cudaGetLastError();
+}

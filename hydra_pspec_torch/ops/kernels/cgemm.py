@@ -1,0 +1,74 @@
+"""Batched complex64 matrix product ``C = alpha * op(A) B + beta * X``.
+
+Kernel: ``csrc/cgemm.cu``. It replaces every matrix product inside the TPU
+kernel ``gcr_megachain`` (``ops/pallas/megastep.py:145-152, 191-194,
+203-207, 221, 233`` and the Newton-Schulz steps of
+``ops/pallas/megachain.py:385-388``). On the H100 it is FP32-FMA and
+latency bound at these shapes (128x128x256 per chain); it uses 32x32
+shared-memory tiles, no tensor cores (TF32 would bring back the precision
+loss the reference rejected) and no split-K atomics, so results are
+deterministic and each chain's output depends on that chain alone.
+
+CPU tensors take :func:`plain_cgemm`; CUDA tensors launch the kernel.
+"""
+import torch
+
+from . import _build
+
+OPS = {"N": 0, "T": 1, "H": 2}
+
+
+def _op(a, op):
+    if op == "N":
+        return a
+    at = a.transpose(-2, -1)
+    return at.conj() if op == "H" else at
+
+
+def plain_cgemm(a, b, *, op="N", x=None, alpha=1.0, beta=1.0, out=None):
+    """The same function with ordinary torch ops, on any device."""
+    c = torch.matmul(_op(a, op), b)
+    if alpha != 1.0:
+        c = c * alpha
+    if x is not None:
+        c = c + (x if beta == 1.0 else beta * x)
+    if out is None:
+        return c
+    out.copy_(c)
+    return out
+
+
+def cgemm(a, b, *, op="N", x=None, alpha=1.0, beta=1.0, out=None):
+    """``alpha * op(a) @ b + beta * x`` for complex64 ``a`` (B, ., .) or
+    shared (., .), ``b`` (B, K, N) and optional ``x`` (B, M, N). ``out``
+    may be ``x`` itself, never ``a`` or ``b``."""
+    if op not in OPS:
+        raise ValueError(f"op must be one of {sorted(OPS)}")
+    if _build.on_cpu(a, b, x, out):
+        return plain_cgemm(a, b, op=op, x=x, alpha=alpha, beta=beta, out=out)
+    batch, K, N = b.shape
+    if a.dim() == 2:
+        a_batched = 0
+    elif a.dim() == 3 and a.shape[0] == batch:
+        a_batched = 1
+    else:
+        raise ValueError(f"a: shape {tuple(a.shape)} for batch {batch}")
+    M = a.shape[-2] if op == "N" else a.shape[-1]
+    ka = a.shape[-1] if op == "N" else a.shape[-2]
+    if ka != K:
+        raise ValueError(f"inner dims differ: {ka} vs {K}")
+    dev = b.device
+    _build.check(a, "a", torch.complex64, device=dev)
+    _build.check(b, "b", torch.complex64, device=dev)
+    if x is not None:
+        _build.check(x, "x", torch.complex64, (batch, M, N), dev)
+    if out is None:
+        out = torch.empty((batch, M, N), dtype=torch.complex64, device=dev)
+    else:
+        _build.check(out, "out", torch.complex64, (batch, M, N), dev)
+        if out.data_ptr() in (a.data_ptr(), b.data_ptr()):
+            raise ValueError("out may not alias a or b")
+    _build.call("cgemm", "hk_cgemm", _build.ptr(a), _build.ptr(b),
+                _build.ptr(x), _build.ptr(out), batch, M, N, K, OPS[op],
+                a_batched, float(alpha), float(beta))
+    return out

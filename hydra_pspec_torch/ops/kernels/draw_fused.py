@@ -1,0 +1,171 @@
+"""The elementwise and row-reduction passes of one GCR draw.
+
+Kernels: ``csrc/draw_fused.cu`` (CUDA C++, not Triton). They replace the
+VPU phases of ``ops/pallas/megastep.py::_draw_body``: the right-hand side
+(:139-142), the equilibrated system and scaled RHS (:153-174), ``beta``
+(:199-201), the residual statistics (:221-234) and the lean ``chi_t``
+(``ops/pallas/megachain.py:427-434``). Each is a streaming pass over
+``(B, n, t)`` complex fields, bound by HBM bandwidth on the H100; one block
+per row, coalesced, row sums by a fixed-order block reduction.
+
+CPU tensors take the ``plain_*`` version beside each wrapper; it has the
+wrapper's signature and runs on any device.
+"""
+import torch
+
+from . import _build
+
+F32, C64 = torch.float32, torch.complex64
+
+
+def _tmask(t, ntimes, device):
+    return (torch.arange(t, device=device) < ntimes).to(F32)
+
+
+# --- rc = ni_d + nih * omega_b * tmask -----------------------------------
+
+def plain_draw_rhs(nid, nih, ob, ntimes):
+    return nid + nih[:, :, None] * (ob * _tmask(ob.shape[2], ntimes,
+                                                ob.device))
+
+
+def draw_rhs(nid, nih, ob, ntimes: int):
+    if _build.on_cpu(nid, nih, ob):
+        return plain_draw_rhs(nid, nih, ob, ntimes)
+    B, n, t = nid.shape
+    dev = nid.device
+    _build.check(nid, "nid", C64, (B, n, t), dev)
+    _build.check(nih, "nih", F32, (B, n), dev)
+    _build.check(ob, "ob", C64, (B, n, t), dev)
+    rc = torch.empty_like(nid)
+    _build.call("draw_rhs", "hk_draw_rhs", _build.ptr(nid), _build.ptr(nih),
+                _build.ptr(ob), _build.ptr(rc), B, n, t, ntimes)
+    return rc
+
+
+# --- system S = (dd dd^T P~ + I) dinv dinv^T, xs = dinv (dd frc + oa) -----
+
+def plain_draw_system(pt, ps, frc, oa, ntimes, nfreqs):
+    n = pt.shape[1]
+    tiny = torch.finfo(F32).tiny
+    dd = torch.sqrt(torch.clamp(ps, min=0.0) / nfreqs)
+    diag = torch.diagonal(pt, dim1=1, dim2=2).real
+    dinv = torch.rsqrt(torch.clamp(1.0 + dd * dd * diag, min=tiny))
+    outer = dd[:, :, None] * dd[:, None, :]
+    dscale = dinv[:, :, None] * dinv[:, None, :]
+    eye = torch.eye(n, dtype=F32, device=pt.device)
+    s = torch.complex((outer * pt.real + eye) * dscale,
+                      (outer * pt.imag) * dscale)
+    tm = _tmask(frc.shape[2], ntimes, frc.device)
+    xs = dinv[:, :, None] * (dd[:, :, None] * frc + oa * tm)
+    return s, xs, dd, dinv
+
+
+def draw_system(pt, ps, frc, oa, ntimes: int, nfreqs: int):
+    """Returns ``(S, xs, dd, dinv)``."""
+    if _build.on_cpu(pt, ps, frc, oa):
+        return plain_draw_system(pt, ps, frc, oa, ntimes, nfreqs)
+    B, n, t = frc.shape
+    dev = frc.device
+    _build.check(pt, "pt", C64, (B, n, n), dev)
+    _build.check(ps, "ps", F32, (B, n), dev)
+    _build.check(frc, "frc", C64, (B, n, t), dev)
+    _build.check(oa, "oa", C64, (B, n, t), dev)
+    s = torch.empty_like(pt)
+    xs = torch.empty_like(frc)
+    dd = torch.empty_like(ps)
+    dinv = torch.empty_like(ps)
+    _build.call("draw_system", "hk_draw_system", _build.ptr(pt),
+                _build.ptr(ps), _build.ptr(frc), _build.ptr(oa),
+                _build.ptr(s), _build.ptr(xs), _build.ptr(dd),
+                _build.ptr(dinv), B, n, t, ntimes, nfreqs)
+    return s, xs, dd, dinv
+
+
+# --- y = s2 (s1 x), sums = sum_t |y|^2 -----------------------------------
+
+def plain_row_scale_sumsq(x, s1=None, s2=None, want_y: bool = True):
+    y = x
+    if s1 is not None:
+        y = s1[:, :, None] * y
+    if s2 is not None:
+        y = s2[:, :, None] * y
+    sums = torch.sum(y.real * y.real + y.imag * y.imag, dim=2)
+    return (y if want_y else None), sums
+
+
+def row_scale_sumsq(x, s1=None, s2=None, want_y: bool = True):
+    """``(y, sums)``; ``y`` is None unless ``want_y``."""
+    if _build.on_cpu(x, s1, s2):
+        return plain_row_scale_sumsq(x, s1, s2, want_y)
+    B, n, t = x.shape
+    dev = x.device
+    _build.check(x, "x", C64, (B, n, t), dev)
+    for name, s in (("s1", s1), ("s2", s2)):
+        if s is not None:
+            _build.check(s, name, F32, (B, n), dev)
+    y = torch.empty_like(x) if want_y else None
+    sums = torch.empty((B, n), dtype=F32, device=dev)
+    _build.call("row_scale_sumsq", "hk_row_scale_sumsq", _build.ptr(x),
+                _build.ptr(s1), _build.ptr(s2), _build.ptr(y),
+                _build.ptr(sums), B * n, t)
+    return y, sums
+
+
+# --- residual statistics and amplitudes ----------------------------------
+
+def plain_draw_resid(dw, sig, fa, ninvf, w, da, a0, ntimes, *, want_chi,
+                     want_chit, want_amp, want_ws, chi_out=None,
+                     amp_out=None):
+    res = dw - sig - fa
+    res2 = res.real * res.real + res.imag * res.imag
+    chi = res2 * ninvf[:, :, None]
+    noise = torch.sum(res2 * (w * ninvf)[:, :, None], dim=2)
+    chit = (torch.sum(chi * _tmask(dw.shape[2], ntimes, dw.device), dim=2)
+            if want_chit else None)
+    amp = da + a0 if want_amp else None
+    ws = w[:, :, None] * sig if want_ws else None
+    if want_chi and chi_out is not None:
+        chi = chi_out.copy_(chi)
+    if amp is not None and amp_out is not None:
+        amp = amp_out.copy_(amp)
+    return (chi if want_chi else None), noise, chit, amp, ws
+
+
+def draw_resid(dw, sig, fa, ninvf, w, da, a0, ntimes: int, *,
+               want_chi: bool, want_chit: bool, want_amp: bool,
+               want_ws: bool, chi_out=None, amp_out=None):
+    """``(chi, noise_nu, chi_t, amps, w*sig)``, the unwanted ones None.
+    ``chi_out``/``amp_out``: optional preallocated outputs."""
+    if _build.on_cpu(dw, sig, fa, ninvf, w, da, a0):
+        return plain_draw_resid(dw, sig, fa, ninvf, w, da, a0, ntimes,
+                                want_chi=want_chi, want_chit=want_chit,
+                                want_amp=want_amp, want_ws=want_ws,
+                                chi_out=chi_out, amp_out=amp_out)
+    B, n, t = dw.shape
+    m = da.shape[1]
+    dev = dw.device
+    for name, v in (("dw", dw), ("sig", sig), ("fa", fa)):
+        _build.check(v, name, C64, (B, n, t), dev)
+    for name, v in (("ninvf", ninvf), ("w", w)):
+        _build.check(v, name, F32, (B, n), dev)
+    for name, v in (("da", da), ("a0", a0)):
+        _build.check(v, name, C64, (B, m, t), dev)
+    chi = None
+    if want_chi:
+        chi = chi_out if chi_out is not None else torch.empty(
+            (B, n, t), dtype=F32, device=dev)
+        _build.check(chi, "chi_out", F32, (B, n, t), dev)
+    amp = None
+    if want_amp:
+        amp = amp_out if amp_out is not None else torch.empty_like(da)
+        _build.check(amp, "amp_out", C64, (B, m, t), dev)
+    noise = torch.empty((B, n), dtype=F32, device=dev)
+    chit = torch.empty((B, n), dtype=F32, device=dev) if want_chit else None
+    ws = torch.empty_like(sig) if want_ws else None
+    _build.call("draw_resid", "hk_draw_resid", _build.ptr(dw),
+                _build.ptr(sig), _build.ptr(fa), _build.ptr(ninvf),
+                _build.ptr(w), _build.ptr(da), _build.ptr(a0),
+                _build.ptr(chi), _build.ptr(noise), _build.ptr(chit),
+                _build.ptr(amp), _build.ptr(ws), B, n, m, t, ntimes)
+    return chi, noise, chit, amp, ws

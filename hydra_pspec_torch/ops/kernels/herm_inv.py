@@ -1,0 +1,76 @@
+"""Per-chain inverse of a Hermitian positive-definite complex64 matrix,
+and the equilibrated, refined Hermitian solve built on it.
+
+Kernel: ``csrc/herm_inv.cu``. It replaces the recursive Schur inverse
+``ops/pallas/spd_inv.py::_spd_inv_into`` and its 32x32 helpers
+(``spd_solve.py::_chol_block``, ``_inv_lower_block``), which worked on the
+2n x 2n real embedding because the TPU has no complex ALU. Here the n x n
+Hermitian matrix is factored directly: one CTA per chain keeps the whole
+matrix (133 KB at n = 128) in shared memory and runs Cholesky, ``L^-1``
+and ``L^-H L^-1`` there. It is bound by the factorization's n barrier
+steps and shared-memory latency, not by HBM.
+
+The apply step ``x = A^-1 b`` and the refinement ``x += A^-1 (b - E x)``
+(``megastep.py:176-196``) run through :mod:`cgemm`.
+"""
+import torch
+
+from . import _build
+from .cgemm import cgemm
+
+MAX_N = 128  # the whole matrix must fit one block's shared memory
+
+
+def plain_herm_inv(s: torch.Tensor, out=None) -> torch.Tensor:
+    """The same function with ordinary torch ops, on any device: Cholesky,
+    triangular inverse, ``L^-H L^-1``."""
+    l, _ = torch.linalg.cholesky_ex(s)
+    eye = torch.eye(s.shape[-1], dtype=s.dtype, device=s.device)
+    x = torch.linalg.solve_triangular(l, eye.expand_as(s), upper=False)
+    inv = torch.matmul(x.transpose(-2, -1).conj(), x)
+    if out is None:
+        return inv
+    out.copy_(inv)
+    return out
+
+
+def herm_inv(s: torch.Tensor, out=None) -> torch.Tensor:
+    """Inverse of each (n, n) Hermitian PD matrix of ``s`` (B, n, n)."""
+    if _build.on_cpu(s, out):
+        return plain_herm_inv(s, out)
+    batch, n, n2 = s.shape
+    if n != n2 or n > MAX_N:
+        raise ValueError(f"herm_inv takes (B, n, n) with n <= {MAX_N}; "
+                         f"got {tuple(s.shape)}")
+    _build.check(s, "s", torch.complex64)
+    if out is None:
+        out = torch.empty_like(s)
+    else:
+        _build.check(out, "out", torch.complex64, tuple(s.shape), s.device)
+    _build.call("herm_inv", "hk_herm_inv", _build.ptr(s), _build.ptr(out),
+                batch, n)
+    return out
+
+
+def apply_refine(e, inv, rhs, refine: int = 1, mm=cgemm):
+    """``x = inv rhs`` followed by ``refine`` steps ``x += inv (rhs - e x)``
+    (``megastep.py:190-194``); ``mm`` is the product to use."""
+    x = mm(inv, rhs)
+    for _ in range(refine):
+        r = mm(e, x, x=rhs, alpha=-1.0, beta=1.0)
+        x = mm(inv, r, x=x, out=x)
+    return x
+
+
+def hermitian_solve(m: torch.Tensor, b: torch.Tensor, refine: int = 1):
+    """Jacobi-equilibrated solve of ``m x = b`` for Hermitian PD ``m``
+    (B, n, n) and ``b`` (B, n, k): the complex counterpart of
+    ``ops/pallas/spd_inv.py::hermitian_solve_pallas2``."""
+    tiny = torch.finfo(torch.float32).tiny
+    d = torch.sqrt(torch.clamp(torch.diagonal(m, dim1=-2, dim2=-1).real,
+                               min=tiny))
+    dinv = 1.0 / d
+    ms = (m * (dinv[..., :, None] * dinv[..., None, :])).contiguous()
+    bs = (b * dinv[..., :, None]).contiguous()
+    x = apply_refine(ms, herm_inv(ms), bs, refine)
+    return x * dinv[..., :, None]

@@ -1,0 +1,78 @@
+"""One GCR draw plus its statistics: phases 1-6 of
+``ops/pallas/megastep.py::_draw_body`` (:111-235), composed from the
+hand-written kernels.
+
+Every matrix product goes through :func:`cgemm`, the system inverse
+through :func:`herm_inv`, and every ``(B, n, t)`` elementwise or reduction
+pass through :mod:`draw_fused`. On CPU tensors each of those takes its
+plain torch version, so this one function is both the CUDA path and the
+CPU reference.
+
+Phases (all fields in the time-transposed (B, n, t) layout, complex64):
+  1. ``rc = ni_d + nih omega_b``                          draw_rhs
+  2. ``b_a = Fg^H rc``; ``rc -= G b_a``                    cgemm x2
+  3. ``frc = F rc``                                        cgemm
+  4. ``S = I + D P~ D`` equilibrated, ``xs`` its RHS      draw_system
+     ``S^-1`` (or the caller's warm start), apply, refine herm_inv, cgemm
+  5. ``sk = dd u``, ``beta``; ``sig = F^H sk / n``;
+     ``amps = Maa^-1 b_a - G^H sig + a0``               row_scale_sumsq, cgemm
+  6. FG-deflated residual -> chi, noise_nu, bmask        cgemm, draw_resid
+"""
+from typing import NamedTuple, Optional
+
+import torch
+
+from .herm_inv import apply_refine
+from .impl import KERNELS, Impl
+
+
+class DrawOut(NamedTuple):
+    sig: Optional[torch.Tensor]    # (B, n, t) complex, full mode
+    amp: Optional[torch.Tensor]    # (B, m, t) complex, full mode
+    chi: Optional[torch.Tensor]    # (B, n, t), full mode
+    chit: Optional[torch.Tensor]   # (B, n) chi summed over true times, lean
+    beta: torch.Tensor             # (B, n)
+    noise_nu: torch.Tensor         # (B, n)
+    bmask: torch.Tensor            # (B, n)
+
+
+def draw_body(mops, ps, oa, ob, *, nfreqs: int, ntimes: int,
+              all_unflagged: bool, refine: int = 1, build_inv=None,
+              lean: bool = False, sig_out=None, amp_out=None,
+              chi_out=None, impl: Impl = KERNELS) -> DrawOut:
+    """One draw for the batch. ``mops``: :class:`models.mega.MegaOperators`;
+    ``ps`` (B, n) float32; ``oa``/``ob`` (B, n, t) complex64 omegas (the
+    kernel masks them at ``ntimes``). ``build_inv(S)``: optional policy
+    returning the system inverse (the megachain warm start); default is
+    the exact inverse. ``*_out``: optional preallocated full-mode outputs.
+    ``impl``: the kernels (default) or the plain versions (``impl.PLAIN``)."""
+    mm = impl.cgemm
+    # 1-3. right-hand side, FG Schur reduction, delay basis
+    rc = impl.draw_rhs(mops.nid, mops.nih, ob, ntimes)
+    ba = mm(mops.fg, rc, op="H")
+    rc = mm(mops.g, ba, x=rc, alpha=-1.0, beta=1.0, out=rc)
+    frc = mm(mops.f, rc)
+
+    # 4. equilibrated system, inverse, apply + refinement
+    s, xs, dd, dinv = impl.draw_system(mops.pt, ps, frc, oa, ntimes, nfreqs)
+    inv = impl.herm_inv(s) if build_inv is None else build_inv(s)
+    x = apply_refine(s, inv, xs, refine, mm=mm)
+
+    # 5. delay statistics, back-transform, amplitudes
+    sk, beta = impl.row_scale_sumsq(x, dinv, dd)
+    sig = mm(mops.f, sk, op="H", alpha=1.0 / nfreqs, out=sig_out)
+    ma = mm(mops.mi, ba)
+    da = mm(mops.g, sig, op="H", x=ma, alpha=-1.0, beta=1.0, out=ma)
+
+    # 6. residual against the FG-deflated data
+    fa = mm(mops.fg, da)
+    chi, noise_nu, chit, amp, ws = impl.draw_resid(
+        mops.dw, sig, fa, mops.ninv_full, mops.w, da, mops.a0, ntimes,
+        want_chi=not lean, want_chit=lean, want_amp=not lean,
+        want_ws=not all_unflagged, chi_out=chi_out, amp_out=amp_out)
+    if all_unflagged:
+        bmask = beta
+    else:
+        _, bmask = impl.row_scale_sumsq(mm(mops.f, ws), want_y=False)
+    return DrawOut(None if lean else sig, amp, chi, chit, beta, noise_nu,
+                   bmask)

@@ -1,0 +1,164 @@
+"""Per-chain Philox4x32-10 streams and the bandpower conditional.
+
+Kernels: ``csrc/rng_bandpower.cu`` (CUDA C++). They replace the TPU core
+PRNG draws and Box-Muller of ``ops/pallas/megachain.py:238-302`` and the
+in-kernel conditional ``_sample_bandpowers_body`` (:102-145). Streams are
+keyed on (run seed, global chain stream id, global iteration); see
+:mod:`hydra_pspec_torch.ops.philox`, the plain-torch twin that draws the
+same words. ``rng_fields`` is ALU bound (Philox rounds and
+transcendentals), ``bandpower`` latency bound and tiny (one block per
+chain, one thread per bin).
+"""
+from typing import NamedTuple
+
+import torch
+
+from .. import philox
+from ..invgamma import truncated_invgamma_sample_table
+from . import _build
+
+F32 = torch.float32
+MAX_PRIOR_BINS = philox.N_PRIOR_UNIFORMS  # prior lanes of the conditional
+
+
+class PriorBins(NamedTuple):
+    """The bounded prior bins as device tensors (from ``prior_static``)."""
+
+    idx: torch.Tensor   # (np,) int32 bin indices
+    lo: torch.Tensor    # (np,) float32 lower bounds
+    hi: torch.Tensor    # (np,) float32 upper bounds
+
+
+def prior_bins(prior_static, device) -> PriorBins:
+    """``((idx, lo, hi), ...)`` -> :class:`PriorBins` on ``device``."""
+    if len(prior_static) > MAX_PRIOR_BINS:
+        raise NotImplementedError(
+            f"at most {MAX_PRIOR_BINS} bounded prior bins; more run only on "
+            f"the single-step engine, not ported yet (ROADMAP.md, Queue 1 "
+            f"item 9)")
+    idx = [int(p[0]) for p in prior_static]
+    return PriorBins(
+        torch.tensor(idx, dtype=torch.int32, device=device),
+        torch.tensor([p[1] for p in prior_static], dtype=F32, device=device),
+        torch.tensor([p[2] for p in prior_static], dtype=F32, device=device))
+
+
+def _u32(v: int) -> int:
+    return int(v) & philox.MASK32
+
+
+# --- omega fields ----------------------------------------------------------
+
+plain_rng_fields = philox.omega_fields  # the twin, on any device
+
+
+def rng_fields(seed: int, sids: torch.Tensor, g: int, n: int, t: int,
+               ntimes: int, nfreqs: int):
+    """The iteration-``g`` omegas ``(oa, ob)``, complex64 (B, n, t), of the
+    chains ``sids`` (int32, on the device to draw on)."""
+    if _build.on_cpu(sids):
+        return plain_rng_fields(seed, sids, g, n, t, ntimes, nfreqs)
+    B = sids.shape[0]
+    _build.check(sids, "sids", torch.int32, (B,))
+    oa = torch.empty((B, n, t), dtype=torch.complex64, device=sids.device)
+    ob = torch.empty_like(oa)
+    _build.call("rng_fields", "hk_rng_fields", _u32(seed), _build.ptr(sids),
+                _u32(g), _build.ptr(oa), _build.ptr(ob), B, n, t, ntimes,
+                nfreqs)
+    return oa, ob
+
+
+# --- bandpower conditional -------------------------------------------------
+
+def _conditional(beta, gam, u_pb, prior: PriorBins, tlog, q):
+    """``beta / gam`` on free bins; truncated inverse gamma on the bounded
+    ones, lane j of ``u_pb`` for prior bin j."""
+    free = beta / gam
+    npb = prior.idx.shape[0]
+    if npb == 0:
+        return free
+    idx = prior.idx.long()
+    x = truncated_invgamma_sample_table(
+        u_pb[:, :npb], beta[:, idx], prior.lo, prior.hi, tlog, q)
+    out = free.clone()
+    out[:, idx] = x
+    return out
+
+
+def _check_rand(gam, u_pb, sids):
+    external = gam is not None
+    if external == (sids is not None) or (u_pb is None) != (gam is None):
+        raise ValueError("give either gam and u_pb, or seed and sids")
+    return external
+
+
+def plain_bandpower(beta, prior: PriorBins, tlog, q, *, gam=None, u_pb=None,
+                    seed=None, sids=None, g=0, alpha=None, gam_out=False):
+    """The same function with ordinary torch ops and the Philox twin, on
+    any device."""
+    if not _check_rand(gam, u_pb, sids):
+        gam = philox.gamma_draws(seed, sids, g, beta.shape[1], alpha)
+        u_pb = philox.prior_uniforms(seed, sids, g)
+    ps = _conditional(beta, gam, u_pb, prior, tlog, q)
+    return (ps, gam) if gam_out else ps
+
+
+def bandpower(beta, prior: PriorBins, tlog, q, *, gam=None, u_pb=None,
+              seed=None, sids=None, g=0, alpha=None, gam_out=False):
+    """Draw the new bandpowers (B, n) from ``beta`` (B, n).
+
+    Randomness: external ``gam`` (B, n) and ``u_pb`` (B, >=8), or the
+    streams of ``seed``/``sids`` at global iteration ``g`` with
+    Gamma shape ``alpha``. ``gam_out``: also return the Gamma draws."""
+    if _build.on_cpu(beta, gam, u_pb, sids, tlog, q):
+        return plain_bandpower(beta, prior, tlog, q, gam=gam, u_pb=u_pb,
+                               seed=seed, sids=sids, g=g, alpha=alpha,
+                               gam_out=gam_out)
+    external = _check_rand(gam, u_pb, sids)
+    B, n = beta.shape
+    dev = beta.device
+    _build.check(beta, "beta", F32, (B, n), dev)
+    u_stride = 0
+    if external:
+        _build.check(gam, "gam", F32, (B, n), dev)
+        _build.check(u_pb, "u_pb", F32, (B, None), dev)
+        u_stride = u_pb.shape[1]
+    else:
+        _build.check(sids, "sids", torch.int32, (B,), dev)
+    _build.check(tlog, "tlog", F32, (None,), dev)
+    _build.check(q, "q", F32, tuple(tlog.shape), dev)
+    npb = prior.idx.shape[0]
+    for name, v in zip(("idx", "lo", "hi"), prior):
+        _build.check(v, f"prior.{name}", v.dtype, (npb,), dev)
+    ps = torch.empty_like(beta)
+    g_out = torch.empty_like(beta) if gam_out else None
+    _build.call("bandpower", "hk_bandpower", _build.ptr(beta),
+                _build.ptr(gam), _build.ptr(u_pb), u_stride,
+                _u32(seed or 0), _build.ptr(sids), _u32(g),
+                int(alpha or 0), _build.ptr(tlog), _build.ptr(q),
+                tlog.shape[0], _build.ptr(prior.idx), _build.ptr(prior.lo),
+                _build.ptr(prior.hi), npb, _build.ptr(ps), _build.ptr(g_out),
+                B, n)
+    return (ps, g_out) if gam_out else ps
+
+
+# --- raw words, for checking the kernel's generator against the twin -------
+
+def philox_raw(ctr: torch.Tensor, key: torch.Tensor) -> torch.Tensor:
+    """Philox4x32-10 of ``ctr`` (N, 4) under ``key`` (N, 2), int32 tensors
+    holding uint32 bit patterns; returns (N, 4) int32."""
+    if _build.on_cpu(ctr, key):
+        c = ctr.to(torch.int64) & philox.MASK32
+        k = key.to(torch.int64) & philox.MASK32
+        words = philox.philox4x32(c[:, 0], c[:, 1], c[:, 2], c[:, 3],
+                                  k[:, 0], k[:, 1])
+        out = torch.stack(words, dim=1)
+        return torch.where(out >= 2 ** 31, out - 2 ** 32, out).to(
+            torch.int32)
+    N = ctr.shape[0]
+    _build.check(ctr, "ctr", torch.int32, (N, 4))
+    _build.check(key, "key", torch.int32, (N, 2), ctr.device)
+    out = torch.empty_like(ctr)
+    _build.call("philox_raw", "hk_philox_raw", _build.ptr(ctr),
+                _build.ptr(key), _build.ptr(out), N)
+    return out

@@ -1,0 +1,127 @@
+"""Counter-based Philox4x32-10 streams, in plain torch.
+
+This is the twin of the CUDA generator in ``csrc/rng_bandpower.cu``: both
+draw the same 32-bit words from the same (key, counter), so a run on the CPU
+and a run on the card with the same seed see the same random numbers (up to
+the last bits of ``log``/``cos``/``sin``, which differ between the two
+math libraries).
+
+Stream layout. The key is ``(run seed, global chain stream id sid)``; the
+first counter word is the GLOBAL Gibbs iteration, so a chain's draws depend
+on (seed, sid, iteration) only: not on batch composition, chunk size or a
+resume. The second word names the purpose:
+
+* ``OMEGA`` (0): counter ``(g, 0, row i, time j)``; words 0-1 give the
+  frequency-basis omega (Box-Muller), words 2-3 the delay-basis omega;
+* ``GAMMA`` (1): counter ``(g, 1, bin i, r)``; words are the uniforms
+  ``4r .. 4r+3`` of the integer-alpha draw ``Gamma = -sum log u``;
+* ``UNIFORM`` (2): counter ``(g, 2, 0, r)``, r = 0, 1; the 8 prior-bin
+  uniforms.
+
+It replaces the TPU core PRNG of ``ops/pallas/megachain.py:238-302`` and the
+Box-Muller of ``ops/pallas/megastep.py:55-73``.
+
+The 32x32 -> 64-bit ``mulhi`` of Philox overflows signed int64, so it is
+split into 16-bit halves here.
+"""
+import math
+
+import torch
+
+M0, M1 = 0xD2511F53, 0xCD9E8D57
+W0, W1 = 0x9E3779B9, 0xBB67AE85
+MASK32 = 0xFFFFFFFF
+OMEGA, GAMMA, UNIFORM = 0, 1, 2
+N_PRIOR_UNIFORMS = 8
+
+
+def _mulhilo(a: int, b: torch.Tensor):
+    """(hi, lo) 32-bit words of the 64-bit product a*b, for a < 2^32 and an
+    int64 tensor b in [0, 2^32), without leaving int64."""
+    p_lo = a * (b & 0xFFFF)          # < 2^48
+    p_hi = a * (b >> 16)             # < 2^48
+    s = p_lo + ((p_hi & 0xFFFF) << 16)
+    return (p_hi >> 16) + (s >> 32), s & MASK32
+
+
+def philox4x32(c0, c1, c2, c3, k0, k1):
+    """Philox4x32-10 on int64 tensors (or ints) holding uint32 values;
+    arguments broadcast. Returns the four output words as int64 tensors."""
+    c0, c1, c2, c3, k0, k1 = (torch.as_tensor(x, dtype=torch.int64)
+                              for x in (c0, c1, c2, c3, k0, k1))
+    for r in range(10):
+        if r:
+            k0 = (k0 + W0) & MASK32
+            k1 = (k1 + W1) & MASK32
+        hi0, lo0 = _mulhilo(M0, c0)
+        hi1, lo1 = _mulhilo(M1, c2)
+        c0, c1, c2, c3 = hi1 ^ c1 ^ k0, lo1, hi0 ^ c3 ^ k1, lo0
+    return c0, c1, c2, c3
+
+
+def uniform_open(bits: torch.Tensor) -> torch.Tensor:
+    """(0, 1)-open float32 uniform from the top 24 bits."""
+    return (bits >> 8).to(torch.float32) * 2.0 ** -24 + 2.0 ** -25
+
+
+def bits_to_normals(bits1, bits2):
+    """Box-Muller, as ``megastep.bits_to_normals`` (megastep.py:55-73)."""
+    u1 = uniform_open(bits1)
+    u2 = (bits2 >> 8).to(torch.float32) * 2.0 ** -24
+    r = torch.sqrt(-2.0 * torch.log(u1))
+    th = torch.tensor(2.0 * math.pi, dtype=torch.float32) * u2
+    return r * torch.cos(th), r * torch.sin(th)
+
+
+def _keys(seed: int, sids: torch.Tensor):
+    k0 = int(seed) & MASK32
+    k1 = sids.to(torch.int64) & MASK32
+    return k0, k1
+
+
+def omega_fields(seed: int, sids: torch.Tensor, g: int, n: int, t: int,
+                 ntimes: int, nfreqs: int):
+    """The two omega fields of one iteration, complex64 ``(B, n, t)``:
+    ``oa`` (delay basis, scaled sqrt(1/2) sqrt(nfreqs)) and ``ob``
+    (frequency basis, scaled sqrt(1/2)). Zero on time lanes >= ntimes."""
+    dev = sids.device
+    k0, k1 = _keys(seed, sids)
+    i = torch.arange(n, dtype=torch.int64, device=dev)[None, :, None]
+    j = torch.arange(t, dtype=torch.int64, device=dev)[None, None, :]
+    w0, w1, w2, w3 = philox4x32(int(g) & MASK32, OMEGA, i, j,
+                                k0, k1[:, None, None])
+    half = torch.tensor(math.sqrt(0.5), dtype=torch.float32)
+    sa = half * torch.sqrt(torch.tensor(float(nfreqs), dtype=torch.float32))
+    mask = (j < ntimes).to(torch.float32)
+    obr, obi = bits_to_normals(w0, w1)
+    oar, oai = bits_to_normals(w2, w3)
+    ob = torch.complex(obr * half * mask, obi * half * mask)
+    oa = torch.complex(oar * sa * mask, oai * sa * mask)
+    return oa, ob
+
+
+def gamma_draws(seed: int, sids: torch.Tensor, g: int, n: int,
+                alpha: int) -> torch.Tensor:
+    """(B, n) float32 Gamma(alpha) = -sum_r log(u_4r u_4r+1 u_4r+2 u_4r+3),
+    uniforms at index >= alpha taken as exactly 1."""
+    dev = sids.device
+    k0, k1 = _keys(seed, sids)
+    nr = -(-alpha // 4)
+    i = torch.arange(n, dtype=torch.int64, device=dev)[None, :, None]
+    r = torch.arange(nr, dtype=torch.int64, device=dev)[None, None, :]
+    words = philox4x32(int(g) & MASK32, GAMMA, i, r, k0, k1[:, None, None])
+    prod = None
+    for q, wq in enumerate(words):
+        u = torch.where(4 * r + q < alpha, uniform_open(wq),
+                        torch.ones((), dtype=torch.float32, device=dev))
+        prod = u if prod is None else prod * u
+    return -torch.sum(torch.log(prod), dim=2)
+
+
+def prior_uniforms(seed: int, sids: torch.Tensor, g: int) -> torch.Tensor:
+    """(B, 8) float32 uniforms for the bounded prior bins."""
+    k0, k1 = _keys(seed, sids)
+    r = torch.arange(2, dtype=torch.int64, device=sids.device)[None, :]
+    words = philox4x32(int(g) & MASK32, UNIFORM, 0, r, k0, k1[:, None])
+    # (B, 2, 4): lane 4r + q
+    return uniform_open(torch.stack(words, dim=2)).reshape(-1, 8)

@@ -1,0 +1,378 @@
+"""Multi-baseline, multi-chain execution on one device (port of the
+megachain branch of ``hydra_pspec_tpu/runner.py``).
+
+The (baseline x chain) product is one batch axis run by the megachain
+engine (``models/megachain.py``). Samples are flushed every ``write_niter``
+iterations with the reference's file names, and a run-level checkpoint
+allows resume with complete output files. Every chain's randomness is keyed
+on (seed, global chain stream id, global iteration), so a subset of
+baselines, a different chunking or a resumed run reproduces the same
+chains.
+
+Single device only. These raise ``NotImplementedError`` naming the
+ROADMAP item that ports them: MAP mode, a dense ``Ninv``, more than 8
+bounded prior bins, ``Ntimes > 1025``, ``flags_tf``, more than one process
+or device. Sample files are written with ``np.save`` (the native writer of
+``utils/fastio.py`` is not ported).
+"""
+import time
+from dataclasses import dataclass
+from pathlib import Path
+from typing import Callable, Optional, Sequence
+
+import numpy as np
+import torch
+
+from .models import mega, megachain, rgibbs
+from .utils import io as hio
+
+MAX_NTIMES = 1025
+
+
+@dataclass
+class BaselineJob:
+    """One baseline's inference inputs (reference run-hydra-pspec.py:462)."""
+
+    antpair: tuple
+    d: np.ndarray              # (Ntimes, Nfreqs) complex, noise-injected
+    w: np.ndarray              # (Nfreqs,) 1 = keep
+    fgmodes: np.ndarray        # (Nfreqs, Nmodes)
+    S_initial: np.ndarray      # (Nfreqs, Nfreqs) or bandpowers (Nfreqs,)
+    Ninv: np.ndarray           # (Nfreqs,) diag, diagonal matrix, or scalar
+    out_dir: Optional[Path] = None
+    flags_tf: Optional[np.ndarray] = None  # not ported: raises
+
+
+@dataclass
+class RunResult:
+    antpair: tuple
+    chain: int
+    signal_ps: np.ndarray      # (Niter, Nfreqs)
+    ln_post: np.ndarray        # (Niter,)
+    chisq: np.ndarray
+    signal_cr: Optional[np.ndarray]
+    fg_amps: Optional[np.ndarray]
+    signal_S: np.ndarray
+    out_dir: Optional[Path]
+    write_time: float = 0.0
+
+
+def _initial_ps_host(S_initial, nfreqs):
+    """Bandpower state from an initial covariance (host numpy)."""
+    S0 = np.asarray(S_initial)
+    if S0.ndim == 1:
+        return np.clip(S0.real, 0.0, None)
+    i = np.arange(nfreqs) - nfreqs // 2
+    F = np.exp(-2j * np.pi * np.outer(i, i) / nfreqs)
+    ps = np.diagonal(F @ S0 @ F.conj().T).real / nfreqs**2 * nfreqs**2
+    return np.clip(ps, 0.0, None)
+
+
+def select_engine(engine: str = "auto") -> str:
+    """The port has one engine: megachain."""
+    if engine in ("auto", "megachain"):
+        return "megachain"
+    raise NotImplementedError(
+        f"engine {engine!r} is not ported yet; only megachain runs "
+        f"(ROADMAP.md, Queue 1 items 9-10)")
+
+
+def _check_supported(jobs, ps_prior, map_estimate, num_processes,
+                     mesh_devices):
+    if map_estimate:
+        raise NotImplementedError(
+            "MAP mode runs on the real engine, not ported yet "
+            "(ROADMAP.md, Queue 1 item 9)")
+    if num_processes > 1 or (mesh_devices is not None
+                             and len(mesh_devices) > 1):
+        raise NotImplementedError(
+            "multi-process and multi-device runs are not ported yet "
+            "(ROADMAP.md, Queue 1 item 7)")
+    if any(j.flags_tf is not None for j in jobs):
+        raise NotImplementedError(megachain.TFLAGS_ITEM)
+    n_prior = int(np.count_nonzero(np.any(np.asarray(ps_prior) > 0, axis=0)))
+    if n_prior > megachain.MAX_PRIOR_BINS:
+        raise NotImplementedError(
+            f"{n_prior} bounded prior bins: more than "
+            f"{megachain.MAX_PRIOR_BINS} run on the single-step engine, not "
+            f"ported yet (ROADMAP.md, Queue 1 item 9)")
+    if jobs[0].d.shape[0] > MAX_NTIMES:
+        raise NotImplementedError(
+            f"Ntimes > {MAX_NTIMES} runs on the single-step engine, not "
+            f"ported yet (ROADMAP.md, Queue 1 item 9)")
+    for j in jobs:
+        ninv = np.asarray(j.Ninv)
+        if ninv.ndim == 2 and np.abs(ninv - np.diag(np.diag(ninv))).max() > 0:
+            raise NotImplementedError(rgibbs.DENSE_NINV_ITEM)
+
+
+def run_baselines(
+    jobs: Sequence[BaselineJob],
+    ps_prior: np.ndarray,
+    niter: int,
+    *,
+    device,
+    seed: Optional[int] = None,
+    nchains: int = 1,
+    write_niter: int = 100,
+    map_estimate: bool = False,
+    store_cr: bool = True,
+    engine: str = "auto",
+    warm_ns: int = 3,
+    drift_max: float = 0.6,
+    checkpoint: bool = True,
+    checkpoint_niter: int = 0,
+    resume: bool = False,
+    run_dir: Optional[Path] = None,
+    num_processes: int = 1,
+    mesh_devices: Optional[Sequence] = None,
+    global_baseline_ids: Optional[Sequence[int]] = None,
+    randomness: Optional[Callable] = None,
+    verbose: bool = False,
+):
+    """Run Gibbs chains for every (baseline, chain) pair on ``device``;
+    returns ``(results, timings)`` with one :class:`RunResult` per pair.
+
+    ``checkpoint_niter``: checkpoint cadence in iterations (rounded up to
+    whole ``write_niter`` chunks); 0 = every chunk. ``warm_ns`` /
+    ``drift_max``: Newton-Schulz refresh steps of the carried system
+    inverse and the largest relative bandpower move that trusts it (0
+    disables). ``global_baseline_ids``: the baselines' global indices, which
+    key their streams. ``randomness``: optional callable ``(iteration,
+    k_total) -> dict`` of external randomness per chunk (the JAX package's
+    layout), for pinning against it; default is the Philox streams of
+    ``seed``."""
+    engine = select_engine(engine)
+    _check_supported(jobs, ps_prior, map_estimate, num_processes,
+                     mesh_devices)
+    device = torch.device(device)
+    seed = 0 if seed is None else int(seed)
+    nbl = len(jobs)
+    nfreqs = jobs[0].d.shape[-1]
+    meta = [(ib, ic) for ib in range(nbl) for ic in range(nchains)]
+    if run_dir is None and jobs[0].out_dir is not None:
+        run_dir = Path(jobs[0].out_dir).parent
+    prior_host = np.asarray(ps_prior, dtype=np.float64)
+
+    # --- build, stack and move the chain constants -----------------------
+    t_scatter0 = time.perf_counter()
+    ops_list = [rgibbs.build_chain_operators(j.d, j.w, j.fgmodes, j.Ninv)
+                for j in jobs]
+    stacked = rgibbs.stack_chain_operators([ops_list[ib] for ib, _ in meta])
+    mops, dims = mega.from_chain_operators(stacked, device)
+    ps_b = mega.pad_ps(np.stack([_initial_ps_host(jobs[ib].S_initial, nfreqs)
+                                 for ib, _ in meta]), dims, device)
+    gids = (list(global_baseline_ids) if global_baseline_ids is not None
+            else list(range(nbl)))
+    # global chain stream ids: a chain's draws depend on this id only
+    sid_b = torch.as_tensor(np.asarray(
+        [gids[ib] * nchains + ic for ib, ic in meta], dtype=np.int32)).to(
+            device)
+    tables = megachain.make_chain_tables(mops, device)
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    t_scatter = time.perf_counter() - t_scatter0
+
+    # --- resume ------------------------------------------------------------
+    start_iter = 0
+    prefix = None
+    n_real = len(meta)
+    if resume and run_dir is not None:
+        ck = hio.load_checkpoint(run_dir)
+        if ck is not None:
+            consistent = (
+                ck["ps"].shape == (n_real, nfreqs)
+                and ck["extra"].get("engine", engine) == engine
+                and ck["extra"].get("nchains", nchains) == nchains)
+            if consistent:
+                prefix = _load_prefix(jobs, meta, nchains, ck["iteration"],
+                                      store_cr)
+            if prefix is not None:
+                start_iter = ck["iteration"]
+                ps_b = mega.pad_ps(ck["ps"], dims, device)
+                if verbose:
+                    print(f"resuming from iteration {start_iter}")
+            elif verbose:
+                print("checkpoint inconsistent with this run's "
+                      "jobs/outputs; starting fresh")
+
+    # --- chunked chain with host flushes -----------------------------------
+    host_chunks = []
+    write_time = 0.0
+    ckpt_every = (max(1, -(-checkpoint_niter // write_niter))
+                  if checkpoint_niter > 0 else 1)
+    n_chunks = 0
+    row_write_sec = [0.0] * n_real
+    t0_proc = time.perf_counter()
+    done = start_iter
+    while done < niter:
+        n = min(write_niter, niter - done)
+        ps_b, samples = megachain.run_chain_megachain(
+            mops, dims, ps_b, prior_host, n, seed=seed, sids=sid_b,
+            iter0=done, randomness=randomness, tables=tables,
+            store_cr=store_cr, chunk=n, warm_ns=warm_ns,
+            drift_max=drift_max)
+        done += n
+        host_chunks.append(_to_host(samples, store_cr))
+        n_chunks += 1
+        if verbose:
+            hc = host_chunks[-1]
+            print(f"iter {done}/{niter}  chisq={float(np.mean(hc.chisq)):.4f}"
+                  f"  ln_post={float(np.mean(hc.ln_post[-1])):.1f}")
+        t0 = time.perf_counter()
+        if jobs[0].out_dir is not None:
+            _flush(jobs, meta, host_chunks, nchains, store_cr, nfreqs, prefix,
+                   row_sec=row_write_sec)
+            if checkpoint and run_dir is not None and (
+                    n_chunks % ckpt_every == 0 or done >= niter):
+                hio.save_checkpoint(
+                    run_dir, iteration=done,
+                    ps=ps_b[:, :nfreqs].cpu().numpy(),
+                    key_data=np.asarray([seed], dtype=np.int64),
+                    extra={"niter": niter, "engine": engine,
+                           "nchains": nchains})
+        write_time += time.perf_counter() - t0
+    t_process = time.perf_counter() - t0_proc
+
+    results = _collect(jobs, meta, host_chunks, nchains, store_cr, nfreqs,
+                       row_write_sec, prefix)
+    timings = {
+        "process": t_process,
+        "write": write_time,
+        "scatter": t_scatter,
+        "niter": niter,
+        "start_iter": start_iter,
+        "batch": n_real,
+        "engine": engine,
+        "device": str(device),
+    }
+    return results, timings
+
+
+class _HostSample:
+    __slots__ = ("signal_cr", "ps", "fg_amps", "chisq", "ln_post")
+
+    def __init__(self, signal_cr, ps, fg_amps, chisq, ln_post):
+        self.signal_cr = signal_cr
+        self.ps = ps
+        self.fg_amps = fg_amps
+        self.chisq = chisq
+        self.ln_post = ln_post
+
+
+def _to_host(samples, store_cr):
+    """Device samples (iterations on axis 0, batch on axis 1) -> numpy."""
+    h = lambda a: None if a is None else a.contiguous().cpu().numpy()
+    return _HostSample(
+        h(samples.signal_cr) if store_cr else None,
+        h(samples.ps),
+        h(samples.fg_amps) if store_cr else None,
+        h(samples.chisq),
+        h(samples.ln_post),
+    )
+
+
+def _chain_dir(out_dir, chain, nchains):
+    d = Path(out_dir)
+    if nchains > 1:
+        d = d / f"chain-{chain}"
+    return d
+
+
+def _slice_batch(host_chunks, idx, store_cr, prefix=None):
+    """Per-(baseline, chain) arrays with iterations on axis 0; ``prefix``
+    (resume) holds this chain's pre-checkpoint samples read from disk."""
+    pre = prefix or {}
+
+    def cat(key, chunk_arrs):
+        parts = ([pre[key]] if key in pre else []) + chunk_arrs
+        return np.concatenate(parts)
+
+    take = lambda a: None if a is None else np.take(a, idx, axis=1)
+    ps = cat("signal_ps", [take(c.ps) for c in host_chunks])
+    lnp = cat("ln_post", [np.atleast_1d(take(c.ln_post))
+                          for c in host_chunks])
+    if store_cr:
+        cr = cat("signal_cr", [take(c.signal_cr) for c in host_chunks])
+        fga = cat("fg_amps", [take(c.fg_amps) for c in host_chunks])
+        chi = cat("chisq", [take(c.chisq) for c in host_chunks])
+    else:
+        cr = fga = None
+        chi = cat("chisq", [np.atleast_1d(take(c.chisq))
+                            for c in host_chunks])
+    return ps, lnp, cr, fga, chi
+
+
+def _load_prefix(jobs, meta, nchains, start_iter, store_cr):
+    """Each chain's first ``start_iter`` samples read back for resume, or
+    None when any chain's files are missing or short."""
+    if start_iter == 0:
+        return None
+    keys = ["signal_ps", "ln_post"] + (
+        ["signal_cr", "fg_amps", "chisq"] if store_cr else ["chisq"])
+    prefix = []
+    for ib, ic in meta:
+        if jobs[ib].out_dir is None:
+            return None
+        s = hio.load_samples(_chain_dir(jobs[ib].out_dir, ic, nchains))
+        if any(k not in s or s[k].shape[0] < start_iter for k in keys):
+            return None
+        prefix.append({k: s[k][:start_iter] for k in keys})
+    return prefix
+
+
+def _final_S(ps_last, nfreqs):
+    i = np.arange(nfreqs) - nfreqs // 2
+    F = np.exp(-2j * np.pi * np.outer(i, i) / nfreqs)
+    return F.conj().T @ np.diag(ps_last / nfreqs**2).astype(complex) @ F
+
+
+def _flush(jobs, meta, host_chunks, nchains, store_cr, nfreqs, prefix=None,
+           row_sec=None):
+    """Write every row's six sample files (whole chain so far)."""
+    for bidx, (ib, ic) in enumerate(meta):
+        job = jobs[ib]
+        if job.out_dir is None:
+            continue
+        t0 = time.perf_counter()
+        ps, lnp, cr, fga, chi = _slice_batch(
+            host_chunks, bidx, store_cr, prefix[bidx] if prefix else None)
+        hio.write_numpy_files(
+            _chain_dir(job.out_dir, ic, nchains),
+            cr if cr is not None else np.zeros(0),
+            _final_S(ps[-1], nfreqs), ps,
+            fga if fga is not None else np.zeros(0), chi, lnp)
+        if row_sec is not None:
+            row_sec[bidx] += time.perf_counter() - t0
+
+
+def _collect(jobs, meta, host_chunks, nchains, store_cr, nfreqs,
+             row_write_sec, prefix=None):
+    results = []
+    for bidx, (ib, ic) in enumerate(meta):
+        job = jobs[ib]
+        ps, lnp, cr, fga, chi = _slice_batch(
+            host_chunks, bidx, store_cr, prefix[bidx] if prefix else None)
+        results.append(RunResult(
+            antpair=job.antpair, chain=ic, signal_ps=ps, ln_post=lnp,
+            chisq=chi, signal_cr=cr, fg_amps=fga,
+            signal_S=_final_S(ps[-1], nfreqs),
+            out_dir=(None if job.out_dir is None
+                     else _chain_dir(job.out_dir, ic, nchains)),
+            write_time=row_write_sec[bidx]))
+    return results
+
+
+def gelman_rubin(ps_chains: np.ndarray) -> np.ndarray:
+    """Split-R-hat over chains: (Nchains, Niter, Nfreqs) -> (Nfreqs,)."""
+    c, n, k = ps_chains.shape
+    half = n // 2
+    splits = ps_chains[:, :half], ps_chains[:, half: 2 * half]
+    x = np.concatenate(splits, axis=0)
+    nn = x.shape[1]
+    chain_means = x.mean(axis=1)
+    chain_vars = x.var(axis=1, ddof=1)
+    B = nn * chain_means.var(axis=0, ddof=1)
+    W = chain_vars.mean(axis=0)
+    var_hat = (nn - 1) / nn * W + B / nn
+    return np.sqrt(var_hat / np.maximum(W, 1e-300))

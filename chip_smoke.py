@@ -7,19 +7,29 @@ Phases, one printed line each (any failure raises; exit code non-zero):
   2. build the hand-written kernels from hydra_pspec_torch/csrc with nvcc;
   3. each kernel against its plain torch version on the card, at the main
      path's shapes (B=8, n=128, t=256, m=16), with the tolerance stated;
-     Philox bits against the twin; normal and Gamma moments;
+     Philox bits against the twin; normal and Gamma moments; the grouped
+     time-flags variants (per-row time counts, pooled bandpower) at the
+     tflags path's shapes (8 chains x G=4 rows, t=128);
   4. chain phase: run_chunk_megachain with numpy-made randomness, K=3,
-     B=8, kernels against the plain path, at the CPU pin's tolerances;
+     B=8, kernels against the plain path, at the CPU pin's tolerances; the
+     same for a grouped chain (8 chains x G=4);
   5. main path: runner.run_baselines, 100 baselines x 1 chain at
      203 times x 120 channels, 12 Legendre foreground modes, 7-bin prior,
      200 iterations, on data drawn from the model (chi^2 should be 1);
-  6. invariance: the first 10 baselines alone give bit-identical samples;
-  7. times: one chain iteration and each kernel at B=100, kernels against
-     the plain versions (CUDA events).
+  6. invariance: the first 10 baselines alone give bit-identical samples,
+     and so do they with all-False time flags (the grouped path, G=1);
+  7. tflags: the same data with time-dependent RFI flags (two signatures,
+     3 and 2 flag patterns) and RFI of amplitude 1e4 in the flagged
+     entries, through run_baselines' grouped time-flags path: chi^2 on the
+     unflagged entries, every kernel launched, a subset bit-identical;
+  8. times: one chain iteration and each kernel at B=100, one grouped
+     chain iteration and the grouped kernels at 100 chains x G=4, kernels
+     against the plain versions (CUDA events), with each kernel's bound.
 The line before the last is a JSON object with every kernel's launches,
-error and times; the last line is the device JSON object.
+error, times and bound; the last line is the device JSON object.
 """
 import collections
+import dataclasses
 import json
 import math
 import shutil
@@ -38,6 +48,9 @@ NT, NF, NM = 203, 120, 12     # reference shape (SURVEY.md:69, bench.py:54-61)
 N_BASELINES, NITER, WRITE_NITER = 100, 200, 100
 PRIOR_HALF = 3                # 7 prior bins around delay 0
 CHI2_GATE = 0.02              # README.md:43-48
+N_SIG_A, N_SUBSET = 90, 10    # tflags: baselines of signature A; subset
+RFI = 1.0e4                   # added to every flagged entry of d
+HBM_BYTES_S, FP32_OPS_S = 3.35e12, 67e12   # H100 SXM data sheet
 
 # kernel name -> (source, the TPU code it replaces)
 KERNELS = {
@@ -62,6 +75,11 @@ KERNELS = {
 
 def say(phase, msg):
     print(f"[{phase}] {msg}", flush=True)
+
+
+def sync(dev):
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
 
 
 def require(cond, what):
@@ -131,6 +149,73 @@ def build_ops(jobs, device):
         [rgibbs.build_chain_operators(j.d, j.w, j.fgmodes, j.Ninv)
          for j in jobs])
     return mega.from_chain_operators(ops, device)
+
+
+def tflag_signatures():
+    """Signature A: channels 40-43 flagged over times 60-139 (a satellite
+    pass) and channel 90 over times 150-202: 3 patterns, G = 4, and the
+    unflagged group (times 0-59 and 140-149) is not contiguous. Signature
+    B: channel 17 over times 100-202: 2 patterns, G = 2."""
+    a = np.zeros((NT, NF), dtype=bool)
+    a[60:140, 40:44] = True
+    a[150:, 90] = True
+    b = np.zeros((NT, NF), dtype=bool)
+    b[100:, 17] = True
+    return a, b
+
+
+def make_tflags_jobs(jobs, n_sig_a):
+    """The jobs with flags: signature A on the first ``n_sig_a``, B on the
+    rest, and RFI added to every flagged entry of ``d``."""
+    a, b = tflag_signatures()
+    out = []
+    for i, j in enumerate(jobs):
+        f = a if i < n_sig_a else b
+        out.append(dataclasses.replace(j, d=j.d + RFI * f, flags_tf=f))
+    return out
+
+
+def grouped_setup(jobs, flags, nchains_each, device):
+    """The grouped layout of ``jobs`` (one chain each, or one job's
+    operators repeated ``nchains_each`` times) under ``flags``."""
+    from hydra_pspec_torch.models import megachain, rgibbs, tflags
+
+    per = [tflags.build_grouped_operators_real(j.d, flags, j.fgmodes, j.Ninv)
+           for j in jobs]
+    groups = [tflags.TimeGroupReal(
+                  ops=rgibbs.stack_chain_operators(
+                      [p[g].ops for p in per for _ in range(nchains_each)]),
+                  idx=per[0][g].idx)
+              for g in range(len(per[0]))]
+    return megachain.build_tflags_mega_setup(groups, device)
+
+
+def grouped_ids(setup, nchains, device):
+    """(row_times, row stream ids, chain id of each row) on ``device``."""
+    from hydra_pspec_torch.ops import philox
+
+    G = len(setup.group_times)
+    rows, chains = philox.grouped_stream_ids(np.arange(nchains), G)
+    as_t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)
+    return (as_t(np.tile(np.asarray(setup.group_times, np.int32), nchains)),
+            as_t(rows), as_t(chains))
+
+
+def numpy_randomness(rng, K, B, n, t, nfreqs, ntimes, group=1):
+    """External randomness in the JAX layout (per-chain Gamma and
+    uniforms repeated over a chain's rows when ``group`` > 1)."""
+    from hydra_pspec_torch.models import megachain
+
+    sa = np.float32(np.sqrt(0.5) * np.sqrt(nfreqs))
+    hf = np.float32(np.sqrt(0.5))
+    f32 = lambda x: x.astype(np.float32)
+    rows = {"oa_re": f32(rng.standard_normal((K, B, n, t))) * sa,
+            "oa_im": f32(rng.standard_normal((K, B, n, t))) * sa,
+            "ob_re": f32(rng.standard_normal((K, B, n, t))) * hf,
+            "ob_im": f32(rng.standard_normal((K, B, n, t))) * hf}
+    return megachain.grouped_randomness(
+        rows, f32(rng.gamma(ntimes - 1, size=(K, B // group, n))),
+        f32(rng.uniform(size=(K, B // group, 128))), group)
 
 
 # --- 3. kernels against their plain versions --------------------------------
@@ -273,6 +358,73 @@ def phase_kernels(dev, jobs8, errs):
         P.bandpower(beta, prior, tables.tlog, tables.q, gam=gext, u_pb=u),
         1e-5, "external randomness")
     require(torch.all(kp[:, nf:] == 0), "pad bins of ps not zero")
+
+    # grouped time-flags variants, at the tflags path's layout
+    gs = grouped_setup(jobs8, tflag_signatures()[0], 1, dev)
+    gm, G = gs.mops, len(gs.group_times)
+    Bg, _, tg = gm.nid.shape
+    ntot = gs.dims.ntimes
+    rt, sids_r, sidc_r = grouped_ids(gs, Bg // G, dev)
+    what = f"grouped G={G} B={Bg} t={tg}"
+    oa, ob = K.rng_fields(SEED, sids_r, 7, n, tg, ntot, nf, rt)
+    cmp("rng_fields", (oa, ob),
+        P.rng_fields(SEED, sids_r, 7, n, tg, ntot, nf, rt), 1e-5, what)
+    for r, c in enumerate(rt.tolist()):
+        require(torch.all(oa[r, :, c:] == 0) and torch.all(ob[r, :, c:] == 0),
+                f"grouped omegas of row {r} not zero beyond its {c} times")
+    rc = K.draw_rhs(gm.nid, gm.nih, ob, ntot, rt)
+    cmp("draw_rhs", rc, P.draw_rhs(gm.nid, gm.nih, ob, ntot, rt), 1e-5, what)
+    frc = P.cgemm(gm.f, rc)
+    psg = mega.pad_ps(np.tile(ps_truth(), (Bg, 1)), gs.dims, dev)
+    sys_k = K.draw_system(gm.pt, psg, frc, oa, ntot, nf, rt)
+    sys_p = P.draw_system(gm.pt, psg, frc, oa, ntot, nf, rt)
+    cmp("draw_system", sys_k, sys_p, 1e-5, what)
+    s, xs, dd, dinv = sys_p
+    require(torch.all(sys_k[3][G - 1::G] == 1.0),
+            "dummy rows: dinv is not 1")
+    inv = K.herm_inv(s)
+    eye = torch.eye(n, dtype=s.dtype, device=dev)
+    dummy_err = float(torch.abs(inv[G - 1::G] - eye).max())
+    say("kernels", f"herm_inv         dummy rows (S = I): max|S^-1 - I| "
+        f"{dummy_err:.1e} == 0")
+    require(dummy_err == 0.0, "herm_inv of the identity is not exact")
+    x = P.cgemm(P.herm_inv(s), xs)
+    sk, beta = P.row_scale_sumsq(x, dinv, dd)
+    require(torch.all(beta[G - 1::G] == 0), "dummy rows: beta is not 0")
+    sig = P.cgemm(gm.f, sk, op="H", alpha=1.0 / nf)
+    da = P.cgemm(gm.g, sig, op="H", x=P.cgemm(gm.mi, P.cgemm(gm.fg, rc,
+                                                            op="H")),
+                 alpha=-1.0)
+    fa = P.cgemm(gm.fg, da)
+    for lean in (False, True):
+        kw = dict(want_chi=not lean, want_chit=lean, want_amp=not lean,
+                  want_ws=True, row_times=rt)
+        args = (gm.dw, sig, fa, gm.ninv_full, gm.w, da, gm.a0, ntot)
+        got = K.draw_resid(*args, **kw)
+        cmp("draw_resid", got, P.draw_resid(*args, **kw), 1e-5,
+            f"{what} {'lean' if lean else 'full'}")
+        require(torch.all(got[1][G - 1::G] == 0),
+                "dummy rows: noise_nu is not 0")
+    gtab = megachain.make_chain_tables(gm, dev)
+    for g in range(4):
+        kp, kg = K.bandpower(beta, prior, gtab.tlog, gtab.q, seed=SEED,
+                             sids=sidc_r, g=g, alpha=ntot - 1, gam_out=True,
+                             group=G)
+        pp, pg = P.bandpower(beta, prior, gtab.tlog, gtab.q, seed=SEED,
+                             sids=sidc_r, g=g, alpha=ntot - 1, gam_out=True,
+                             group=G)
+        cmp("bandpower", (kg, kp), (pg, pp), 1e-5, f"{what} g={g}")
+        same = all(torch.equal(v[c * G + r], v[c * G])
+                   for v in (kp, kg) for c in range(Bg // G)
+                   for r in range(G))
+        require(same, "grouped bandpower: the rows of a chain differ")
+    u = torch.rand((Bg, 128), generator=torch.Generator(device=dev)
+                   .manual_seed(4), device=dev)
+    cmp("bandpower",
+        K.bandpower(beta, prior, gtab.tlog, gtab.q, gam=kg, u_pb=u, group=G),
+        P.bandpower(beta, prior, gtab.tlog, gtab.q, gam=kg, u_pb=u, group=G),
+        1e-5, f"{what} external randomness")
+    sync(dev)
     _build.reset_launches()
 
 
@@ -282,42 +434,46 @@ def phase_chain(dev, jobs8):
     from hydra_pspec_torch.models import mega, megachain
     from hydra_pspec_torch.ops.kernels import impl as I
 
-    mops, dims = build_ops(jobs8, dev)
-    B, n, t = mops.nid.shape
     Kit = 3
-    rng = np.random.default_rng(SEED + 1)
-    sa = np.float32(np.sqrt(0.5) * np.sqrt(dims.nfreqs))
-    hf = np.float32(np.sqrt(0.5))
-    f32 = lambda x: x.astype(np.float32)
-    rnd = {"oa_re": f32(rng.standard_normal((Kit, B, n, t))) * sa,
-           "oa_im": f32(rng.standard_normal((Kit, B, n, t))) * sa,
-           "ob_re": f32(rng.standard_normal((Kit, B, n, t))) * hf,
-           "ob_im": f32(rng.standard_normal((Kit, B, n, t))) * hf,
-           "gam": f32(rng.gamma(dims.ntimes - 1, size=(Kit, B, n))),
-           "u_pb": f32(rng.uniform(size=(Kit, B, 128)))}
-    tables = megachain.make_chain_tables(mops, dev)
-    static = megachain.prior_static_from(make_prior(), dims)
-    ps0 = mega.pad_ps(np.tile(ps_truth(), (B, 1)), dims, dev)
-    for warm in ({}, {"warm_ns": 3, "drift_max": 10.0}):
-        out = {}
-        for name, impl in (("kernels", I.KERNELS), ("plain", I.PLAIN)):
-            out[name] = megachain.run_chunk_megachain(
-                mops, tables, dims, ps0, Kit, static, randomness=rnd,
-                impl=impl, **warm)
-        (kps, ks), (pps, ps_) = out["kernels"], out["plain"]
-        torch.cuda.synchronize()
-        sig_err = max(
-            float(torch.abs(f(ks.signal_cr) - f(ps_.signal_cr)).max()
-                  / torch.abs(f(ps_.signal_cr)).mean())
-            for f in (torch.real, torch.imag))
-        ps_ok = torch.allclose(ks.ps, ps_.ps, rtol=2e-3, atol=1e-6) and \
-            torch.allclose(kps, pps, rtol=2e-3, atol=1e-6)
-        chi_err = float(torch.abs(ks.chisq - ps_.chisq).max())
-        say("chain", f"K={Kit} B={B} {warm or 'exact'}: sig {sig_err:.2e} "
-            f"< 2e-4 (rel. mean), ps within rtol 2e-3/atol 1e-6: {ps_ok}, "
-            f"chi {chi_err:.2e} < 5e-3")
-        require(sig_err < 2e-4 and ps_ok and chi_err < 5e-3,
-                "chain phase: kernels disagree with the plain path")
+    mops, dims = build_ops(jobs8, dev)
+    gs = grouped_setup(jobs8, tflag_signatures()[0], 1, dev)
+    G = len(gs.group_times)
+    layouts = (("plain", mops, dims, 1, {}),
+               (f"grouped G={G}", gs.mops, gs.dims, G,
+                dict(group_times=gs.group_times, group_idx=gs.group_idx)))
+    for label, mo, di, grp, gkw in layouts:
+        B, n, t = mo.nid.shape
+        rng = np.random.default_rng(SEED + 1)
+        rnd = numpy_randomness(rng, Kit, B, n, t, di.nfreqs, di.ntimes, grp)
+        tables = megachain.make_chain_tables(mo, dev)
+        static = megachain.prior_static_from(make_prior(), di)
+        ps0 = mega.pad_ps(np.tile(ps_truth(), (B, 1)), di, dev)
+        for warm in ({}, {"warm_ns": 3, "drift_max": 10.0}):
+            out = {}
+            for name, impl in (("kernels", I.KERNELS), ("plain", I.PLAIN)):
+                out[name] = megachain.run_chunk_megachain(
+                    mo, tables, di, ps0, Kit, static, randomness=rnd,
+                    impl=impl, **warm, **gkw)
+            (kps, ks), (pps, ps_) = out["kernels"], out["plain"]
+            sync(dev)
+            sig_err = max(
+                float(torch.abs(f(ks.signal_cr) - f(ps_.signal_cr)).max()
+                      / torch.abs(f(ps_.signal_cr)).mean())
+                for f in (torch.real, torch.imag))
+            ps_ok = torch.allclose(ks.ps, ps_.ps, rtol=2e-3, atol=1e-6) and \
+                torch.allclose(kps, pps, rtol=2e-3, atol=1e-6)
+            # flagged entries carry chi = |foreground model|^2 (~1e6): the
+            # grouped layout is held relatively, as its CPU pin is
+            chi_tol = (dict(rtol=5e-3, atol=1e-5) if grp > 1
+                       else dict(rtol=0.0, atol=5e-3))
+            chi_ok = torch.allclose(ks.chisq, ps_.chisq, **chi_tol)
+            chi_err = float(torch.abs(ks.chisq - ps_.chisq).max())
+            say("chain", f"{label} K={Kit} B={B} {warm or 'exact'}: sig "
+                f"{sig_err:.2e} < 2e-4 (rel. mean), ps within rtol 2e-3/"
+                f"atol 1e-6: {ps_ok}, chi max|err| {chi_err:.2e} within "
+                f"{chi_tol}: {chi_ok}")
+            require(sig_err < 2e-4 and ps_ok and chi_ok,
+                    "chain phase: kernels disagree with the plain path")
 
 
 # --- 5. main path -----------------------------------------------------------
@@ -365,7 +521,7 @@ def phase_main(dev, out_root):
             jobs, make_prior(), NITER, device=dev, seed=SEED,
             write_niter=WRITE_NITER, store_cr=True, warm_ns=3,
             drift_max=0.6)
-    torch.cuda.synchronize()
+    sync(dev)
     wall = time.perf_counter() - t0
     launches = dict(_build.LAUNCHES)
     say("main", f"{N_BASELINES} baselines x {NITER} iterations: wall "
@@ -427,9 +583,143 @@ def phase_invariance(dev, jobs, results):
                 f"baseline {j.antpair}: dps-eor differs in the subset run")
     say("invariance", "first 10 baselines alone: dps-eor bit-identical to "
         "the 100-baseline run")
+    none = np.zeros((NT, NF), dtype=bool)
+    res_tf, tim = runner.run_baselines(
+        [dataclasses.replace(j, flags_tf=none) for j in sub], make_prior(),
+        NITER, device=dev, seed=SEED, write_niter=WRITE_NITER,
+        store_cr=True, warm_ns=3, drift_max=0.6,
+        global_baseline_ids=list(range(10)))
+    for j, r in zip(jobs[:10], res_tf):
+        dps = np.load(Path(j.out_dir) / "dps-eor.npy")
+        require(np.array_equal(dps, r.signal_ps),
+                f"baseline {j.antpair}: all-False flags_tf changes dps-eor")
+    say("invariance", "the same 10 with all-False flags_tf (grouped path, "
+        "G=1): dps-eor bit-identical to the plain run")
 
 
-# --- 7. times ----------------------------------------------------------------
+# --- 7. tflags ---------------------------------------------------------------
+
+def phase_tflags(dev, jobs_plain, out_root):
+    """The main path's data with time-dependent RFI flags, through the
+    grouped time-flags path of run_baselines."""
+    from hydra_pspec_torch import runner
+    from hydra_pspec_torch.ops.kernels import _build
+    from hydra_pspec_torch.utils import io as hio
+
+    n_a = min(N_SIG_A, len(jobs_plain))
+    jobs = [dataclasses.replace(j, out_dir=out_root / Path(j.out_dir).name)
+            for j in make_tflags_jobs(jobs_plain, n_a)]
+    audit = _DeviceAudit()
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    with audit:
+        results, tim = runner.run_baselines(
+            jobs, make_prior(), NITER, device=dev, seed=SEED,
+            write_niter=WRITE_NITER, store_cr=True, warm_ns=3,
+            drift_max=0.6)
+    sync(dev)
+    wall = time.perf_counter() - t0
+    launches = dict(_build.LAUNCHES)
+    sampling = tim["process"] - tim["write"]
+    rate = len(jobs) * NITER / sampling
+    stats = {"build_s": tim["scatter"], "process_s": tim["process"],
+             "flush_s": tim["write"], "wall_s": wall,
+             "baseline_iters_per_s": rate}
+    say("tflags", f"{len(jobs)} baselines ({n_a} signature A, G=4; "
+        f"{len(jobs) - n_a} signature B, G=2) x {NITER} iterations: wall "
+        f"{wall:.2f} s, host build+transfer {tim['scatter']:.2f} s, process "
+        f"{tim['process']:.2f} s (flush {tim['write']:.2f} s)")
+    say("tflags", f"iterations/s {NITER / sampling:.2f} sampling only; "
+        f"baseline-iterations/s {rate:.1f}")
+    require(tim["device"].startswith("cuda"), "runner did not run on cuda")
+    say("tflags", f"device audit: {audit.cuda_ops} cuda tensor ops, CPU "
+        f"compute ops {dict(audit.cpu_ops) or 'none'}")
+    require(not audit.cpu_ops and audit.cuda_ops > 0,
+            "tensors of the tflags path left the device")
+    shapes = {"signal_cr": (NITER, NT, NF), "signal_S": (NF, NF),
+              "signal_ps": (NITER, NF), "fg_amps": (NITER, NT, NM),
+              "chisq": (NITER, NT, NF), "ln_post": (NITER,)}
+    for job in jobs:
+        got = hio.load_samples(job.out_dir)
+        for k, shape in shapes.items():
+            require(k in got and got[k].shape == shape,
+                    f"{job.out_dir}: {k} missing or wrong shape")
+            require(np.isfinite(got[k]).all(), f"{job.out_dir}: {k} "
+                    f"not finite")
+    say("tflags", "six reference files per baseline with the JAX runner's "
+        "shapes, all finite")
+    burn = min(50, NITER // 4)
+    chi2 = float(np.mean([r.chisq[burn:NITER][:, ~j.flags_tf].mean()
+                          for j, r in zip(jobs, results)]))
+    say("tflags", f"mean chi^2 over unflagged (time, channel) entries, "
+        f"iterations {burn + 1}-{NITER}: {chi2:.5f} (gate |chi^2 - 1| <= "
+        f"{CHI2_GATE})")
+    require(abs(chi2 - 1.0) <= CHI2_GATE, "tflags chi^2 gate")
+    truth = ps_truth()
+    delay = np.abs(np.arange(NF) - NF // 2)
+    eor = (delay >= 4) & (delay <= 16)
+    ratio = np.median([r.signal_ps[burn:].mean(axis=0)[eor] / truth[eor]
+                       for r in results])
+    say("tflags", f"posterior-mean / truth on EoR bins 4 <= |delay| <= 16: "
+        f"median {ratio:.4f} (information only)")
+    missing = [k for k in KERNELS if launches[k] == 0]
+    say("tflags", f"launches {launches}")
+    require(not missing, f"kernels never launched on the tflags path: "
+            f"{missing}")
+
+    nsub = min(N_SUBSET, n_a)
+    sub = [dataclasses.replace(j, out_dir=None) for j in jobs[:nsub]]
+    res_sub, _ = runner.run_baselines(
+        sub, make_prior(), NITER, device=dev, seed=SEED,
+        write_niter=WRITE_NITER, store_cr=True, warm_ns=3, drift_max=0.6,
+        global_baseline_ids=list(range(nsub)))
+    for a, b in zip(results[:nsub], res_sub):
+        for f in ("signal_ps", "signal_cr", "fg_amps", "chisq", "ln_post"):
+            require(np.array_equal(getattr(a, f), getattr(b, f)),
+                    f"baseline {a.antpair}: {f} differs in the subset run")
+    say("tflags", f"first {nsub} baselines of signature A alone: all six "
+        f"sample arrays bit-identical")
+    return launches, stats
+
+
+# --- 8. times ----------------------------------------------------------------
+
+def work(name, B, n, t, m, ntimes, valid=None, chains=None, alpha=None):
+    """(bytes, operations) one call of kernel ``name`` needs at these
+    shapes: each input read once, each output written once (complex64 8
+    bytes, float32 4); operations are real flops, with an integer or
+    transcendental step counted as one operation. ``valid``: time lanes
+    drawn in all rows (default B * ntimes); ``chains``: Gamma draws (the
+    grouped bandpower draws once per chain)."""
+    cfield, vec = 8 * B * n * t, 4 * B * n
+    if name == "cgemm":        # F rc: shared (n, n) times (B, n, t)
+        return 8 * n * n + 2 * cfield, 8 * n * n * t * B
+    if name == "herm_inv":     # Cholesky, L^-1, L^-H L^-1: n^3/2 cMACs
+        return 2 * 8 * B * n * n, 4 * n ** 3 * B
+    if name == "draw_rhs":
+        return 3 * cfield + vec, 4 * B * n * t
+    if name == "draw_system":
+        return 2 * 8 * B * n * n + 3 * cfield + 3 * vec, \
+            6 * B * n * n + 6 * B * n * t
+    if name == "row_scale_sumsq":
+        return 2 * cfield + 3 * vec, 8 * B * n * t
+    if name == "draw_resid":   # full: chi and amps, no w sig
+        return (3 * cfield + 2 * vec + 3 * 8 * B * m * t + 4 * B * n * t
+                + vec), 10 * B * n * t + 2 * B * m * t
+    if name == "rng_fields":   # 10 Philox rounds ~110 ops, 2 Box-Muller
+        lanes = B * ntimes if valid is None else valid
+        return 2 * cfield, 130 * n * lanes
+    if name == "bandpower":    # ceil(alpha/4) Philox calls + logs per bin
+        draws = B if chains is None else chains
+        return 2 * vec + 8 * 4096, draws * n * (-(-alpha // 4)) * 120
+    raise KeyError(name)
+
+
+def bound(name, **shape):
+    nbytes, ops = work(name, **shape)
+    tb, to = nbytes / HBM_BYTES_S * 1e3, ops / FP32_OPS_S * 1e3
+    return (tb, "bytes") if tb >= to else (to, "operations")
+
 
 def _time(fn, reps):
     fn()
@@ -444,15 +734,46 @@ def _time(fn, reps):
     return a.elapsed_time(b) / reps
 
 
+def _time_pairs(label, cases, reps=10):
+    """kernel and plain times of each case, in turns plain, kernel,
+    kernel, plain."""
+    from hydra_pspec_torch.ops.kernels import impl as I
+
+    K, P = I.KERNELS, I.PLAIN
+    times = {}
+    for name, fn in cases.items():
+        pk = [_time(lambda: fn(P), reps), _time(lambda: fn(K), reps),
+              _time(lambda: fn(K), reps), _time(lambda: fn(P), reps)]
+        times[name] = ((pk[1] + pk[2]) / 2, (pk[0] + pk[3]) / 2)
+        say("times", f"{name:16s} {label}: kernel {times[name][0]:.4f} ms, "
+            f"plain {times[name][1]:.4f} ms (plain, kernel, kernel, plain "
+            f"= {', '.join(f'{v:.4f}' for v in pk)})")
+    return times
+
+
+def _time_chain(label, run, kit):
+    from hydra_pspec_torch.ops.kernels import impl as I
+
+    chain = {}
+    for name, impl in (("kernels", I.KERNELS), ("plain", I.PLAIN),
+                       ("kernels", I.KERNELS), ("plain", I.PLAIN)):
+        ms = _time(lambda: run(impl), 2) / kit
+        chain.setdefault(name, []).append(ms)
+    say("times", f"one chain iteration, {label}: kernel path "
+        f"{chain['kernels']} ms, plain path {chain['plain']} ms")
+    return chain
+
+
 def phase_times(dev, jobs):
     from hydra_pspec_torch.models import mega, megachain
     from hydra_pspec_torch.ops.kernels import _build
     from hydra_pspec_torch.ops.kernels import impl as I
     from hydra_pspec_torch.ops.kernels import rng_bandpower as rb
 
-    K, P = I.KERNELS, I.PLAIN
+    P = I.PLAIN
     mops, dims = build_ops(jobs, dev)
     B, n, t = mops.nid.shape
+    m = mops.fg.shape[2]
     nf, nt = dims.nfreqs, dims.ntimes
     sids = torch.arange(B, dtype=torch.int32, device=dev)
     ps = mega.pad_ps(np.tile(ps_truth(), (B, 1)), dims, dev)
@@ -461,15 +782,9 @@ def phase_times(dev, jobs):
     prior = rb.prior_bins(static, dev)
 
     kit = 5
-    chain = {}
-    for name, impl in (("kernels", K), ("plain", P), ("kernels", K),
-                       ("plain", P)):
-        ms = _time(lambda: megachain.run_chunk_megachain(
-            mops, tables, dims, ps, kit, static, seed=SEED, sids=sids,
-            warm_ns=3, drift_max=0.6, impl=impl), 2) / kit
-        chain.setdefault(name, []).append(ms)
-    say("times", f"one chain iteration at B={B}: kernel path "
-        f"{chain['kernels']} ms, plain path {chain['plain']} ms")
+    chain = _time_chain(f"B={B}", lambda impl: megachain.run_chunk_megachain(
+        mops, tables, dims, ps, kit, static, seed=SEED, sids=sids,
+        warm_ns=3, drift_max=0.6, impl=impl), kit)
 
     oa, ob = P.rng_fields(SEED, sids, 0, n, t, nt, nf)
     rc = P.draw_rhs(mops.nid, mops.nih, ob, nt)
@@ -493,16 +808,66 @@ def phase_times(dev, jobs):
             beta, prior, tables.tlog, tables.q, seed=SEED, sids=sids, g=0,
             alpha=nt - 1),
     }
-    times = {}
-    for name, fn in cases.items():
-        pk = [_time(lambda: fn(P), 10), _time(lambda: fn(K), 10),
-              _time(lambda: fn(K), 10), _time(lambda: fn(P), 10)]
-        times[name] = ((pk[1] + pk[2]) / 2, (pk[0] + pk[3]) / 2)
-        say("times", f"{name:16s} B={B}: kernel {times[name][0]:.4f} ms, "
-            f"plain {times[name][1]:.4f} ms (plain, kernel, kernel, plain "
-            f"= {', '.join(f'{v:.4f}' for v in pk)})")
+    times = _time_pairs(f"B={B}", cases)
+    # one PyTorch call computing the same function, where there is one
+    library = {
+        "cgemm": _time(lambda: torch.matmul(mops.f, rc), 10),
+        "herm_inv": _time(lambda: torch.linalg.inv(s), 10),
+    }
+    shape = dict(B=B, n=n, t=t, m=m, ntimes=nt, alpha=nt - 1)
+    bounds = {k: bound(k, **shape) for k in cases}
+    for k, (b_ms, by) in bounds.items():
+        say("times", f"{k:16s} B={B}: bound {b_ms:.4f} ms ({by}), kernel "
+            f"at {100 * b_ms / times[k][0]:.1f} % of it; library call "
+            f"{library.get(k, float('nan')):.4f} ms")
+
+    # the grouped time-flags layout: 100 chains x G=4 of signature A
+    gs = grouped_setup(jobs[:1], tflag_signatures()[0], B, dev)
+    gm, G = gs.mops, len(gs.group_times)
+    Bg, _, tg = gm.nid.shape
+    ntot = gs.dims.ntimes
+    rt, sids_r, sidc_r = grouped_ids(gs, Bg // G, dev)
+    gtab = megachain.make_chain_tables(gm, dev)
+    gstatic = megachain.prior_static_from(make_prior(), gs.dims)
+    psg = mega.pad_ps(np.tile(ps_truth(), (Bg, 1)), gs.dims, dev)
+    gkw = dict(group_times=gs.group_times, group_idx=gs.group_idx)
+    gchain = _time_chain(
+        f"{Bg // G} chains x G={G} (B={Bg}, t={tg})",
+        lambda impl: megachain.run_chunk_megachain(
+            gm, gtab, gs.dims, psg, kit, gstatic, seed=SEED, sids=sids_r,
+            sidc=sidc_r, warm_ns=3, drift_max=0.6, impl=impl, **gkw), kit)
+    oa, ob = P.rng_fields(SEED, sids_r, 0, n, tg, ntot, nf, rt)
+    rc = P.draw_rhs(gm.nid, gm.nih, ob, ntot, rt)
+    frc = P.cgemm(gm.f, rc)
+    s, xs, dd, dinv = P.draw_system(gm.pt, psg, frc, oa, ntot, nf, rt)
+    x = P.cgemm(P.herm_inv(s), xs)
+    beta = P.row_scale_sumsq(x, dinv, dd)[1]
+    da = torch.zeros_like(gm.a0)
+    gcases = {
+        "draw_rhs": lambda M: M.draw_rhs(gm.nid, gm.nih, ob, ntot, rt),
+        "draw_system": lambda M: M.draw_system(gm.pt, psg, frc, oa, ntot,
+                                               nf, rt),
+        "draw_resid": lambda M: M.draw_resid(
+            gm.dw, x, rc, gm.ninv_full, gm.w, da, gm.a0, ntot,
+            want_chi=True, want_chit=False, want_amp=True, want_ws=False,
+            row_times=rt),
+        "rng_fields": lambda M: M.rng_fields(SEED, sids_r, 0, n, tg, ntot,
+                                             nf, rt),
+        "bandpower": lambda M: M.bandpower(
+            beta, prior, gtab.tlog, gtab.q, seed=SEED, sids=sidc_r, g=0,
+            alpha=ntot - 1, group=G),
+    }
+    gtimes = _time_pairs(f"grouped B={Bg} t={tg}", gcases)
+    gshape = dict(B=Bg, n=n, t=tg, m=m, ntimes=ntot, alpha=ntot - 1,
+                  valid=int(rt.sum()), chains=Bg // G)
+    gbounds = {k: bound(k, **gshape) for k in gcases}
+    for k, (b_ms, by) in gbounds.items():
+        say("times", f"{k:16s} grouped B={Bg}: bound {b_ms:.4f} ms ({by}), "
+            f"kernel at {100 * b_ms / gtimes[k][0]:.1f} % of it")
     _build.reset_launches()
-    return chain, times
+    return dict(chain=chain, times=times, library=library, bounds=bounds,
+                gchain=gchain, gtimes=gtimes, gbounds=gbounds,
+                gbatch=(Bg // G, G))
 
 
 def main():
@@ -531,18 +896,36 @@ def main():
         jobs, results, launches, rate = phase_main(dev, out_root)
         phase_invariance(dev, jobs, results)
         del results
-        chain, times = phase_times(dev, jobs)
+        tf_launches, tf_stats = phase_tflags(dev, jobs, out_root / "tflags")
+        tm = phase_times(dev, jobs)
     finally:
         shutil.rmtree(out_root, ignore_errors=True)
 
-    print(json.dumps({"kernels": [
-        {"name": k, "route": "cuda", "source": src, "replaces": rep,
-         "launches": launches[k], "max_abs_err": errs[k],
-         "ms": times[k][0], "plain_ms": times[k][1]}
-        for k, (src, rep) in KERNELS.items()],
-        "chain_iteration_ms": {"kernels": chain["kernels"],
-                               "plain": chain["plain"], "batch": N_BASELINES},
-        "main_baseline_iters_per_s": rate}))
+    times, gtimes = tm["times"], tm["gtimes"]
+    rows = []
+    for k, (src, rep) in KERNELS.items():
+        row = {"name": k, "route": "cuda", "source": src, "replaces": rep,
+               "launches": launches[k], "max_abs_err": errs[k],
+               "ms": times[k][0], "plain_ms": times[k][1],
+               "bound_ms": tm["bounds"][k][0],
+               "bound_by": tm["bounds"][k][1],
+               "library_ms": tm["library"].get(k)}
+        if k in gtimes:
+            row.update(tflags_ms=gtimes[k][0], tflags_plain_ms=gtimes[k][1],
+                       tflags_bound_ms=tm["gbounds"][k][0],
+                       tflags_bound_by=tm["gbounds"][k][1])
+        rows.append(row)
+    print(json.dumps({
+        "kernels": rows,
+        "chain_iteration_ms": {"kernels": tm["chain"]["kernels"],
+                               "plain": tm["chain"]["plain"],
+                               "batch": N_BASELINES},
+        "grouped_chain_iteration_ms": {
+            "kernels": tm["gchain"]["kernels"],
+            "plain": tm["gchain"]["plain"],
+            "chains": tm["gbatch"][0], "groups": tm["gbatch"][1]},
+        "main_baseline_iters_per_s": rate,
+        "tflags": dict(tf_stats, launches=tf_launches)}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

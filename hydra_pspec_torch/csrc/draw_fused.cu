@@ -12,6 +12,10 @@
 //                   and amps = da + a0                           (:208-227)
 // Written in CUDA C++ (not Triton), one route for the whole library.
 //
+// The time mask is j < ntimes, or in the grouped time-flags mode
+// (megachain.py:220-229, 427-433), where row b of the batch solves one
+// flag-pattern time group, j < row_times[b] when row_times is given.
+//
 // Bound on the H100: pure streaming over (B, n, t) complex fields, a few
 // FLOP per 8-byte element, so HBM bandwidth bound (3.35 TB/s). Design: one
 // block per row of n (or t) elements, consecutive threads on consecutive
@@ -24,13 +28,14 @@ constexpr int ROW_THREADS = 256;
 
 __global__ void __launch_bounds__(ROW_THREADS)
 rhs_kernel(const float2* __restrict__ nid, const float* __restrict__ nih,
-           const float2* __restrict__ ob, float2* __restrict__ rc, int t,
-           int ntimes) {
+           const float2* __restrict__ ob, float2* __restrict__ rc, int n,
+           int t, int ntimes, const int* __restrict__ row_times) {
   const long long row = blockIdx.x;  // b * n + i
   const float h = nih[row];
+  const int ntb = row_times ? row_times[row / n] : ntimes;
   for (int j = threadIdx.x; j < t; j += blockDim.x) {
     const long long o = row * t + j;
-    const float mk = j < ntimes ? 1.f : 0.f;
+    const float mk = j < ntb ? 1.f : 0.f;
     const float2 w = ob[o], d = nid[o];
     rc[o] = make_float2(d.x + h * (w.x * mk), d.y + h * (w.y * mk));
   }
@@ -49,8 +54,10 @@ system_kernel(const float2* __restrict__ pt, const float* __restrict__ ps,
               const float2* __restrict__ frc, const float2* __restrict__ oa,
               float2* __restrict__ S, float2* __restrict__ xs,
               float* __restrict__ dd_out, float* __restrict__ dinv_out,
-              int n, int t, int ntimes, float nf) {
+              int n, int t, int ntimes, const int* __restrict__ row_times,
+              float nf) {
   const int i = blockIdx.x, b = blockIdx.y;
+  const int ntb = row_times ? row_times[b] : ntimes;
   const float2* ptb = pt + (long long)b * n * n;
   const float* psb = ps + (long long)b * n;
   const float ddi = dd_of(psb[i], nf);
@@ -70,7 +77,7 @@ system_kernel(const float2* __restrict__ pt, const float* __restrict__ ps,
   }
   for (int j = threadIdx.x; j < t; j += blockDim.x) {
     const long long o = row * t + j;
-    const float mk = j < ntimes ? 1.f : 0.f;
+    const float mk = j < ntb ? 1.f : 0.f;
     const float2 f = frc[o], w = oa[o];
     xs[o] = make_float2(dvi * (ddi * f.x + w.x * mk),
                         dvi * (ddi * f.y + w.y * mk));
@@ -104,9 +111,10 @@ resid_kernel(const float2* __restrict__ dw, const float2* __restrict__ sig,
              const float2* __restrict__ a0, float* __restrict__ chi,
              float* __restrict__ noise, float* __restrict__ chit,
              float2* __restrict__ amp, float2* __restrict__ ws, int n, int m,
-             int t, int ntimes) {
+             int t, int ntimes, const int* __restrict__ row_times) {
   __shared__ float red[32];
   const int r = blockIdx.x, b = blockIdx.y;
+  const int ntb = row_times ? row_times[b] : ntimes;
   if (r >= n) {  // amplitude rows: amps = da + a0
     if (amp == nullptr) return;
     const long long row = (long long)b * m + (r - n);
@@ -130,7 +138,7 @@ resid_kernel(const float2* __restrict__ dw, const float2* __restrict__ sig,
     if (chi) chi[o] = c;
     if (ws) ws[o] = make_float2(wv * s.x, wv * s.y);
     acc_noise += res2 * wn;
-    acc_chit += j < ntimes ? c : 0.f;
+    acc_chit += j < ntb ? c : 0.f;
   }
   acc_noise = block_sum(acc_noise, red);
   if (chit) acc_chit = block_sum(acc_chit, red);
@@ -143,19 +151,21 @@ resid_kernel(const float2* __restrict__ dw, const float2* __restrict__ sig,
 
 HK_API int hk_draw_rhs(const float2* nid, const float* nih, const float2* ob,
                        float2* rc, int batch, int n, int t, int ntimes,
-                       cudaStream_t stream) {
-  rhs_kernel<<<batch * n, ROW_THREADS, 0, stream>>>(nid, nih, ob, rc, t,
-                                                     ntimes);
+                       const int* row_times, cudaStream_t stream) {
+  rhs_kernel<<<batch * n, ROW_THREADS, 0, stream>>>(nid, nih, ob, rc, n, t,
+                                                     ntimes, row_times);
   return (int)cudaGetLastError();
 }
 
 HK_API int hk_draw_system(const float2* pt, const float* ps, const float2* frc,
                           const float2* oa, float2* S, float2* xs, float* dd,
                           float* dinv, int batch, int n, int t, int ntimes,
-                          int nfreqs, cudaStream_t stream) {
+                          int nfreqs, const int* row_times,
+                          cudaStream_t stream) {
   dim3 grid(n, batch);
   system_kernel<<<grid, ROW_THREADS, 0, stream>>>(
-      pt, ps, frc, oa, S, xs, dd, dinv, n, t, ntimes, (float)nfreqs);
+      pt, ps, frc, oa, S, xs, dd, dinv, n, t, ntimes, row_times,
+      (float)nfreqs);
   return (int)cudaGetLastError();
 }
 
@@ -171,10 +181,10 @@ HK_API int hk_draw_resid(const float2* dw, const float2* sig, const float2* fa,
                          const float2* a0, float* chi, float* noise,
                          float* chit, float2* amp, float2* ws, int batch,
                          int n, int m, int t, int ntimes,
-                         cudaStream_t stream) {
+                         const int* row_times, cudaStream_t stream) {
   dim3 grid(n + m, batch);
   resid_kernel<<<grid, ROW_THREADS, 0, stream>>>(
       dw, sig, fa, ninvf, w, da, a0, chi, noise, chit, amp, ws, n, m, t,
-      ntimes);
+      ntimes, row_times);
   return (int)cudaGetLastError();
 }

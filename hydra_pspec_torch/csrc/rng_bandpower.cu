@@ -15,6 +15,15 @@
 // iteration keeps streams unchanged by chunk size, resume and batch
 // composition.
 //
+// Grouped time-flags mode (megachain.py:220-229, 256-263, 409-418): each
+// chain spans G chain-major rows, row c*G + g solving flag-pattern time
+// group g. fields_kernel masks row b at its own count row_times[b] (its keys
+// are the row streams sid*G + g, given in sids). bandpower_kernel with
+// G > 1 runs one block per CHAIN: it sums beta over the chain's rows in the
+// fixed order g = 0..G-1, draws Gamma(alpha) and the prior uniforms once on
+// the chain stream (seed, sidc + 2^30), and writes the chain's ps to all G
+// rows. G = 1 is plain mode exactly (key sid, no offset).
+//
 // Bound on the H100: rng_fields is ALU bound (10 Philox rounds plus log,
 // sqrt, sin, cos per element pair), one thread per (row, time) element, no
 // memory reads; bandpower is latency bound (alpha/4 Philox calls and logs
@@ -53,12 +62,13 @@ __device__ __forceinline__ float2 box_muller(unsigned b1, unsigned b2) {
 __global__ void fields_kernel(unsigned seed, const int* __restrict__ sids,
                               unsigned g, float2* __restrict__ oa,
                               float2* __restrict__ ob, int n, int t,
-                              int ntimes, float half, float sa) {
+                              int ntimes, const int* __restrict__ row_times,
+                              float half, float sa) {
   const int b = blockIdx.z, i = blockIdx.y;
   const int j = blockIdx.x * blockDim.x + threadIdx.x;
   if (j >= t) return;
   const long long o = ((long long)b * n + i) * t + j;
-  if (j >= ntimes) {
+  if (j >= (row_times ? row_times[b] : ntimes)) {
     oa[o] = make_float2(0.f, 0.f);
     ob[o] = make_float2(0.f, 0.f);
     return;
@@ -108,11 +118,13 @@ __global__ void bandpower_kernel(
     const float* __restrict__ tlog, const float* __restrict__ tq, int S,
     const int* __restrict__ pidx, const float* __restrict__ plo,
     const float* __restrict__ phi, int np, float* __restrict__ ps_out,
-    float* __restrict__ gam_out, int n) {
-  const int b = blockIdx.x;
-  const uint2 key = make_uint2(seed, sids ? (unsigned)sids[b] : 0u);
+    float* __restrict__ gam_out, int n, int G) {
+  // block = chain c, rows c*G .. c*G + G - 1 (G = 1: one row, plain mode)
+  const long long r0 = (long long)blockIdx.x * G;
+  const unsigned off = G > 1 ? (1u << 30) : 0u;
+  const uint2 key = make_uint2(seed, sids ? (unsigned)sids[r0] + off : 0u);
   for (int i = threadIdx.x; i < n; i += blockDim.x) {
-    const long long o = (long long)b * n + i;
+    const long long o = r0 * n + i;
     float gam;
     if (gam_ext) {
       gam = gam_ext[o];
@@ -131,14 +143,14 @@ __global__ void bandpower_kernel(
       }
       gam = -s;
     }
-    if (gam_out) gam_out[o] = gam;
-    const float bt = beta[o];
+    float bt = beta[o];
+    for (int r = 1; r < G; ++r) bt += beta[o + (long long)r * n];
     float out = bt / gam;
     for (int l = 0; l < np; ++l) {
       if (pidx[l] != i) continue;
       float u;
       if (u_ext) {
-        u = u_ext[(long long)b * u_stride + l];
+        u = u_ext[r0 * u_stride + l];
       } else {
         const uint4 w = philox(make_uint4(g, 2u, 0u, (unsigned)(l >> 2)),
                                key);
@@ -153,7 +165,10 @@ __global__ void bandpower_kernel(
       const float x = bt / fmaxf(y, FLT_MIN);
       out = fminf(fmaxf(x, lo), hi);
     }
-    ps_out[o] = out;
+    for (int r = 0; r < G; ++r) {
+      ps_out[o + (long long)r * n] = out;
+      if (gam_out) gam_out[o + (long long)r * n] = gam;
+    }
   }
 }
 
@@ -167,12 +182,13 @@ __global__ void philox_raw_kernel(const uint4* __restrict__ ctr,
 
 HK_API int hk_rng_fields(unsigned seed, const int* sids, unsigned g,
                          float2* oa, float2* ob, int batch, int n, int t,
-                         int ntimes, int nfreqs, cudaStream_t stream) {
+                         int ntimes, int nfreqs, const int* row_times,
+                         cudaStream_t stream) {
   const float half = 0.70710678118654752440f;
   const float sa = half * sqrtf((float)nfreqs);
   dim3 grid((t + 127) / 128, n, batch);
   fields_kernel<<<grid, 128, 0, stream>>>(seed, sids, g, oa, ob, n, t, ntimes,
-                                          half, sa);
+                                          row_times, half, sa);
   return (int)cudaGetLastError();
 }
 
@@ -182,10 +198,10 @@ HK_API int hk_bandpower(const float* beta, const float* gam_ext,
                         const float* tlog, const float* tq, int S,
                         const int* pidx, const float* plo, const float* phi,
                         int np, float* ps_out, float* gam_out, int batch,
-                        int n, cudaStream_t stream) {
-  bandpower_kernel<<<batch, 128, 0, stream>>>(
+                        int n, int G, cudaStream_t stream) {
+  bandpower_kernel<<<batch / G, 128, 0, stream>>>(
       beta, gam_ext, u_ext, u_stride, seed, sids, g, alpha, tlog, tq, S, pidx,
-      plo, phi, np, ps_out, gam_out, n);
+      plo, phi, np, ps_out, gam_out, n, G);
   return (int)cudaGetLastError();
 }
 

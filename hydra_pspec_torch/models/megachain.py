@@ -11,23 +11,27 @@ Randomness comes in two forms:
   JAX package's dict layout (``oa_re``, ``oa_im``, ``ob_re``, ``ob_im``,
   ``gam``, ``u_pb``), each with a leading K axis.
 
-Not ported (they raise): the grouped time-flags mode (``group_times``,
-``sidc``), the TPU scheduling knobs ``prefetch_rng`` and ``batch_tile``,
-bf16 pass counts other than 3, a mesh, and the raw position-seeded seed
-mode of the JAX package.
+The grouped time-flags mode (``group_times``, ``sidc``, ``group_idx``;
+``:88-197, 410-475``) runs a flag signature's chains as chain-major
+(chain, time group) rows: see :class:`TflagsMegaSetup`.
+
+Not ported (they raise): the TPU scheduling knobs ``prefetch_rng`` and
+``batch_tile``, bf16 pass counts other than 3, a mesh, and the raw
+position-seeded seed mode of the JAX package.
 """
 from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
 
+from ..ops.invgamma import make_invgamma_table
 from ..ops.kernels.impl import KERNELS, Impl
-from ..ops.kernels.megachain import gcr_megachain
+from ..ops.kernels.megachain import TimeScatter, gcr_megachain
 from ..ops.kernels.rng_bandpower import MAX_PRIOR_BINS, prior_bins
-from .mega import MegaDims, MegaOperators
+from .mega import (MegaDims, MegaOperators, from_chain_operators,
+                   from_jax_arrays)
 
-TFLAGS_ITEM = ("time-dependent flags (grouped megachain mode) are not "
-               "ported yet (ROADMAP.md, Queue 1 item 8)")
+MAX_TIME_GROUPS = 8
 
 
 class MegaChainTables(NamedTuple):
@@ -77,6 +81,101 @@ def ln_post(noise_nu, bmask, ps):
     return -(torch.sum(noise_nu, dim=-1) + sig_term)
 
 
+# --- grouped time-flags layout ---------------------------------------------
+
+class TflagsMegaSetup(NamedTuple):
+    """One flag signature in the grouped layout: each chain spans G
+    consecutive rows (chain-major), row ``c*G + g`` carrying the operators
+    of time group g, every group padded to the same ``t_req`` time lanes.
+    G is the real group count rounded up to a power of two; the dummy
+    groups have zero operators and ``group_times`` 0, and so add exactly 0
+    to every pooled statistic. ``mops.igt`` is the table at alpha + 1 =
+    the TOTAL time count, the shape of the pooled conditional."""
+
+    mops: MegaOperators   # (Bc*G, ...) rows, chain-major
+    dims: MegaDims        # ntimes = TOTAL true times, t = t_req; flagged
+    group_times: tuple    # per row-group true time count (0 = dummy)
+    group_idx: tuple      # per REAL group: its time indices
+
+
+def _interleave(per, G):
+    """Per-group operator batches (Bc, ...) -> chain-major rows (Bc*G, ...),
+    zero operators for the dummy groups."""
+    per = list(per) + [None] * (G - len(per))
+    fields = {}
+    for name in MegaOperators._fields:
+        if name in ("f", "igt"):
+            continue
+        xs = [getattr(m, name) for m in per if m is not None]
+        xs += [torch.zeros_like(xs[0])] * (G - len(xs))
+        s = torch.stack(xs, dim=1)
+        fields[name] = s.reshape((-1,) + tuple(s.shape[2:]))
+    return fields
+
+
+def build_tflags_mega_setup(groups, device) -> TflagsMegaSetup:
+    """``groups``: ``tflags.TimeGroupReal`` whose ``ops`` are stacked over
+    the signature's (baseline, chain) batch, one entry per time group ->
+    the grouped layout on ``device`` (``models/megachain.py:107-156``)."""
+    g_real = len(groups)
+    G = 1
+    while G < g_real:
+        G *= 2
+    if G > MAX_TIME_GROUPS:
+        raise ValueError(f"grouped megachain supports <= {MAX_TIME_GROUPS} "
+                         f"time groups; got {g_real}")
+    t_req = max(-(-g.ops.d_w.shape[1] // 128) * 128 for g in groups)
+    per = [from_chain_operators(g.ops, device, t_pad=t_req) for g in groups]
+    d0 = per[0][1]
+    ntimes_total = sum(d.ntimes for _, d in per)
+    mops = MegaOperators(**_interleave([m for m, _ in per], G),
+                         f=per[0][0].f, igt=make_invgamma_table(ntimes_total))
+    dims = MegaDims(d0.nfreqs, ntimes_total, d0.nmodes, d0.n, t_req, d0.m,
+                    False)
+    group_times = tuple(d.ntimes for _, d in per) + (0,) * (G - g_real)
+    return TflagsMegaSetup(mops, dims, group_times,
+                           tuple(np.asarray(g.idx) for g in groups))
+
+
+def tflags_setup_from_jax_arrays(arrays: dict, dims: MegaDims, group_times,
+                                 group_idx, device) -> TflagsMegaSetup:
+    """The port's setup from the JAX package's ``TflagsMegaSetup`` given as
+    numpy arrays (``mops`` fields as in :func:`mega.from_jax_arrays`)."""
+    return TflagsMegaSetup(from_jax_arrays(arrays, dims, device), dims,
+                           tuple(int(x) for x in group_times),
+                           tuple(np.asarray(i) for i in group_idx))
+
+
+def grouped_randomness(rows: dict, gam_c, u_c, group: int) -> dict:
+    """External randomness in the grouped layout
+    (``draw_chunk_randomness_tflags``, ``models/megachain.py:159-197``):
+    ``rows`` holds the per-row omegas (``oa_re`` ... ``ob_im``, (K, B, n,
+    t)); the per-chain Gamma draws ``gam_c`` (K, Bc, n) and uniforms
+    ``u_c`` (K, Bc, >=8) are repeated over each chain's ``group`` rows."""
+    rep = lambda x: np.repeat(np.asarray(x), group, axis=1)
+    return dict(rows, gam=rep(gam_c), u_pb=rep(u_c))
+
+
+def time_scatter(group_times, group_idx, dims: MegaDims,
+                 device) -> TimeScatter:
+    """Each true time's (row in the chain's block, lane) from
+    ``group_idx``, for the per-iteration gather into time order."""
+    row = np.full(dims.ntimes, -1, np.int64)
+    lane = np.zeros(dims.ntimes, np.int64)
+    for g, idx in enumerate(group_idx):
+        idx = np.asarray(idx)
+        if idx.size != group_times[g]:
+            raise ValueError(f"group {g}: {idx.size} indices for "
+                             f"{group_times[g]} times")
+        row[idx] = g
+        lane[idx] = np.arange(idx.size)
+    if (row < 0).any():
+        raise ValueError("group_idx does not cover every time")
+    as_t = lambda a: torch.from_numpy(a).to(device)
+    return TimeScatter(len(group_times), as_t(row), as_t(lane),
+                       dims.nfreqs, dims.nmodes)
+
+
 def _randomness_on(randomness: dict, device) -> dict:
     """JAX-layout external randomness -> complex64 device tensors."""
     def t(x):
@@ -111,6 +210,8 @@ def run_chunk_megachain(
     drift_max: float = 0.25,
     prefetch_rng: bool = False,
     group_times=(),
+    sidc=None,
+    group_idx=(),
     impl: Impl = KERNELS,
 ):
     """One chunk of ``k_total`` iterations on ``ps_pad``'s device.
@@ -121,9 +222,15 @@ def run_chunk_megachain(
     Newton-Schulz steps while the chain's relative bandpower move stays
     under ``drift_max``. ``impl``: the kernels (default) or the plain torch
     versions (``ops.kernels.impl.PLAIN``). Returns ``(ps_pad_final,
-    ChainSample)``."""
-    if group_times:
-        raise NotImplementedError(TFLAGS_ITEM)
+    ChainSample)``.
+
+    ``group_times`` with more than one entry selects the grouped
+    time-flags mode (:class:`TflagsMegaSetup`): ``mops``, ``ps_pad`` and
+    ``sids`` (row streams ``sid*G + g``) are per row, ``sidc`` the chain id
+    of each row, ``dims.ntimes`` the total time count and ``group_idx`` the
+    real groups' time indices. The sample's batch axis is then CHAINS;
+    ``ps_pad_final`` stays per row."""
+    G = len(group_times) if len(group_times) > 1 else 1
     if prefetch_rng:
         raise NotImplementedError(
             "prefetch_rng is a TPU scheduling mode; it has no port")
@@ -138,21 +245,33 @@ def run_chunk_megachain(
         seed = sids = None
     else:
         rnd = None
-        if seed is None or sids is None:
+        if seed is None or sids is None or (G > 1 and sidc is None):
             raise ValueError(
-                "give seed and sids (the raw position-seeded mode of the JAX "
-                "package is not composition-invariant and is not ported)")
-        sids = (sids.to(device=device, dtype=torch.int32)
-                if torch.is_tensor(sids)
-                else torch.as_tensor(np.asarray(sids, np.int32)).to(device))
+                "give seed and sids, and sidc in grouped mode (the raw "
+                "position-seeded mode of the JAX package is not "
+                "composition-invariant and is not ported)")
+        sids = _ids_on(sids, device)
+        sidc = None if G == 1 else _ids_on(sidc, device)
     lean = not store_cr
+    grouped = {}
+    if G > 1:
+        bc = ps_pad.shape[0] // G
+        grouped = dict(
+            group=G, sidc=sidc,
+            row_times=torch.tensor(list(group_times) * bc, dtype=torch.int32,
+                                   device=device),
+            scatter=(None if lean else
+                     time_scatter(group_times, group_idx, dims, device)))
     outs = gcr_megachain(
         mops, tables.tlog, tables.q, ps_pad, k_total,
         nfreqs_true=dims.nfreqs, ntimes_true=dims.ntimes,
         alpha_int=dims.ntimes - 1, all_unflagged=dims.all_unflagged,
         prior=prior_bins(prior_static, device), refine=refine,
         warm_ns=warm_ns, drift_max=drift_max, lean=lean, randomness=rnd,
-        seed=seed, sids=sids, iter0=iter0, impl=impl)
+        seed=seed, sids=sids, iter0=iter0, impl=impl, **grouped)
+    if G > 1:
+        return outs.ps_final, _assemble_grouped(outs, dims, G, store_cr,
+                                                chi_mask)
 
     nf, nt, nm = dims.nfreqs, dims.ntimes, dims.nmodes
     lnp = ln_post(outs.noise_nu, outs.bmask, outs.ps)
@@ -164,15 +283,46 @@ def run_chunk_megachain(
             chisq=outs.chi[:, :, :nf, :nt].transpose(2, 3),
             ln_post=lnp)
     else:
-        if chi_mask is not None:
-            cm = torch.as_tensor(np.asarray(chi_mask, np.float32)).to(device)
-            chi_mean = torch.sum(outs.chit[:, :, :nf] * cm, dim=2) / (
-                torch.sum(cm) * nt)
-        else:
-            chi_mean = torch.sum(outs.chit[:, :, :nf], dim=2) / (nf * nt)
         sample = ChainSample(signal_cr=None, ps=outs.ps[:, :, :nf],
-                             fg_amps=None, chisq=chi_mean, ln_post=lnp)
+                             fg_amps=None,
+                             chisq=_chi_mean(outs.chit, dims, chi_mask),
+                             ln_post=lnp)
     return outs.ps_final, sample
+
+
+def _ids_on(ids, device):
+    return (ids.to(device=device, dtype=torch.int32) if torch.is_tensor(ids)
+            else torch.as_tensor(np.asarray(ids, np.int32)).to(device))
+
+
+def _chi_mean(chit, dims: MegaDims, chi_mask):
+    """Lean (K, B, n) time-reduced chi -> (K, B) mean over the true times
+    and the (masked) channels."""
+    nf, nt = dims.nfreqs, dims.ntimes
+    if chi_mask is None:
+        return torch.sum(chit[:, :, :nf], dim=2) / (nf * nt)
+    cm = torch.as_tensor(np.asarray(chi_mask, np.float32)).to(chit.device)
+    return torch.sum(chit[:, :, :nf] * cm, dim=2) / (torch.sum(cm) * nt)
+
+
+def _assemble_grouped(outs, dims: MegaDims, G: int, store_cr: bool,
+                      chi_mask) -> ChainSample:
+    """Grouped outputs (rows = chain x group) -> per-chain sample
+    (``models/megachain.py:410-475``): ``noise_nu``, ``bmask`` and the lean
+    ``chi_t`` summed over each chain's rows, ``ps`` from row ``c*G``,
+    ``ln_post`` from the pooled values. The per-time fields are already in
+    time order (gathered per iteration through ``group_idx``)."""
+    dei = lambda x: x.view(x.shape[0], -1, G, *x.shape[2:])
+    nf = dims.nfreqs
+    ps_c = dei(outs.ps)[:, :, 0]
+    lnp = ln_post(torch.sum(dei(outs.noise_nu), dim=2),
+                  torch.sum(dei(outs.bmask), dim=2), ps_c)
+    if store_cr:
+        return ChainSample(signal_cr=outs.sig, ps=ps_c[:, :, :nf],
+                           fg_amps=outs.amp, chisq=outs.chi, ln_post=lnp)
+    chit = torch.sum(dei(outs.chit), dim=2)
+    return ChainSample(signal_cr=None, ps=ps_c[:, :, :nf], fg_amps=None,
+                       chisq=_chi_mean(chit, dims, chi_mask), ln_post=lnp)
 
 
 def auto_chunk(niter: int, batch: int, dims: MegaDims,
@@ -223,12 +373,17 @@ def run_chain_megachain(
     chunk: Optional[int] = None,
     warm_ns: int = 0,
     drift_max: float = 0.25,
+    group_times=(),
+    sidc=None,
+    group_idx=(),
 ):
     """A whole chain of ``niter`` iterations in chunks (default
     :func:`auto_chunk`), on ``ps0_pad``'s device. The streams continue at
     global iteration ``iter0``. ``randomness``: optional callable
     ``(iteration, k_total) -> dict`` of external randomness per chunk.
-    Returns ``(ps_pad_final, ChainSample over niter)``."""
+    ``group_times``/``sidc``/``group_idx``: the grouped time-flags mode of
+    :func:`run_chunk_megachain`. Returns ``(ps_pad_final, ChainSample over
+    niter)``."""
     if tables is None:
         tables = make_chain_tables(mops, ps0_pad.device)
     prior_static = prior_static_from(prior, dims)
@@ -246,7 +401,8 @@ def run_chain_megachain(
             randomness=(None if randomness is None
                         else randomness(iter0 + it, k_total)),
             refine=refine, store_cr=store_cr, chi_mask=chi_mask,
-            warm_ns=warm_ns, drift_max=drift_max)
+            warm_ns=warm_ns, drift_max=drift_max, group_times=group_times,
+            sidc=sidc, group_idx=group_idx)
         pieces.append(sample)
         it += k_total
     return ps, _cat(pieces)

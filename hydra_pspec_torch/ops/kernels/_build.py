@@ -35,14 +35,14 @@ U = ctypes.c_uint
 SIGNATURES = {
     "hk_cgemm": [P, P, P, P, I, I, I, I, I, I, F, F, P],
     "hk_herm_inv": [P, P, I, I, P],
-    "hk_draw_rhs": [P, P, P, P, I, I, I, I, P],
-    "hk_draw_system": [P, P, P, P, P, P, P, P, I, I, I, I, I, P],
+    "hk_draw_rhs": [P, P, P, P, I, I, I, I, P, P],
+    "hk_draw_system": [P, P, P, P, P, P, P, P, I, I, I, I, I, P, P],
     "hk_row_scale_sumsq": [P, P, P, P, P, I, I, P],
     "hk_draw_resid": [P, P, P, P, P, P, P, P, P, P, P, P,
-                      I, I, I, I, I, P],
-    "hk_rng_fields": [U, P, U, P, P, I, I, I, I, I, P],
+                      I, I, I, I, I, P, P],
+    "hk_rng_fields": [U, P, U, P, P, I, I, I, I, I, P, P],
     "hk_bandpower": [P, P, P, I, U, P, U, I, P, P, I, P, P, P, I,
-                     P, P, I, I, P],
+                     P, P, I, I, I, P],
     "hk_philox_raw": [P, P, P, I, P],
 }
 

@@ -8,44 +8,51 @@ VPU phases of ``ops/pallas/megastep.py::_draw_body``: the right-hand side
 ``(B, n, t)`` complex fields, bound by HBM bandwidth on the H100; one block
 per row, coalesced, row sums by a fixed-order block reduction.
 
+The time mask is ``j < ntimes``; in the grouped time-flags mode the
+optional int32 ``row_times`` (B,) gives each row its own count instead.
+
 CPU tensors take the ``plain_*`` version beside each wrapper; it has the
 wrapper's signature and runs on any device.
 """
 import torch
 
+from ..philox import time_mask
 from . import _build
 
 F32, C64 = torch.float32, torch.complex64
 
 
-def _tmask(t, ntimes, device):
-    return (torch.arange(t, device=device) < ntimes).to(F32)
+def _check_row_times(row_times, B, dev):
+    if row_times is not None:
+        _build.check(row_times, "row_times", torch.int32, (B,), dev)
 
 
 # --- rc = ni_d + nih * omega_b * tmask -----------------------------------
 
-def plain_draw_rhs(nid, nih, ob, ntimes):
-    return nid + nih[:, :, None] * (ob * _tmask(ob.shape[2], ntimes,
-                                                ob.device))
+def plain_draw_rhs(nid, nih, ob, ntimes, row_times=None):
+    return nid + nih[:, :, None] * (ob * time_mask(ob.shape[2], ntimes,
+                                                   ob.device, row_times))
 
 
-def draw_rhs(nid, nih, ob, ntimes: int):
-    if _build.on_cpu(nid, nih, ob):
-        return plain_draw_rhs(nid, nih, ob, ntimes)
+def draw_rhs(nid, nih, ob, ntimes: int, row_times=None):
+    if _build.on_cpu(nid, nih, ob, row_times):
+        return plain_draw_rhs(nid, nih, ob, ntimes, row_times)
     B, n, t = nid.shape
     dev = nid.device
     _build.check(nid, "nid", C64, (B, n, t), dev)
     _build.check(nih, "nih", F32, (B, n), dev)
     _build.check(ob, "ob", C64, (B, n, t), dev)
+    _check_row_times(row_times, B, dev)
     rc = torch.empty_like(nid)
     _build.call("draw_rhs", "hk_draw_rhs", _build.ptr(nid), _build.ptr(nih),
-                _build.ptr(ob), _build.ptr(rc), B, n, t, ntimes)
+                _build.ptr(ob), _build.ptr(rc), B, n, t, ntimes,
+                _build.ptr(row_times))
     return rc
 
 
 # --- system S = (dd dd^T P~ + I) dinv dinv^T, xs = dinv (dd frc + oa) -----
 
-def plain_draw_system(pt, ps, frc, oa, ntimes, nfreqs):
+def plain_draw_system(pt, ps, frc, oa, ntimes, nfreqs, row_times=None):
     n = pt.shape[1]
     tiny = torch.finfo(F32).tiny
     dd = torch.sqrt(torch.clamp(ps, min=0.0) / nfreqs)
@@ -56,21 +63,22 @@ def plain_draw_system(pt, ps, frc, oa, ntimes, nfreqs):
     eye = torch.eye(n, dtype=F32, device=pt.device)
     s = torch.complex((outer * pt.real + eye) * dscale,
                       (outer * pt.imag) * dscale)
-    tm = _tmask(frc.shape[2], ntimes, frc.device)
+    tm = time_mask(frc.shape[2], ntimes, frc.device, row_times)
     xs = dinv[:, :, None] * (dd[:, :, None] * frc + oa * tm)
     return s, xs, dd, dinv
 
 
-def draw_system(pt, ps, frc, oa, ntimes: int, nfreqs: int):
+def draw_system(pt, ps, frc, oa, ntimes: int, nfreqs: int, row_times=None):
     """Returns ``(S, xs, dd, dinv)``."""
-    if _build.on_cpu(pt, ps, frc, oa):
-        return plain_draw_system(pt, ps, frc, oa, ntimes, nfreqs)
+    if _build.on_cpu(pt, ps, frc, oa, row_times):
+        return plain_draw_system(pt, ps, frc, oa, ntimes, nfreqs, row_times)
     B, n, t = frc.shape
     dev = frc.device
     _build.check(pt, "pt", C64, (B, n, n), dev)
     _build.check(ps, "ps", F32, (B, n), dev)
     _build.check(frc, "frc", C64, (B, n, t), dev)
     _build.check(oa, "oa", C64, (B, n, t), dev)
+    _check_row_times(row_times, B, dev)
     s = torch.empty_like(pt)
     xs = torch.empty_like(frc)
     dd = torch.empty_like(ps)
@@ -78,7 +86,8 @@ def draw_system(pt, ps, frc, oa, ntimes: int, nfreqs: int):
     _build.call("draw_system", "hk_draw_system", _build.ptr(pt),
                 _build.ptr(ps), _build.ptr(frc), _build.ptr(oa),
                 _build.ptr(s), _build.ptr(xs), _build.ptr(dd),
-                _build.ptr(dinv), B, n, t, ntimes, nfreqs)
+                _build.ptr(dinv), B, n, t, ntimes, nfreqs,
+                _build.ptr(row_times))
     return s, xs, dd, dinv
 
 
@@ -116,12 +125,13 @@ def row_scale_sumsq(x, s1=None, s2=None, want_y: bool = True):
 
 def plain_draw_resid(dw, sig, fa, ninvf, w, da, a0, ntimes, *, want_chi,
                      want_chit, want_amp, want_ws, chi_out=None,
-                     amp_out=None):
+                     amp_out=None, row_times=None):
     res = dw - sig - fa
     res2 = res.real * res.real + res.imag * res.imag
     chi = res2 * ninvf[:, :, None]
     noise = torch.sum(res2 * (w * ninvf)[:, :, None], dim=2)
-    chit = (torch.sum(chi * _tmask(dw.shape[2], ntimes, dw.device), dim=2)
+    chit = (torch.sum(chi * time_mask(dw.shape[2], ntimes, dw.device,
+                                      row_times), dim=2)
             if want_chit else None)
     amp = da + a0 if want_amp else None
     ws = w[:, :, None] * sig if want_ws else None
@@ -134,14 +144,15 @@ def plain_draw_resid(dw, sig, fa, ninvf, w, da, a0, ntimes, *, want_chi,
 
 def draw_resid(dw, sig, fa, ninvf, w, da, a0, ntimes: int, *,
                want_chi: bool, want_chit: bool, want_amp: bool,
-               want_ws: bool, chi_out=None, amp_out=None):
+               want_ws: bool, chi_out=None, amp_out=None, row_times=None):
     """``(chi, noise_nu, chi_t, amps, w*sig)``, the unwanted ones None.
     ``chi_out``/``amp_out``: optional preallocated outputs."""
-    if _build.on_cpu(dw, sig, fa, ninvf, w, da, a0):
+    if _build.on_cpu(dw, sig, fa, ninvf, w, da, a0, row_times):
         return plain_draw_resid(dw, sig, fa, ninvf, w, da, a0, ntimes,
                                 want_chi=want_chi, want_chit=want_chit,
                                 want_amp=want_amp, want_ws=want_ws,
-                                chi_out=chi_out, amp_out=amp_out)
+                                chi_out=chi_out, amp_out=amp_out,
+                                row_times=row_times)
     B, n, t = dw.shape
     m = da.shape[1]
     dev = dw.device
@@ -151,6 +162,7 @@ def draw_resid(dw, sig, fa, ninvf, w, da, a0, ntimes: int, *,
         _build.check(v, name, F32, (B, n), dev)
     for name, v in (("da", da), ("a0", a0)):
         _build.check(v, name, C64, (B, m, t), dev)
+    _check_row_times(row_times, B, dev)
     chi = None
     if want_chi:
         chi = chi_out if chi_out is not None else torch.empty(
@@ -167,5 +179,6 @@ def draw_resid(dw, sig, fa, ninvf, w, da, a0, ntimes: int, *,
                 _build.ptr(sig), _build.ptr(fa), _build.ptr(ninvf),
                 _build.ptr(w), _build.ptr(da), _build.ptr(a0),
                 _build.ptr(chi), _build.ptr(noise), _build.ptr(chit),
-                _build.ptr(amp), _build.ptr(ws), B, n, m, t, ntimes)
+                _build.ptr(amp), _build.ptr(ws), B, n, m, t, ntimes,
+                _build.ptr(row_times))
     return chi, noise, chit, amp, ws

@@ -1,5 +1,6 @@
 """K whole Gibbs iterations per chain: the port of the TPU kernel
-``ops/pallas/megachain.py::gcr_megachain`` in plain mode (:469-694).
+``ops/pallas/megachain.py::gcr_megachain`` (:469-694), in plain and in
+grouped time-flags mode.
 
 On the TPU this is one Pallas program that keeps every chain's constants
 in VMEM for K iterations. Here each iteration is a short sequence of the
@@ -18,6 +19,17 @@ on the device:
 * the bandpower conditional (:func:`sample_bandpowers`).
 
 ``lean`` returns only the time-reduced chi and the per-iteration vectors.
+
+Grouped time-flags mode (``group = G > 1``, :153-163): each chain spans G
+chain-major rows, row ``c*G + g`` carrying the operators of flag-pattern
+time group g and its time count in ``row_times``. The omegas are drawn per
+row, ``beta`` is pooled over a chain's rows inside the bandpower kernel,
+and every row of a chain gets the chain's ``ps``, so the warm-start gate
+takes the same decision on all of them. With a :class:`TimeScatter` the
+per-time fields of each iteration are gathered at once into per-chain
+outputs in the original time order (the XLA scatters of
+``models/megachain.py:443-451``), so the padded per-row fields never
+outlive their iteration.
 """
 from typing import NamedTuple, Optional
 
@@ -28,8 +40,26 @@ from .megastep import draw_body
 from .rng_bandpower import PriorBins
 
 
+class TimeScatter(NamedTuple):
+    """Where each true time of a chain lies in its G rows: time T is lane
+    ``lane[T]`` of row ``c*G + row[T]``."""
+
+    group: int
+    row: torch.Tensor    # (Ntimes,) int64
+    lane: torch.Tensor   # (Ntimes,) int64
+    nfreqs: int
+    nmodes: int
+
+    def gather(self, x, width: int):
+        """(Bc*G, r, t) rows -> (Bc, Ntimes, width) per chain, time-major."""
+        xv = x.view(-1, self.group, x.shape[1], x.shape[2])
+        return xv.transpose(2, 3)[:, self.row, self.lane, :width]
+
+
 class ChainOut(NamedTuple):
-    """Per-iteration outputs with a leading K axis (padded layout)."""
+    """Per-iteration outputs with a leading K axis (padded layout; with a
+    :class:`TimeScatter` the per-time fields are per chain, time-major and
+    trimmed: (K, Bc, Ntimes, Nfreqs or Nmodes))."""
 
     sig: Optional[torch.Tensor]     # (K, B, n, t) complex; None when lean
     amp: Optional[torch.Tensor]     # (K, B, m, t) complex; None when lean
@@ -95,7 +125,9 @@ def gcr_megachain(mops, tlog, q, ps0, k_total: int, *, nfreqs_true: int,
                   prior: PriorBins, refine: int = 1, warm_ns: int = 0,
                   drift_max: float = 0.25, lean: bool = False,
                   randomness: Optional[dict] = None, seed=None, sids=None,
-                  iter0: int = 0, impl: Impl = KERNELS) -> ChainOut:
+                  iter0: int = 0, row_times=None, group: int = 1,
+                  sidc=None, scatter: Optional[TimeScatter] = None,
+                  impl: Impl = KERNELS) -> ChainOut:
     """``k_total`` Gibbs iterations for the whole batch, starting from the
     padded bandpowers ``ps0`` (B, n).
 
@@ -103,7 +135,11 @@ def gcr_megachain(mops, tlog, q, ps0, k_total: int, *, nfreqs_true: int,
     leading K axis: complex64 ``oa``/``ob`` (K, B, n, t), ``gam`` (K, B, n),
     ``u_pb`` (K, B, >=8)), or the Philox streams of ``seed`` and the int32
     global chain ids ``sids`` at global iterations ``iter0 .. iter0+K-1``.
-    ``impl``: the kernels (default) or ``impl.PLAIN``.
+    Grouped mode (``group`` G > 1): ``sids`` are the row streams, ``sidc``
+    (B,) each row's chain id, ``row_times`` (B,) int32 each row's time
+    count; ``scatter`` (optional, full mode) gathers the per-time fields
+    into per-chain outputs. ``impl``: the kernels (default) or
+    ``impl.PLAIN``.
     """
     B, n = ps0.shape
     t = mops.nid.shape[2]
@@ -112,12 +148,24 @@ def gcr_megachain(mops, tlog, q, ps0, k_total: int, *, nfreqs_true: int,
     K = k_total
     if (randomness is None) == (sids is None or seed is None):
         raise ValueError("give either randomness, or seed and sids")
+    if group > 1 and (row_times is None
+                      or (randomness is None and sidc is None)):
+        raise ValueError("grouped mode needs row_times, and sidc with seed")
     out = dict(
         ps=torch.empty((K, B, n), dtype=torch.float32, device=dev),
         noise_nu=torch.empty((K, B, n), dtype=torch.float32, device=dev),
         bmask=torch.empty((K, B, n), dtype=torch.float32, device=dev))
     if lean:
         out["chit"] = torch.empty((K, B, n), dtype=torch.float32, device=dev)
+    elif scatter is not None:
+        bc, nt = B // scatter.group, scatter.row.shape[0]
+        nf, nm = scatter.nfreqs, scatter.nmodes
+        out["sig"] = torch.empty((K, bc, nt, nf), dtype=torch.complex64,
+                                 device=dev)
+        out["amp"] = torch.empty((K, bc, nt, nm), dtype=torch.complex64,
+                                 device=dev)
+        out["chi"] = torch.empty((K, bc, nt, nf), dtype=torch.float32,
+                                 device=dev)
     else:
         out["sig"] = torch.empty((K, B, n, t), dtype=torch.complex64,
                                  device=dev)
@@ -125,6 +173,7 @@ def gcr_megachain(mops, tlog, q, ps0, k_total: int, *, nfreqs_true: int,
                                  device=dev)
         out["chi"] = torch.empty((K, B, n, t), dtype=torch.float32,
                                  device=dev)
+    direct = not lean and scatter is None   # kernels write into out[...][k]
     warm = _WarmStart(warm_ns, drift_max, impl) if warm_ns > 0 else None
     ps = ps0
     for k in range(K):
@@ -135,8 +184,9 @@ def gcr_megachain(mops, tlog, q, ps0, k_total: int, *, nfreqs_true: int,
                         u_pb=randomness["u_pb"][k])
         else:
             oa, ob = impl.rng_fields(seed, sids, g, n, t, ntimes_true,
-                                     nfreqs_true)
-            rand = dict(seed=seed, sids=sids, g=g, alpha=alpha_int)
+                                     nfreqs_true, row_times)
+            rand = dict(seed=seed, sids=sids if group == 1 else sidc, g=g,
+                        alpha=alpha_int)
         build_inv = None
         if warm is not None:
             build_inv = (lambda s, _ps=ps, _k=k: warm(s, _ps, _k))
@@ -144,10 +194,16 @@ def gcr_megachain(mops, tlog, q, ps0, k_total: int, *, nfreqs_true: int,
             mops, ps, oa, ob, nfreqs=nfreqs_true, ntimes=ntimes_true,
             all_unflagged=all_unflagged, refine=refine, build_inv=build_inv,
             lean=lean,
-            sig_out=None if lean else out["sig"][k],
-            amp_out=None if lean else out["amp"][k],
-            chi_out=None if lean else out["chi"][k], impl=impl)
-        ps = sample_bandpowers(d.beta, prior, tlog, q, impl, **rand)
+            sig_out=out["sig"][k] if direct else None,
+            amp_out=out["amp"][k] if direct else None,
+            chi_out=out["chi"][k] if direct else None,
+            row_times=row_times, impl=impl)
+        if scatter is not None and not lean:
+            out["sig"][k] = scatter.gather(d.sig, scatter.nfreqs)
+            out["amp"][k] = scatter.gather(d.amp, scatter.nmodes)
+            out["chi"][k] = scatter.gather(d.chi, scatter.nfreqs)
+        ps = sample_bandpowers(d.beta, prior, tlog, q, impl, group=group,
+                               **rand)
         out["ps"][k] = ps
         out["noise_nu"][k] = d.noise_nu
         out["bmask"][k] = d.bmask

@@ -39,22 +39,27 @@ class DrawOut(NamedTuple):
 def draw_body(mops, ps, oa, ob, *, nfreqs: int, ntimes: int,
               all_unflagged: bool, refine: int = 1, build_inv=None,
               lean: bool = False, sig_out=None, amp_out=None,
-              chi_out=None, impl: Impl = KERNELS) -> DrawOut:
+              chi_out=None, row_times=None,
+              impl: Impl = KERNELS) -> DrawOut:
     """One draw for the batch. ``mops``: :class:`models.mega.MegaOperators`;
     ``ps`` (B, n) float32; ``oa``/``ob`` (B, n, t) complex64 omegas (the
-    kernel masks them at ``ntimes``). ``build_inv(S)``: optional policy
-    returning the system inverse (the megachain warm start); default is
-    the exact inverse. ``*_out``: optional preallocated full-mode outputs.
-    ``impl``: the kernels (default) or the plain versions (``impl.PLAIN``)."""
+    kernel masks them at ``ntimes``, or with the int32 ``row_times`` (B,)
+    of the grouped time-flags mode at each row's own count, as
+    ``megastep.py:135-157`` does with ``tmask``). ``build_inv(S)``:
+    optional policy returning the system inverse (the megachain warm
+    start); default is the exact inverse. ``*_out``: optional preallocated
+    full-mode outputs. ``impl``: the kernels (default) or the plain
+    versions (``impl.PLAIN``)."""
     mm = impl.cgemm
     # 1-3. right-hand side, FG Schur reduction, delay basis
-    rc = impl.draw_rhs(mops.nid, mops.nih, ob, ntimes)
+    rc = impl.draw_rhs(mops.nid, mops.nih, ob, ntimes, row_times)
     ba = mm(mops.fg, rc, op="H")
     rc = mm(mops.g, ba, x=rc, alpha=-1.0, beta=1.0, out=rc)
     frc = mm(mops.f, rc)
 
     # 4. equilibrated system, inverse, apply + refinement
-    s, xs, dd, dinv = impl.draw_system(mops.pt, ps, frc, oa, ntimes, nfreqs)
+    s, xs, dd, dinv = impl.draw_system(mops.pt, ps, frc, oa, ntimes, nfreqs,
+                                       row_times)
     inv = impl.herm_inv(s) if build_inv is None else build_inv(s)
     x = apply_refine(s, inv, xs, refine, mm=mm)
 
@@ -69,7 +74,8 @@ def draw_body(mops, ps, oa, ob, *, nfreqs: int, ntimes: int,
     chi, noise_nu, chit, amp, ws = impl.draw_resid(
         mops.dw, sig, fa, mops.ninv_full, mops.w, da, mops.a0, ntimes,
         want_chi=not lean, want_chit=lean, want_amp=not lean,
-        want_ws=not all_unflagged, chi_out=chi_out, amp_out=amp_out)
+        want_ws=not all_unflagged, chi_out=chi_out, amp_out=amp_out,
+        row_times=row_times)
     if all_unflagged:
         bmask = beta
     else:

@@ -8,6 +8,12 @@ keyed on (run seed, global chain stream id, global iteration); see
 same words. ``rng_fields`` is ALU bound (Philox rounds and
 transcendentals), ``bandpower`` latency bound and tiny (one block per
 chain, one thread per bin).
+
+Grouped time-flags mode (``ops/pallas/megachain.py:220-229, 256-263,
+409-418``): ``rng_fields`` masks each row at its own time count
+(``row_times``), and ``bandpower`` with ``group = G > 1`` pools ``beta``
+over each chain's G chain-major rows, draws once per chain on the chain
+stream, and writes that chain's ``ps`` to all G rows.
 """
 from typing import NamedTuple
 
@@ -53,18 +59,22 @@ plain_rng_fields = philox.omega_fields  # the twin, on any device
 
 
 def rng_fields(seed: int, sids: torch.Tensor, g: int, n: int, t: int,
-               ntimes: int, nfreqs: int):
+               ntimes: int, nfreqs: int, row_times=None):
     """The iteration-``g`` omegas ``(oa, ob)``, complex64 (B, n, t), of the
-    chains ``sids`` (int32, on the device to draw on)."""
-    if _build.on_cpu(sids):
-        return plain_rng_fields(seed, sids, g, n, t, ntimes, nfreqs)
+    chains ``sids`` (int32, on the device to draw on). ``row_times``:
+    optional int32 (B,) per-row time counts replacing ``ntimes``."""
+    if _build.on_cpu(sids, row_times):
+        return plain_rng_fields(seed, sids, g, n, t, ntimes, nfreqs,
+                                row_times)
     B = sids.shape[0]
     _build.check(sids, "sids", torch.int32, (B,))
+    if row_times is not None:
+        _build.check(row_times, "row_times", torch.int32, (B,), sids.device)
     oa = torch.empty((B, n, t), dtype=torch.complex64, device=sids.device)
     ob = torch.empty_like(oa)
     _build.call("rng_fields", "hk_rng_fields", _u32(seed), _build.ptr(sids),
                 _u32(g), _build.ptr(oa), _build.ptr(ob), B, n, t, ntimes,
-                nfreqs)
+                nfreqs, _build.ptr(row_times))
     return oa, ob
 
 
@@ -92,30 +102,60 @@ def _check_rand(gam, u_pb, sids):
     return external
 
 
+def _pool_rows(x, group: int):
+    """(B, n) -> (B/group, n): the sum over each chain's ``group`` rows,
+    taken in the kernel's order g = 0, 1, ..."""
+    xv = x.view(-1, group, x.shape[1])
+    out = xv[:, 0]
+    for r in range(1, group):
+        out = out + xv[:, r]
+    return out
+
+
 def plain_bandpower(beta, prior: PriorBins, tlog, q, *, gam=None, u_pb=None,
-                    seed=None, sids=None, g=0, alpha=None, gam_out=False):
+                    seed=None, sids=None, g=0, alpha=None, gam_out=False,
+                    group: int = 1):
     """The same function with ordinary torch ops and the Philox twin, on
     any device."""
+    if group > 1:
+        beta = _pool_rows(beta, group)
+        if gam is not None:
+            gam, u_pb = gam[::group], u_pb[::group]
+        if sids is not None:
+            sids = sids[::group].to(torch.int64) + philox.CHAIN_STREAM_OFFSET
     if not _check_rand(gam, u_pb, sids):
         gam = philox.gamma_draws(seed, sids, g, beta.shape[1], alpha)
         u_pb = philox.prior_uniforms(seed, sids, g)
     ps = _conditional(beta, gam, u_pb, prior, tlog, q)
+    if group > 1:
+        ps = ps.repeat_interleave(group, dim=0)
+        gam = gam.repeat_interleave(group, dim=0)
     return (ps, gam) if gam_out else ps
 
 
 def bandpower(beta, prior: PriorBins, tlog, q, *, gam=None, u_pb=None,
-              seed=None, sids=None, g=0, alpha=None, gam_out=False):
+              seed=None, sids=None, g=0, alpha=None, gam_out=False,
+              group: int = 1):
     """Draw the new bandpowers (B, n) from ``beta`` (B, n).
 
     Randomness: external ``gam`` (B, n) and ``u_pb`` (B, >=8), or the
     streams of ``seed``/``sids`` at global iteration ``g`` with
-    Gamma shape ``alpha``. ``gam_out``: also return the Gamma draws."""
+    Gamma shape ``alpha``. ``gam_out``: also return the Gamma draws.
+
+    ``group = G > 1`` (grouped time-flags mode): rows come in chain-major
+    blocks of G; ``beta`` is pooled over each block, ``sids`` holds each
+    row's chain id and the draws are keyed on ``sids[c*G] + 2^30`` (or read
+    from row ``c*G`` of ``gam``/``u_pb``); all G rows get the chain's
+    ``ps`` and Gamma draws."""
     if _build.on_cpu(beta, gam, u_pb, sids, tlog, q):
         return plain_bandpower(beta, prior, tlog, q, gam=gam, u_pb=u_pb,
                                seed=seed, sids=sids, g=g, alpha=alpha,
-                               gam_out=gam_out)
+                               gam_out=gam_out, group=group)
     external = _check_rand(gam, u_pb, sids)
     B, n = beta.shape
+    if group < 1 or B % group:
+        raise ValueError(f"batch {B} is not a whole number of {group}-row "
+                         f"chains")
     dev = beta.device
     _build.check(beta, "beta", F32, (B, n), dev)
     u_stride = 0
@@ -138,7 +178,7 @@ def bandpower(beta, prior: PriorBins, tlog, q, *, gam=None, u_pb=None,
                 int(alpha or 0), _build.ptr(tlog), _build.ptr(q),
                 tlog.shape[0], _build.ptr(prior.idx), _build.ptr(prior.lo),
                 _build.ptr(prior.hi), npb, _build.ptr(ps), _build.ptr(g_out),
-                B, n)
+                B, n, group)
     return (ps, g_out) if gam_out else ps
 
 

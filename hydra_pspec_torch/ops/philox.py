@@ -18,6 +18,14 @@ resume. The second word names the purpose:
 * ``UNIFORM`` (2): counter ``(g, 2, 0, r)``, r = 0, 1; the 8 prior-bin
   uniforms.
 
+Grouped time-flags mode (G > 1 flag-pattern time groups per chain, rows
+chain-major): the omegas of row ``c*G + g`` are keyed on the row stream
+``sid*G + g`` and zero beyond that row's time count; the Gamma and uniform
+words of the chain's one bandpower draw are keyed on the chain stream
+``sid + 2^30`` (:data:`CHAIN_STREAM_OFFSET`). Row ids stay below 2^30, so
+row and chain keys never meet (:func:`grouped_stream_ids`). G = 1 is plain
+mode exactly: row key and chain key are both ``sid``.
+
 It replaces the TPU core PRNG of ``ops/pallas/megachain.py:238-302`` and the
 Box-Muller of ``ops/pallas/megastep.py:55-73``.
 
@@ -26,6 +34,7 @@ split into 16-bit halves here.
 """
 import math
 
+import numpy as np
 import torch
 
 M0, M1 = 0xD2511F53, 0xCD9E8D57
@@ -33,6 +42,7 @@ W0, W1 = 0x9E3779B9, 0xBB67AE85
 MASK32 = 0xFFFFFFFF
 OMEGA, GAMMA, UNIFORM = 0, 1, 2
 N_PRIOR_UNIFORMS = 8
+CHAIN_STREAM_OFFSET = 1 << 30  # grouped mode: chain keys sid + 2^30
 
 
 def _mulhilo(a: int, b: torch.Tensor):
@@ -79,11 +89,36 @@ def _keys(seed: int, sids: torch.Tensor):
     return k0, k1
 
 
+def grouped_stream_ids(sid_chain, group: int):
+    """Per-row stream ids of chains ``sid_chain`` (global ids, host ints)
+    laid out as ``group`` chain-major rows each: ``(row ids sid*G + g,
+    chain id of each row)``, int32 numpy. Raises when a row id would reach
+    2^30, where row keys would meet the chain keys ``sid + 2^30``."""
+    sid = np.asarray(sid_chain, dtype=np.int64)
+    rows = np.repeat(sid, group) * group + np.tile(np.arange(group),
+                                                   sid.size)
+    if group > 1 and rows.size and int(rows.max()) >= CHAIN_STREAM_OFFSET:
+        raise ValueError(f"row stream id {int(rows.max())} >= 2^30: row "
+                         f"and chain streams would overlap")
+    return rows.astype(np.int32), np.repeat(sid, group).astype(np.int32)
+
+
+def time_mask(t: int, ntimes: int, device, row_times=None) -> torch.Tensor:
+    """float32 valid-time mask: ``(t,)`` lanes ``< ntimes``, or with the
+    int32 per-row counts ``row_times`` (B,), ``(B, 1, t)`` lanes
+    ``< row_times[b]``."""
+    j = torch.arange(t, device=device)
+    if row_times is None:
+        return (j < ntimes).to(torch.float32)
+    return (j[None, None, :] < row_times[:, None, None]).to(torch.float32)
+
+
 def omega_fields(seed: int, sids: torch.Tensor, g: int, n: int, t: int,
-                 ntimes: int, nfreqs: int):
+                 ntimes: int, nfreqs: int, row_times=None):
     """The two omega fields of one iteration, complex64 ``(B, n, t)``:
     ``oa`` (delay basis, scaled sqrt(1/2) sqrt(nfreqs)) and ``ob``
-    (frequency basis, scaled sqrt(1/2)). Zero on time lanes >= ntimes."""
+    (frequency basis, scaled sqrt(1/2)). Zero on time lanes >= ntimes, or
+    with ``row_times`` (B,) on lanes >= row b's count."""
     dev = sids.device
     k0, k1 = _keys(seed, sids)
     i = torch.arange(n, dtype=torch.int64, device=dev)[None, :, None]
@@ -92,7 +127,7 @@ def omega_fields(seed: int, sids: torch.Tensor, g: int, n: int, t: int,
                                 k0, k1[:, None, None])
     half = torch.tensor(math.sqrt(0.5), dtype=torch.float32)
     sa = half * torch.sqrt(torch.tensor(float(nfreqs), dtype=torch.float32))
-    mask = (j < ntimes).to(torch.float32)
+    mask = time_mask(t, ntimes, dev, row_times)
     obr, obi = bits_to_normals(w0, w1)
     oar, oai = bits_to_normals(w2, w3)
     ob = torch.complex(obr * half * mask, obi * half * mask)

@@ -9,11 +9,17 @@ on (seed, global chain stream id, global iteration), so a subset of
 baselines, a different chunking or a resumed run reproduces the same
 chains.
 
+Jobs with time-dependent flags (``flags_tf``) run the grouped time-flags
+path (``runner.py:775-1109`` of the JAX package): baselines with identical
+flag arrays form a signature and run as one batch of chain-major
+(chain, time group) rows (``models/megachain.py::TflagsMegaSetup``), one
+signature after another, each with its own checkpoint.
+
 Single device only. These raise ``NotImplementedError`` naming the
 ROADMAP item that ports them: MAP mode, a dense ``Ninv``, more than 8
-bounded prior bins, ``Ntimes > 1025``, ``flags_tf``, more than one process
-or device. Sample files are written with ``np.save`` (the native writer of
-``utils/fastio.py`` is not ported).
+bounded prior bins, ``Ntimes > 1025``, more than 8 flag-pattern time
+groups, more than one process or device. Sample files are written with
+``np.save`` (the native writer of ``utils/fastio.py`` is not ported).
 """
 import time
 from dataclasses import dataclass
@@ -23,7 +29,8 @@ from typing import Callable, Optional, Sequence
 import numpy as np
 import torch
 
-from .models import mega, megachain, rgibbs
+from .models import mega, megachain, rgibbs, tflags
+from .ops import philox
 from .utils import io as hio
 
 MAX_NTIMES = 1025
@@ -40,7 +47,9 @@ class BaselineJob:
     S_initial: np.ndarray      # (Nfreqs, Nfreqs) or bandpowers (Nfreqs,)
     Ninv: np.ndarray           # (Nfreqs,) diag, diagonal matrix, or scalar
     out_dir: Optional[Path] = None
-    flags_tf: Optional[np.ndarray] = None  # not ported: raises
+    # (Ntimes, Nfreqs) bool, True = flagged: the grouped time-flags path
+    # runs instead of the per-channel ``w`` (which it then ignores)
+    flags_tf: Optional[np.ndarray] = None
 
 
 @dataclass
@@ -68,6 +77,13 @@ def _initial_ps_host(S_initial, nfreqs):
     return np.clip(ps, 0.0, None)
 
 
+def _max_tflag_groups(jobs):
+    """Most distinct flag rows (time groups) over the jobs' ``flags_tf``
+    (0 when none carries time-dependent flags)."""
+    return max([len(np.unique(np.asarray(j.flags_tf, dtype=bool), axis=0))
+                for j in jobs if j.flags_tf is not None], default=0)
+
+
 def select_engine(engine: str = "auto") -> str:
     """The port has one engine: megachain."""
     if engine in ("auto", "megachain"):
@@ -88,8 +104,12 @@ def _check_supported(jobs, ps_prior, map_estimate, num_processes,
         raise NotImplementedError(
             "multi-process and multi-device runs are not ported yet "
             "(ROADMAP.md, Queue 1 item 7)")
-    if any(j.flags_tf is not None for j in jobs):
-        raise NotImplementedError(megachain.TFLAGS_ITEM)
+    n_groups = _max_tflag_groups(jobs)
+    if n_groups > megachain.MAX_TIME_GROUPS:
+        raise NotImplementedError(
+            f"{n_groups} flag-pattern time groups: more than "
+            f"{megachain.MAX_TIME_GROUPS} run on the real engine, not ported "
+            f"yet (ROADMAP.md, Queue 1 item 9)")
     n_prior = int(np.count_nonzero(np.any(np.asarray(ps_prior) > 0, axis=0)))
     if n_prior > megachain.MAX_PRIOR_BINS:
         raise NotImplementedError(
@@ -111,7 +131,7 @@ def run_baselines(
     ps_prior: np.ndarray,
     niter: int,
     *,
-    device,
+    device="cuda",
     seed: Optional[int] = None,
     nchains: int = 1,
     write_niter: int = 100,
@@ -130,8 +150,10 @@ def run_baselines(
     randomness: Optional[Callable] = None,
     verbose: bool = False,
 ):
-    """Run Gibbs chains for every (baseline, chain) pair on ``device``;
-    returns ``(results, timings)`` with one :class:`RunResult` per pair.
+    """Run Gibbs chains for every (baseline, chain) pair on ``device`` (the
+    card by default; ``device="cpu"`` runs the plain versions of the
+    kernels); returns ``(results, timings)`` with one :class:`RunResult`
+    per pair.
 
     ``checkpoint_niter``: checkpoint cadence in iterations (rounded up to
     whole ``write_niter`` chunks); 0 = every chunk. ``warm_ns`` /
@@ -141,12 +163,28 @@ def run_baselines(
     key their streams. ``randomness``: optional callable ``(iteration,
     k_total) -> dict`` of external randomness per chunk (the JAX package's
     layout), for pinning against it; default is the Philox streams of
-    ``seed``."""
+    ``seed``. On the time-flags path it is called as ``randomness(
+    iteration, k_total, sids=row stream ids, sidc=chain id of each row,
+    group=G)``, since each signature has its own rows.
+
+    Jobs with ``flags_tf`` (a job without it in such a run gets all-False
+    flags) run the grouped time-flags path: each signature checkpoints at
+    every flush (``checkpoint_niter`` is not read there, as in the JAX
+    package), and ``timings`` sums ``scatter`` (host build and transfer)
+    and ``process`` (sampling and flushes) over the signatures."""
     engine = select_engine(engine)
     _check_supported(jobs, ps_prior, map_estimate, num_processes,
                      mesh_devices)
     device = torch.device(device)
     seed = 0 if seed is None else int(seed)
+    if any(j.flags_tf is not None for j in jobs):
+        return _run_baselines_tflags(
+            jobs, ps_prior, niter, device=device, seed=seed,
+            nchains=nchains, write_niter=write_niter, store_cr=store_cr,
+            engine=engine, warm_ns=warm_ns, drift_max=drift_max,
+            checkpoint=checkpoint, resume=resume, run_dir=run_dir,
+            global_baseline_ids=global_baseline_ids, randomness=randomness,
+            verbose=verbose)
     nbl = len(jobs)
     nfreqs = jobs[0].d.shape[-1]
     meta = [(ib, ic) for ib in range(nbl) for ic in range(nchains)]
@@ -243,6 +281,142 @@ def run_baselines(
         "niter": niter,
         "start_iter": start_iter,
         "batch": n_real,
+        "engine": engine,
+        "device": str(device),
+    }
+    return results, timings
+
+
+def _per_row(ps, G):
+    """(Bc, n) chain states -> (Bc*G, n), each repeated over its G rows."""
+    return ps[:, None].expand(-1, G, -1).reshape(-1, ps.shape[1])
+
+
+def _run_baselines_tflags(jobs, ps_prior, niter, *, device, seed, nchains,
+                          write_niter, store_cr, engine, warm_ns, drift_max,
+                          checkpoint, resume, run_dir, global_baseline_ids,
+                          randomness, verbose):
+    """The grouped time-flags path, one flag signature after another
+    (``runner.py:812-1063`` of the JAX package, single device)."""
+    nbl = len(jobs)
+    flags_of = [np.zeros(j.d.shape, dtype=bool) if j.flags_tf is None
+                else np.asarray(j.flags_tf, dtype=bool) for j in jobs]
+    sig_members = {}
+    for ib, f in enumerate(flags_of):
+        sig_members.setdefault((f.shape, f.tobytes()), []).append(ib)
+    if run_dir is None and jobs[0].out_dir is not None:
+        run_dir = Path(jobs[0].out_dir).parent
+    prior_host = np.asarray(ps_prior, dtype=np.float64)
+    gids = (list(global_baseline_ids) if global_baseline_ids is not None
+            else list(range(nbl)))
+    results_by_row = {}
+    start_iters = []
+    write_time = t_build = t_process = 0.0
+    for si, ibs in enumerate(sig_members.values()):
+        meta = [(ib, ic) for ib in ibs for ic in range(nchains)]
+        nfreqs = jobs[ibs[0]].d.shape[-1]
+
+        # --- build: per-(baseline, group) operators, stacked, interleaved
+        t0 = time.perf_counter()
+        per_bl = {ib: tflags.build_grouped_operators_real(
+                      jobs[ib].d, flags_of[ib], jobs[ib].fgmodes,
+                      jobs[ib].Ninv)
+                  for ib in ibs}
+        first = per_bl[ibs[0]]
+        groups = [tflags.TimeGroupReal(
+                      ops=rgibbs.stack_chain_operators(
+                          [per_bl[ib][g].ops for ib, _ in meta]),
+                      idx=first[g].idx)
+                  for g in range(len(first))]
+        del per_bl
+        setup = megachain.build_tflags_mega_setup(groups, device)
+        del groups
+        G = len(setup.group_times)
+        sid_host = np.asarray([gids[ib] * nchains + ic for ib, ic in meta],
+                              dtype=np.int64)
+        sids_row, sidc_rows = philox.grouped_stream_ids(sid_host, G)
+        sids_t = torch.from_numpy(sids_row).to(device)
+        sidc_t = torch.from_numpy(sidc_rows).to(device)
+        ps_state = _per_row(mega.pad_ps(np.stack(
+            [_initial_ps_host(jobs[ib].S_initial, nfreqs) for ib, _ in meta]),
+            setup.dims, device), G)
+        tables = megachain.make_chain_tables(setup.mops, device)
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        t_build += time.perf_counter() - t0
+
+        # --- resume: each signature carries its own checkpoint -----------
+        tag = f"-tf{si}"
+        start_iter = 0
+        prefix = None
+        if resume and run_dir is not None:
+            ck = hio.load_checkpoint(run_dir, tag=tag)
+            if ck is not None and (
+                    ck["ps"].shape == (len(meta), nfreqs)
+                    and ck["extra"].get("engine", engine) == engine
+                    and ck["extra"].get("nchains", nchains) == nchains):
+                prefix = _load_prefix(jobs, meta, nchains, ck["iteration"],
+                                      store_cr)
+                if prefix is not None:
+                    start_iter = ck["iteration"]
+                    ps_state = _per_row(
+                        mega.pad_ps(ck["ps"], setup.dims, device), G)
+                    if verbose:
+                        print(f"[tflags] resuming signature {si} from "
+                              f"iteration {start_iter}")
+        start_iters.append(start_iter)
+
+        # --- chunked chains with host flushes ------------------------------
+        rnd = None
+        if randomness is not None:
+            rnd = (lambda it, k, _r=sids_row, _c=sidc_rows, _g=G:
+                   randomness(it, k, sids=_r, sidc=_c, group=_g))
+        host_chunks = []
+        row_write_sec = [0.0] * len(meta)
+        t0 = time.perf_counter()
+        done = start_iter
+        while done < niter:
+            n = min(write_niter, niter - done)
+            ps_state, samples = megachain.run_chain_megachain(
+                setup.mops, setup.dims, ps_state, prior_host, n, seed=seed,
+                sids=sids_t, iter0=done, randomness=rnd, tables=tables,
+                store_cr=store_cr, chunk=n, warm_ns=warm_ns,
+                drift_max=drift_max, group_times=setup.group_times,
+                sidc=sidc_t, group_idx=setup.group_idx)
+            host_chunks.append(_to_host(samples, store_cr))
+            del samples
+            done += n
+            if verbose:
+                print(f"[tflags x{len(ibs)} baselines] iter {done}/{niter}"
+                      f"  chisq={float(np.mean(host_chunks[-1].chisq)):.4f}")
+            if jobs[0].out_dir is not None:
+                tw = time.perf_counter()
+                _flush(jobs, meta, host_chunks, nchains, store_cr, nfreqs,
+                       prefix, row_sec=row_write_sec)
+                if checkpoint and run_dir is not None:
+                    hio.save_checkpoint(
+                        run_dir, iteration=done,
+                        ps=ps_state[::G, :nfreqs].cpu().numpy(),
+                        key_data=np.asarray([seed], dtype=np.int64),
+                        extra={"niter": niter, "engine": engine,
+                               "nchains": nchains, "tflags": True},
+                        tag=tag)
+                write_time += time.perf_counter() - tw
+        t_process += time.perf_counter() - t0
+        rows = _collect(jobs, meta, host_chunks, nchains, store_cr, nfreqs,
+                        row_write_sec, prefix)
+        results_by_row.update(zip(meta, rows))
+        del host_chunks, setup, tables, ps_state
+
+    results = [results_by_row[(ib, ic)]
+               for ib in range(nbl) for ic in range(nchains)]
+    timings = {
+        "process": t_process,
+        "write": write_time,
+        "scatter": t_build,
+        "niter": niter,
+        "start_iter": min(start_iters),
+        "batch": nbl * nchains,
         "engine": engine,
         "device": str(device),
     }

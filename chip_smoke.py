@@ -3,13 +3,17 @@
     python3 chip_smoke.py
 
 Phases, one printed line each (any failure raises; exit code non-zero):
-  1. environment: torch/CUDA versions, the card's name and power limit;
+  1. environment: torch/CUDA versions, and the card's name and power limit
+     as nvidia-smi prints them, on a line of its own;
   2. build the hand-written kernels from hydra_pspec_torch/csrc with nvcc;
   3. each kernel against its plain torch version on the card, at the main
      path's shapes (B=8, n=128, t=256, m=16), with the tolerance stated;
      Philox bits against the twin; normal and Gamma moments; the grouped
      time-flags variants (per-row time counts, pooled bandpower) at the
-     tflags path's shapes (8 chains x G=4 rows, t=128);
+     tflags path's shapes (8 chains x G=4 rows, t=128); the Hermitian
+     factor-solve (herm_chol_solve) at B=8, n=120, K=203, the herm_inv
+     solve entry (hermitian_solve) and the single-step entry
+     (gcr_megastep) against their plain compositions;
   4. chain phase: run_chunk_megachain with numpy-made randomness, K=3,
      B=8, kernels against the plain path, at the CPU pin's tolerances; the
      same for a grouped chain (8 chains x G=4);
@@ -22,9 +26,25 @@ Phases, one printed line each (any failure raises; exit code non-zero):
      3 and 2 flag patterns) and RFI of amplitude 1e4 in the flagged
      entries, through run_baselines' grouped time-flags path: chi^2 on the
      unflagged entries, every kernel launched, a subset bit-identical;
-  8. times: one chain iteration and each kernel at B=100, one grouped
-     chain iteration and the grouped kernels at 100 chains x G=4, kernels
-     against the plain versions (CUDA events), with each kernel's bound.
+  8. fallback: the engines run_baselines routes to. A dense Ninv at full
+     width (100 baselines, correlated noise C_ij = s^2 0.5^|i-j|, 200
+     iterations, files and checkpoint) routes to the real engine and runs
+     the factor-solve kernel: whitened chi^2 r^H Ninv r / (Ntimes Nfreqs)
+     from the written samples within 2 % of 1; solver="pallas2" (10
+     baselines x 50) launches herm_inv on the real path; MAP mode (10
+     baselines) routes to real and agrees with the CPU run at 3e-3; 20
+     baselines with 11 flag patterns (10 RFI windows) run the grouped real
+     path: chi^2 on unflagged entries within 2 %, 5 baselines alone
+     bit-identical, all-False flags bit-identical to the plain real run;
+     the mega engine with a 21-bin prior (100 baselines x 100) and with
+     1100 times (10 x 50): chi^2 within 2 %; with 7 bins mega is
+     bit-identical to megachain without the warm start;
+  9. times: one chain iteration and each kernel at B=100, one grouped
+     chain iteration and the grouped kernels at 100 chains x G=4, one real
+     iteration (dense noise, pallas and pallas2) and one mega iteration at
+     B=100, the factor-solve at B=100, n=120, K=203, kernels against the
+     plain versions (CUDA events), with each kernel's bound and the
+     iteration bounds.
 The line before the last is a JSON object with every kernel's launches,
 error, times and bound; the last line is the device JSON object.
 """
@@ -52,6 +72,13 @@ N_SIG_A, N_SUBSET = 90, 10    # tflags: baselines of signature A; subset
 RFI = 1.0e4                   # added to every flagged entry of d
 HBM_BYTES_S, FP32_OPS_S = 3.35e12, 67e12   # H100 SXM data sheet
 
+CHI2_DENSE_RHO = 0.5          # dense noise: C_ij = s^2 rho^|i-j|
+N_MAP, N_PALLAS2, PALLAS2_NITER = 10, 10, 50
+N_TF_REAL, N_TF_SUB, TF_REAL_NITER = 20, 5, 100
+MEGA_HALF, MEGA_NITER = 10, 100   # 21 bounded prior bins
+LONG_NT, N_LONG, LONG_NITER = 1100, 10, 50
+N_MEGA_EQ, MEGA_EQ_NITER = 10, 20
+
 # kernel name -> (source, the TPU code it replaces)
 KERNELS = {
     "cgemm": ("hydra_pspec_torch/csrc/cgemm.cu",
@@ -70,7 +97,26 @@ KERNELS = {
                    "hydra_pspec_tpu/ops/pallas/megachain.py:238"),
     "bandpower": ("hydra_pspec_torch/csrc/rng_bandpower.cu",
                   "hydra_pspec_tpu/ops/pallas/megachain.py:102"),
+    "herm_chol_solve": ("hydra_pspec_torch/csrc/herm_chol_solve.cu",
+                        "hydra_pspec_tpu/ops/pallas/spd_solve.py:228"),
+    "hermitian_solve": ("hydra_pspec_torch/ops/kernels/herm_inv.py",
+                        "hydra_pspec_tpu/ops/pallas/spd_inv.py:149"),
+    "gcr_megastep": ("hydra_pspec_torch/ops/kernels/megastep.py",
+                     "hydra_pspec_tpu/ops/pallas/megastep.py:388"),
 }
+# the kernels each path must launch
+MAIN_KERNELS = ("cgemm", "herm_inv", "draw_rhs", "draw_system",
+                "row_scale_sumsq", "draw_resid", "rng_fields", "bandpower")
+REAL_KERNELS = ("cgemm", "herm_chol_solve", "row_scale_sumsq", "rng_fields",
+                "bandpower")
+PALLAS2_KERNELS = ("cgemm", "herm_inv", "hermitian_solve", "row_scale_sumsq",
+                   "rng_fields", "bandpower")
+MEGA_KERNELS = MAIN_KERNELS + ("gcr_megastep",)
+ENTRIES = ("hermitian_solve", "gcr_megastep")   # composed from kernels
+# where each kernel's "launches" of the kernels JSON line are read
+HOME_PATH = dict({k: "main" for k in MAIN_KERNELS},
+                 herm_chol_solve="dense", hermitian_solve="pallas2",
+                 gcr_megastep="mega")
 
 
 def say(phase, msg):
@@ -99,7 +145,8 @@ def phase_env():
         check=True).stdout.strip().splitlines()[0]
     say("env", f"python {sys.version.split()[0]} torch {torch.__version__} "
         f"cuda {torch.version.cuda} devices {torch.cuda.device_count()}; "
-        f"{smi}")
+        f"card and power limit on the next line")
+    print(smi, flush=True)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     return smi
@@ -112,10 +159,23 @@ def ps_truth():
     return 1000.0 / (1.0 + (delay / 8.0) ** 2)
 
 
-def make_jobs(nbl, job_cls, legendre_fgmodes, out_root=None):
+def noise_cov(b, nbl):
+    """Baseline b's dense noise covariance C_ij = s^2 rho^|i-j|, s^2 from
+    0.5 to 2 over the baselines: stationary noise correlated between
+    neighbouring channels, the np.cov of the data that
+    scripts/calc_vis_cov_matrices.py writes."""
+    i = np.arange(NF)
+    s2 = 0.5 + 1.5 * b / max(nbl - 1, 1)
+    return s2 * CHI2_DENSE_RHO ** np.abs(i[:, None] - i[None, :])
+
+
+def make_jobs(nbl, job_cls, legendre_fgmodes, out_root=None, ntimes=NT,
+              dense=False, seed=SEED):
     """d = s + Fg a + n with s ~ CN(0, F^H diag(ps/n^2) F), foreground
-    amplitudes ~1e3 x the noise, n ~ CN(0, 1/Ninv), Ninv = 1."""
-    rng = np.random.default_rng(SEED)
+    amplitudes ~1e3 x the noise, n ~ CN(0, 1/Ninv), Ninv = 1; with
+    ``dense``, n ~ CN(0, C) with C from :func:`noise_cov` and Ninv = C^-1,
+    a dense matrix."""
+    rng = np.random.default_rng(seed)
     i = np.arange(NF) - NF // 2
     f = np.exp(-2j * np.pi * np.outer(i, i) / NF)
     amp = np.sqrt(ps_truth() / NF**2)
@@ -124,19 +184,24 @@ def make_jobs(nbl, job_cls, legendre_fgmodes, out_root=None):
                      + 1j * rng.standard_normal(s)) / np.sqrt(2)
     jobs = []
     for b in range(nbl):
-        s = (cn(NT, NF) * amp) @ f.conj()          # rows: F^H (amp z)
-        a = cn(NT, NM) * 1e3 / (1.0 + np.arange(NM))
-        d = s + a @ fg.T + cn(NT, NF)
+        s = (cn(ntimes, NF) * amp) @ f.conj()      # rows: F^H (amp z)
+        a = cn(ntimes, NM) * 1e3 / (1.0 + np.arange(NM))
+        if dense:
+            c = noise_cov(b, nbl)
+            n, ninv = cn(ntimes, NF) @ np.linalg.cholesky(c).T, \
+                np.linalg.inv(c)
+        else:
+            n, ninv = cn(ntimes, NF), np.ones(NF)
         jobs.append(job_cls(
-            antpair=(b, b + 1), d=d, w=np.ones(NF), fgmodes=fg,
-            S_initial=np.eye(NF), Ninv=np.ones(NF),
+            antpair=(b, b + 1), d=s + a @ fg.T + n, w=np.ones(NF),
+            fgmodes=fg, S_initial=np.eye(NF), Ninv=ninv,
             out_dir=None if out_root is None else out_root / f"{b}-{b + 1}"))
     return jobs
 
 
-def make_prior():
+def make_prior(half=PRIOR_HALF):
     prior = np.zeros((2, NF))
-    sl = slice(NF // 2 - PRIOR_HALF, NF // 2 + PRIOR_HALF + 1)
+    sl = slice(NF // 2 - half, NF // 2 + half + 1)
     prior[0, sl] = ps_truth()[sl] * 10.0
     prior[1, sl] = ps_truth()[sl] / 10.0
     return prior
@@ -149,6 +214,35 @@ def build_ops(jobs, device):
         [rgibbs.build_chain_operators(j.d, j.w, j.fgmodes, j.Ninv)
          for j in jobs])
     return mega.from_chain_operators(ops, device)
+
+
+def real_system(jobs, device):
+    """The real engine's operators of ``jobs`` on ``device``, its GCR
+    system S = I + D P~ D at ps = truth (B, NF, NF), and the bins of the
+    7-bin prior."""
+    from hydra_pspec_torch.models import rgibbs
+    from hydra_pspec_torch.ops.kernels import rng_bandpower as rb
+
+    rops = rgibbs.to_device(rgibbs.stack_chain_operators(
+        [rgibbs.build_chain_operators(j.d, j.w, j.fgmodes, j.Ninv)
+         for j in jobs]), device)
+    ps = torch.as_tensor(np.tile(ps_truth(), (len(jobs), 1)),
+                         dtype=torch.float32).to(device)
+    dd = torch.sqrt(ps / NF)
+    eye = torch.eye(NF, dtype=torch.complex64, device=device)
+    s_u = ((dd[:, :, None] * dd[:, None, :]) * rops.p_tilde + eye)
+    bins = rb.prior_bins(rb.bounded_bins(make_prior()), device)
+    return rops, ps, s_u.contiguous(), bins
+
+
+def rfi_windows():
+    """10 RFI windows on 10 channels, disjoint in time: channel 15 + 9k
+    over times 18k + 5 .. 18k + 19, k = 0..9; with the unflagged rows, 11
+    flag patterns (more than the megachain engine's 8)."""
+    f = np.zeros((NT, NF), dtype=bool)
+    for k in range(10):
+        f[18 * k + 5: 18 * k + 20, 15 + 9 * k] = True
+    return f
 
 
 def tflag_signatures():
@@ -424,6 +518,45 @@ def phase_kernels(dev, jobs8, errs):
         K.bandpower(beta, prior, gtab.tlog, gtab.q, gam=kg, u_pb=u, group=G),
         P.bandpower(beta, prior, gtab.tlog, gtab.q, gam=kg, u_pb=u, group=G),
         1e-5, f"{what} external randomness")
+
+    # the real engine's factor-solve at its shapes (n = 120, K = 203)
+    from hydra_pspec_torch.ops.kernels import herm_inv as hi
+    from hydra_pspec_torch.ops.kernels import spd_solve as ss
+    from hydra_pspec_torch.ops.kernels.megastep import gcr_megastep
+
+    _, _, s_u, _ = real_system(jobs8, dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 7)
+    rhs = torch.randn((s_u.shape[0], NF, NT), dtype=torch.complex64,
+                      generator=gen, device=dev)
+    ms, _ = ss.equilibrate(s_u)
+    x_k = K.herm_chol_solve(ms, rhs)
+    x_p = P.herm_chol_solve(ms, rhs)
+    what = f"B={ms.shape[0]} n={NF} K={NT}"
+    cmp("herm_chol_solve", x_k, x_p, 1e-3, f"{what} vs plain")
+    res = float(torch.abs(torch.matmul(ms, x_k) - rhs).max())
+    mag = float((torch.matmul(torch.abs(ms), torch.abs(x_k))
+                 + torch.abs(rhs)).max())
+    say("kernels", f"herm_chol_solve  {what}: max|A x - b| {res:.3e} <= 1e-4 "
+        f"x max(|A||x| + |b|) {mag:.3e}")
+    require(res <= 1e-4 * mag, "herm_chol_solve residual")
+    cmp("hermitian_solve", hi.hermitian_solve(s_u, rhs),
+        hi.hermitian_solve(s_u, rhs, inv=P.herm_inv, mm=P.cgemm), 1e-3,
+        f"{what} vs plain (pallas2)")
+
+    # the single-step entry against its plain composition, main shapes
+    rng = np.random.default_rng(SEED + 8)
+    rnd = numpy_randomness(rng, 1, B, n, t, nf, nt)
+    oa = torch.complex(torch.from_numpy(rnd["oa_re"][0]),
+                       torch.from_numpy(rnd["oa_im"][0])).to(dev)
+    ob = torch.complex(torch.from_numpy(rnd["ob_re"][0]),
+                       torch.from_numpy(rnd["ob_im"][0])).to(dev)
+    step = lambda M: gcr_megastep(mops, ps, oa, ob, nfreqs=nf, ntimes=nt,
+                                  all_unflagged=dims.all_unflagged, impl=M)
+    dk, dp = step(K), step(P)
+    cmp("gcr_megastep", (dk.sig, dk.amp, dk.chi, dk.beta, dk.noise_nu,
+                         dk.bmask),
+        (dp.sig, dp.amp, dp.chi, dp.beta, dp.noise_nu, dp.bmask), 1e-4,
+        "sig, amp, chi, beta, noise_nu, bmask")
     sync(dev)
     _build.reset_launches()
 
@@ -559,7 +692,7 @@ def phase_main(dev, out_root):
                        for r in results])
     say("main", f"posterior-mean / truth on EoR bins 4 <= |delay| <= 16: "
         f"median {ratio:.4f} (information only)")
-    missing = [k for k in KERNELS if launches[k] == 0]
+    missing = [k for k in MAIN_KERNELS if launches[k] == 0]
     say("main", f"launches {launches}")
     require(not missing, f"kernels never launched on the main path: "
             f"{missing}")
@@ -662,7 +795,7 @@ def phase_tflags(dev, jobs_plain, out_root):
                        for r in results])
     say("tflags", f"posterior-mean / truth on EoR bins 4 <= |delay| <= 16: "
         f"median {ratio:.4f} (information only)")
-    missing = [k for k in KERNELS if launches[k] == 0]
+    missing = [k for k in MAIN_KERNELS if launches[k] == 0]
     say("tflags", f"launches {launches}")
     require(not missing, f"kernels never launched on the tflags path: "
             f"{missing}")
@@ -682,7 +815,209 @@ def phase_tflags(dev, jobs_plain, out_root):
     return launches, stats
 
 
-# --- 8. times ----------------------------------------------------------------
+# --- 8. fallback engines -----------------------------------------------------
+
+def _rel_err(got, want):
+    return float(np.abs(got - want).max() / (np.abs(want).mean() + 1e-30))
+
+
+def _chi2_unflagged(results, flags, lo, hi):
+    return float(np.mean([r.chisq[lo:hi][:, ~flags].mean() for r in results]))
+
+
+def phase_fallback(dev, jobs_plain, out_root):
+    """The engines run_baselines routes away from megachain, each driven
+    through run_baselines with the launch counts set to 0 just before and
+    read just after, under the device audit."""
+    from hydra_pspec_torch import runner
+    from hydra_pspec_torch.cli.run import legendre_fgmodes
+    from hydra_pspec_torch.ops.kernels import _build
+    from hydra_pspec_torch.utils import io as hio
+
+    launches, stats = {}, {}
+    plain_jobs = [dataclasses.replace(j, out_dir=None) for j in jobs_plain]
+
+    def drive(label, kernels, engine, jobs, niter, prior=None, **kw):
+        prior = make_prior() if prior is None else prior
+        want = runner.route_engine(jobs, prior, kw.get("engine", "auto"),
+                                   kw.get("map_estimate", False))
+        require(want == engine, f"{label}: routed to {want}, not {engine}")
+        audit = _DeviceAudit()
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        with audit:
+            res, tim = runner.run_baselines(jobs, prior, niter, device=dev,
+                                            seed=SEED, **kw)
+        sync(dev)
+        wall = time.perf_counter() - t0
+        got = dict(_build.LAUNCHES)
+        launches[label] = got
+        sampling = tim["process"] - tim["write"]
+        stats[label] = {"engine": tim["engine"], "baselines": len(jobs),
+                        "niter": tim["niter"], "wall_s": wall,
+                        "build_s": tim["scatter"],
+                        "process_s": tim["process"], "flush_s": tim["write"],
+                        "baseline_iters_per_s":
+                            len(jobs) * tim["niter"] / sampling}
+        say("fallback", f"{label}: engine {tim['engine']}, {len(jobs)} "
+            f"baselines x {tim['niter']} iterations, wall {wall:.2f} s, "
+            f"build+transfer {tim['scatter']:.2f} s, process "
+            f"{tim['process']:.2f} s (write {tim['write']:.2f} s), "
+            f"baseline-iterations/s "
+            f"{stats[label]['baseline_iters_per_s']:.1f}")
+        say("fallback", f"{label}: launches "
+            f"{ {k: got[k] for k in kernels} }; device audit "
+            f"{audit.cuda_ops} cuda tensor ops, CPU compute ops "
+            f"{dict(audit.cpu_ops) or 'none'}")
+        require(tim["engine"] == engine, f"{label}: ran {tim['engine']}")
+        require(not audit.cpu_ops and audit.cuda_ops > 0,
+                f"{label}: tensors of the path left the device")
+        missing = [k for k in kernels if got[k] == 0]
+        require(not missing, f"{label}: never launched: {missing}")
+        return res, tim
+
+    # a dense Ninv at full width: the real engine, the factor-solve kernel
+    dense = make_jobs(len(jobs_plain), runner.BaselineJob, legendre_fgmodes,
+                      out_root / "dense", dense=True, seed=SEED + 3)
+    res, _ = drive("dense", REAL_KERNELS, "real", dense, NITER,
+                   write_niter=WRITE_NITER, store_cr=True)
+    ck = hio.load_checkpoint(Path(dense[0].out_dir).parent)
+    require(ck is not None and ck["iteration"] == NITER,
+            "dense: no checkpoint at the last iteration")
+    burn = min(50, NITER // 4)
+    white = []
+    for j in dense:
+        got = hio.load_samples(j.out_dir)
+        require(got["signal_cr"].shape == (NITER, NT, NF)
+                and np.isfinite(got["signal_cr"]).all(),
+                f"{j.out_dir}: signal_cr")
+        r = (j.d[None] - got["signal_cr"][burn:]
+             - got["fg_amps"][burn:] @ j.fgmodes.T).reshape(-1, NF)
+        white.append(float(np.sum((r.conj() * (r @ j.Ninv.T)).real))
+                     / (r.shape[0] * NF))
+    chi2_w = float(np.mean(white))
+    chi2_d = float(np.mean([r.chisq[burn:].mean() for r in res]))
+    say("fallback", f"dense: whitened chi^2 r^H Ninv r / (Ntimes Nfreqs) "
+        f"from the written samples, iterations {burn + 1}-{NITER}: "
+        f"{chi2_w:.5f} (gate |chi^2 - 1| <= {CHI2_GATE}); diagonal chisq "
+        f"mean {chi2_d:.5f} (information only)")
+    require(abs(chi2_w - 1.0) <= CHI2_GATE, "dense whitened chi^2 gate")
+    stats["dense"].update(whitened_chi2=chi2_w, diag_chisq=chi2_d)
+    del res
+
+    # solver="pallas2": herm_inv and the hermitian_solve entry
+    sub = [dataclasses.replace(j, out_dir=None) for j in dense[:N_PALLAS2]]
+    res, _ = drive("pallas2", PALLAS2_KERNELS, "real", sub, PALLAS2_NITER,
+                   write_niter=PALLAS2_NITER, solver="pallas2",
+                   global_baseline_ids=list(range(N_PALLAS2)))
+    chi2 = float(np.mean([r.chisq[PALLAS2_NITER // 2:].mean() for r in res]))
+    say("fallback", f"pallas2: diagonal chisq mean, second half "
+        f"{chi2:.5f}, finite: {bool(np.isfinite(chi2))}")
+    require(np.isfinite(chi2), "pallas2 chi^2 not finite")
+    stats["pallas2"].update(diag_chisq=chi2)
+
+    # MAP mode: the real engine, against the same run on the CPU
+    sub = plain_jobs[:N_MAP]
+    res, _ = drive("map", ("cgemm", "herm_chol_solve", "row_scale_sumsq",
+                           "bandpower"), "real", sub, NITER,
+                   map_estimate=True, global_baseline_ids=list(range(N_MAP)))
+    res_cpu, tim_cpu = runner.run_baselines(
+        sub, make_prior(), NITER, device="cpu", seed=SEED, map_estimate=True,
+        global_baseline_ids=list(range(N_MAP)))
+    require(tim_cpu["engine"] == "real", "map: the CPU run not on real")
+    err = max(_rel_err(getattr(a, f), getattr(b, f))
+              for a, b in zip(res, res_cpu)
+              for f in ("signal_cr", "fg_amps", "signal_ps", "ln_post"))
+    say("fallback", f"map: one iteration, card against CPU: max |diff| / "
+        f"mean |CPU| {err:.2e} <= 3e-3 over signal_cr, fg_amps, ps, ln_post")
+    require(err <= 3e-3 and res[0].signal_ps.shape == (1, NF),
+            "map: card and CPU disagree")
+    stats["map"].update(card_vs_cpu=err)
+
+    # more than 8 flag patterns: the grouped real path
+    flags = rfi_windows()
+    tf = [dataclasses.replace(j, d=j.d + RFI * flags, flags_tf=flags)
+          for j in plain_jobs[:N_TF_REAL]]
+    res, _ = drive("tflags_real", REAL_KERNELS, "real", tf, TF_REAL_NITER,
+                   write_niter=TF_REAL_NITER, store_cr=True)
+    burn = TF_REAL_NITER // 2
+    chi2 = _chi2_unflagged(res, flags, burn, TF_REAL_NITER)
+    say("fallback", f"tflags_real: 11 flag patterns; mean chi^2 over "
+        f"unflagged entries, iterations {burn + 1}-{TF_REAL_NITER}: "
+        f"{chi2:.5f} (gate |chi^2 - 1| <= {CHI2_GATE})")
+    require(abs(chi2 - 1.0) <= CHI2_GATE, "tflags_real chi^2 gate")
+    stats["tflags_real"].update(chi2_unflagged=chi2)
+    res_sub, _ = runner.run_baselines(
+        tf[:N_TF_SUB], make_prior(), TF_REAL_NITER, device=dev, seed=SEED,
+        write_niter=TF_REAL_NITER, global_baseline_ids=list(range(N_TF_SUB)))
+    for a, b in zip(res[:N_TF_SUB], res_sub):
+        for f in ("signal_ps", "signal_cr", "fg_amps", "chisq", "ln_post"):
+            require(np.array_equal(getattr(a, f), getattr(b, f)),
+                    f"tflags_real: {a.antpair} {f} differs in the subset run")
+    say("fallback", f"tflags_real: first {N_TF_SUB} baselines alone: all six "
+        f"sample arrays bit-identical")
+    none = np.zeros((NT, NF), dtype=bool)
+    kw = dict(device=dev, seed=SEED, write_niter=MEGA_EQ_NITER,
+              engine="real", global_baseline_ids=list(range(N_TF_SUB)))
+    res_none, tim = runner.run_baselines(
+        [dataclasses.replace(j, flags_tf=none) for j in plain_jobs[:N_TF_SUB]],
+        make_prior(), MEGA_EQ_NITER, **kw)
+    res_pl, _ = runner.run_baselines(plain_jobs[:N_TF_SUB], make_prior(),
+                                     MEGA_EQ_NITER, **kw)
+    require(tim["engine"] == "real", "all-False flags: not the real engine")
+    for a, b in zip(res_none, res_pl):
+        require(np.array_equal(a.signal_ps, b.signal_ps),
+                f"{a.antpair}: all-False flags change dps-eor on real")
+    say("fallback", f"real engine, {N_TF_SUB} baselines: all-False flags_tf "
+        f"(grouped path, one pattern) dps-eor bit-identical to no flags")
+
+    # the single-step mega engine: more than 8 bins, a long night
+    res, _ = drive("mega", MEGA_KERNELS, "mega", plain_jobs, MEGA_NITER,
+                   prior=make_prior(MEGA_HALF), write_niter=MEGA_NITER,
+                   store_cr=False)
+    burn = MEGA_NITER // 2
+    chi2 = float(np.mean([r.chisq[burn:].mean() for r in res]))
+    say("fallback", f"mega: {2 * MEGA_HALF + 1} bounded prior bins; mean "
+        f"chi^2 over iterations {burn + 1}-{MEGA_NITER}: {chi2:.5f} (gate "
+        f"|chi^2 - 1| <= {CHI2_GATE})")
+    require(abs(chi2 - 1.0) <= CHI2_GATE, "mega chi^2 gate")
+    stats["mega"].update(chi2=chi2)
+    long = make_jobs(N_LONG, runner.BaselineJob, legendre_fgmodes,
+                     ntimes=LONG_NT, seed=SEED + 5)
+    res, _ = drive("mega_long", MEGA_KERNELS, "mega", long, LONG_NITER,
+                   write_niter=LONG_NITER, store_cr=False)
+    burn = LONG_NITER // 2
+    chi2 = float(np.mean([r.chisq[burn:].mean() for r in res]))
+    say("fallback", f"mega_long: {LONG_NT} times; mean chi^2 over "
+        f"iterations {burn + 1}-{LONG_NITER}: {chi2:.5f} (gate |chi^2 - 1| "
+        f"<= {CHI2_GATE})")
+    require(abs(chi2 - 1.0) <= CHI2_GATE, "mega_long chi^2 gate")
+    stats["mega_long"].update(chi2=chi2)
+    sub = plain_jobs[:N_MEGA_EQ]
+    kw = dict(device=dev, seed=SEED, write_niter=MEGA_EQ_NITER,
+              store_cr=True, global_baseline_ids=list(range(N_MEGA_EQ)))
+    res_m, tim_m = runner.run_baselines(sub, make_prior(), MEGA_EQ_NITER,
+                                        engine="mega", **kw)
+    res_c, tim_c = runner.run_baselines(sub, make_prior(), MEGA_EQ_NITER,
+                                        engine="megachain", warm_ns=0, **kw)
+    require((tim_m["engine"], tim_c["engine"]) == ("mega", "megachain"),
+            "mega/megachain comparison routed elsewhere")
+    diff = max(_rel_err(getattr(a, f), getattr(b, f))
+               for a, b in zip(res_m, res_c)
+               for f in ("signal_ps", "signal_cr", "fg_amps", "chisq",
+                         "ln_post"))
+    same = all(np.array_equal(getattr(a, f), getattr(b, f))
+               for a, b in zip(res_m, res_c)
+               for f in ("signal_ps", "signal_cr", "fg_amps", "chisq",
+                         "ln_post"))
+    say("fallback", f"mega vs megachain (warm_ns=0), 7 bins, {N_MEGA_EQ} x "
+        f"{MEGA_EQ_NITER}: bit-identical {same} (max |diff| / mean "
+        f"{diff:.2e}; the CPU runs are bit-identical)")
+    require(same, "mega and megachain (warm_ns=0) differ")
+    return launches, stats, dense
+
+
+# --- 9. times ----------------------------------------------------------------
 
 def work(name, B, n, t, m, ntimes, valid=None, chains=None, alpha=None):
     """(bytes, operations) one call of kernel ``name`` needs at these
@@ -690,8 +1025,20 @@ def work(name, B, n, t, m, ntimes, valid=None, chains=None, alpha=None):
     bytes, float32 4); operations are real flops, with an integer or
     transcendental step counted as one operation. ``valid``: time lanes
     drawn in all rows (default B * ntimes); ``chains``: Gamma draws (the
-    grouped bandpower draws once per chain)."""
+    grouped bandpower draws once per chain). The solves take ``t`` as
+    their right-hand-side count K."""
     cfield, vec = 8 * B * n * t, 4 * B * n
+    if name == "herm_chol_solve":  # Cholesky n^3/6 + two sweeps n^2 K cMACs
+        return 8 * B * n * n + 2 * cfield, 8 * B * (n ** 3 // 6 + n * n * t)
+    if name == "hermitian_solve":  # herm_inv + apply + refine (3 n^2 K)
+        return 8 * B * n * n + 2 * cfield, B * (4 * n ** 3 + 24 * n * n * t)
+    if name == "gcr_megastep":     # the draw's products and inverse
+        ins = (8 * B * n * n + 4 * cfield + 2 * 8 * B * n * m
+               + 8 * B * m * m + 8 * B * m * t + 8 * n * n + 4 * vec)
+        outs = cfield + 8 * B * m * t + 4 * B * n * t + 3 * vec
+        return ins + outs, B * (4 * n ** 3 + 8 * (5 * n * n * t
+                                                  + 4 * n * m * t
+                                                  + m * m * t))
     if name == "cgemm":        # F rc: shared (n, n) times (B, n, t)
         return 8 * n * n + 2 * cfield, 8 * n * n * t * B
     if name == "herm_inv":     # Cholesky, L^-1, L^-H L^-1: n^3/2 cMACs
@@ -752,16 +1099,36 @@ def _time_pairs(label, cases, reps=10):
 
 
 def _time_chain(label, run, kit):
+    """One iteration's time on the kernel path and the plain path, in turns
+    (kit iterations a run), and the kernels' launches per iteration."""
+    from hydra_pspec_torch.ops.kernels import _build
     from hydra_pspec_torch.ops.kernels import impl as I
 
+    _build.reset_launches()
+    run(I.KERNELS)
+    torch.cuda.synchronize()
+    per_iter = {k: v / kit for k, v in _build.LAUNCHES.items() if v}
     chain = {}
     for name, impl in (("kernels", I.KERNELS), ("plain", I.PLAIN),
                        ("kernels", I.KERNELS), ("plain", I.PLAIN)):
         ms = _time(lambda: run(impl), 2) / kit
         chain.setdefault(name, []).append(ms)
+    chain["launches_per_iteration"] = per_iter
     say("times", f"one chain iteration, {label}: kernel path "
-        f"{chain['kernels']} ms, plain path {chain['plain']} ms")
+        f"{chain['kernels']} ms, plain path {chain['plain']} ms; launches "
+        f"per iteration {per_iter}")
     return chain
+
+
+def iteration_bound(chain, bounds):
+    """Sum over the kernels of launches per iteration x bound (each cgemm
+    launch priced at the F rc product's bound, the largest product of the
+    iteration, so this over-states the least time)."""
+    per = {k: v for k, v in chain["launches_per_iteration"].items()
+           if k not in ENTRIES}     # an entry's kernels count themselves
+    missing = [k for k in per if k not in bounds]
+    require(not missing, f"no bound for {missing}")
+    return sum(v * bounds[k][0] for k, v in per.items())
 
 
 def phase_times(dev, jobs):
@@ -860,18 +1227,104 @@ def phase_times(dev, jobs):
     gtimes = _time_pairs(f"grouped B={Bg} t={tg}", gcases)
     gshape = dict(B=Bg, n=n, t=tg, m=m, ntimes=ntot, alpha=ntot - 1,
                   valid=int(rt.sum()), chains=Bg // G)
-    gbounds = {k: bound(k, **gshape) for k in gcases}
-    for k, (b_ms, by) in gbounds.items():
+    gbounds = {k: bound(k, **gshape) for k in cases}
+    for k in gcases:
+        b_ms, by = gbounds[k]
         say("times", f"{k:16s} grouped B={Bg}: bound {b_ms:.4f} ms ({by}), "
             f"kernel at {100 * b_ms / gtimes[k][0]:.1f} % of it")
-    _build.reset_launches()
     return dict(chain=chain, times=times, library=library, bounds=bounds,
                 gchain=gchain, gtimes=gtimes, gbounds=gbounds,
-                gbatch=(Bg // G, G))
+                gbatch=(Bg // G, G), iter_bounds={
+                    "plain": iteration_bound(chain, bounds),
+                    "grouped": iteration_bound(gchain, gbounds)})
+
+
+def phase_times_fallback(dev, jobs, dense_jobs, tm):
+    """The fallback engines' iterations at B=100 and the new kernel and
+    entries against their plain versions, their bounds and library
+    calls."""
+    from hydra_pspec_torch.models import mega, megachain, rgibbs
+    from hydra_pspec_torch.ops.kernels import _build
+    from hydra_pspec_torch.ops.kernels import herm_inv as hi
+    from hydra_pspec_torch.ops.kernels import impl as I
+    from hydra_pspec_torch.ops.kernels import spd_solve as ss
+    from hydra_pspec_torch.ops.kernels.megastep import gcr_megastep
+
+    P = I.PLAIN
+    kit = 5
+    rops, ps_r, s_u, bins = real_system(dense_jobs, dev)
+    B = s_u.shape[0]
+    sids = torch.arange(B, dtype=torch.int32, device=dev)
+    real = {solver: _time_chain(
+                f"real engine, dense Ninv, solver {solver}, B={B}",
+                lambda impl, _s=solver: rgibbs.run_chain(
+                    rops, ps_r, bins, kit, seed=SEED, sids=sids, solver=_s,
+                    impl=impl), kit)
+            for solver in ("pallas", "pallas2")}
+    mops, dims = build_ops(jobs, dev)
+    n, t, m = mops.nid.shape[1], mops.nid.shape[2], mops.fg.shape[2]
+    nf, nt = dims.nfreqs, dims.ntimes
+    ps = mega.pad_ps(np.tile(ps_truth(), (B, 1)), dims, dev)
+    tables = megachain.make_chain_tables(mops, dev)
+    mega_it = _time_chain(f"mega engine, B={B}", lambda impl:
+                          mega.run_chain_mega(mops, dims, ps, bins, kit,
+                                              tables.tlog, tables.q,
+                                              seed=SEED, sids=sids,
+                                              impl=impl), kit)
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 9)
+    rhs = torch.randn((B, NF, NT), dtype=torch.complex64, generator=gen,
+                      device=dev)
+    ms, _ = ss.equilibrate(s_u)
+    oa, ob = P.rng_fields(SEED, sids, 0, n, t, nt, nf)
+    cases = {
+        "herm_chol_solve": lambda M: M.herm_chol_solve(ms, rhs),
+        "hermitian_solve": lambda M: hi.hermitian_solve(
+            s_u, rhs, inv=M.herm_inv, mm=M.cgemm),
+        "gcr_megastep": lambda M: gcr_megastep(
+            mops, ps, oa, ob, nfreqs=nf, ntimes=nt,
+            all_unflagged=dims.all_unflagged, impl=M),
+    }
+    times = _time_pairs(f"B={B}", cases)
+    one = rhs[:, :, :1].contiguous()
+    k1 = _time(lambda: I.KERNELS.herm_chol_solve(ms, one), 10)
+    say("times", f"herm_chol_solve  B={B} K=1 (the factor and one sweep "
+        f"tile): {k1:.4f} ms")
+    library = {"herm_chol_solve": _time(lambda: torch.linalg.solve(ms, rhs),
+                                        10),
+               "hermitian_solve": _time(lambda: torch.linalg.solve(s_u, rhs),
+                                        10)}
+    solve_shape = dict(B=B, n=NF, t=NT, m=NM, ntimes=NT, alpha=NT - 1)
+    main_shape = dict(B=B, n=n, t=t, m=m, ntimes=nt, alpha=nt - 1)
+    bounds = {"herm_chol_solve": bound("herm_chol_solve", **solve_shape),
+              "hermitian_solve": bound("hermitian_solve", **solve_shape),
+              "gcr_megastep": bound("gcr_megastep", **main_shape)}
+    for k, (b_ms, by) in bounds.items():
+        say("times", f"{k:16s} B={B}: bound {b_ms:.4f} ms ({by}), kernel "
+            f"at {100 * b_ms / times[k][0]:.1f} % of it; library call "
+            f"{library.get(k, float('nan')):.4f} ms")
+    # the real engine's iteration bound: its kernels at n = 120, t = 203
+    rb_ = {k: bound(k, **solve_shape) for k in
+           ("cgemm", "row_scale_sumsq", "rng_fields", "bandpower",
+            "herm_chol_solve", "hermitian_solve", "herm_inv")}
+    iter_bounds = {f"real_{k}": iteration_bound(v, rb_)
+                   for k, v in real.items()}
+    iter_bounds["mega"] = iteration_bound(mega_it, tm["bounds"])
+    for k, v in dict(tm["iter_bounds"], **iter_bounds).items():
+        it_ms = {"plain": tm["chain"], "grouped": tm["gchain"],
+                 "real_pallas": real["pallas"],
+                 "real_pallas2": real["pallas2"], "mega": mega_it}[k]
+        best = min(it_ms["kernels"])
+        say("times", f"iteration bound {k}: {v:.4f} ms = sum of launches "
+            f"per iteration x bound; iteration {best:.4f} ms, "
+            f"{100 * v / best:.1f} % of it")
+    _build.reset_launches()
+    return dict(real=real, mega=mega_it, times=times, library=library,
+                bounds=bounds, iter_bounds=iter_bounds, chol_k1_ms=k1)
 
 
 def main():
-    smi = phase_env()
+    phase_env()
     dev = torch.device("cuda", 0)
     from hydra_pspec_torch import runner
     from hydra_pspec_torch.cli.run import legendre_fgmodes
@@ -897,36 +1350,46 @@ def main():
         phase_invariance(dev, jobs, results)
         del results
         tf_launches, tf_stats = phase_tflags(dev, jobs, out_root / "tflags")
+        fb_launches, fb_stats, dense = phase_fallback(
+            dev, jobs, out_root / "fallback")
         tm = phase_times(dev, jobs)
+        tf = phase_times_fallback(dev, jobs, dense, tm)
     finally:
         shutil.rmtree(out_root, ignore_errors=True)
 
-    times, gtimes = tm["times"], tm["gtimes"]
+    paths = dict(main=launches, tflags=tf_launches, **fb_launches)
     rows = []
     for k, (src, rep) in KERNELS.items():
+        t = tm if k in MAIN_KERNELS else tf
         row = {"name": k, "route": "cuda", "source": src, "replaces": rep,
-               "launches": launches[k], "max_abs_err": errs[k],
-               "ms": times[k][0], "plain_ms": times[k][1],
-               "bound_ms": tm["bounds"][k][0],
-               "bound_by": tm["bounds"][k][1],
-               "library_ms": tm["library"].get(k)}
-        if k in gtimes:
-            row.update(tflags_ms=gtimes[k][0], tflags_plain_ms=gtimes[k][1],
+               "launches": paths[HOME_PATH[k]][k], "max_abs_err": errs[k],
+               "ms": t["times"][k][0], "plain_ms": t["times"][k][1],
+               "bound_ms": t["bounds"][k][0],
+               "bound_by": t["bounds"][k][1],
+               "library_ms": t["library"].get(k),
+               "launches_path": HOME_PATH[k],
+               "launches_by_path": {p: c[k] for p, c in paths.items()
+                                    if c.get(k)}}
+        if k in tm["gtimes"]:
+            row.update(tflags_ms=tm["gtimes"][k][0],
+                       tflags_plain_ms=tm["gtimes"][k][1],
                        tflags_bound_ms=tm["gbounds"][k][0],
                        tflags_bound_by=tm["gbounds"][k][1])
         rows.append(row)
+    its = dict(plain=tm["chain"], grouped=tm["gchain"],
+               real_pallas=tf["real"]["pallas"],
+               real_pallas2=tf["real"]["pallas2"], mega=tf["mega"])
     print(json.dumps({
         "kernels": rows,
-        "chain_iteration_ms": {"kernels": tm["chain"]["kernels"],
-                               "plain": tm["chain"]["plain"],
-                               "batch": N_BASELINES},
-        "grouped_chain_iteration_ms": {
-            "kernels": tm["gchain"]["kernels"],
-            "plain": tm["gchain"]["plain"],
-            "chains": tm["gbatch"][0], "groups": tm["gbatch"][1]},
+        "iteration_ms": {k: {"kernels": v["kernels"], "plain": v["plain"]}
+                         for k, v in its.items()},
+        "iteration_bound_ms": dict(tm["iter_bounds"], **tf["iter_bounds"]),
+        "iteration_batch": {"plain": N_BASELINES, "grouped": tm["gbatch"],
+                            "real": N_BASELINES, "mega": N_BASELINES},
+        "herm_chol_solve_k1_ms": tf["chol_k1_ms"],
         "main_baseline_iters_per_s": rate,
-        "tflags": dict(tf_stats, launches=tf_launches)}))
-    print(smi)
+        "tflags": dict(tf_stats, launches=tf_launches),
+        "fallback": fb_stats}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -17,12 +17,13 @@
 // n = 128, row stride n+1 against bank conflicts); the 256x256 real
 // embedding (256 KiB) would not fit in the 227 KB a block may use.
 //   1. right-looking Cholesky S = L L^H in place (lower triangle), pivot
-//      floored at FLT_MIN as _chol_block does;
+//      floored at FLT_MIN as _chol_block does (herm_chol.cuh, shared with
+//      herm_chol_solve.cu);
 //   2. X = L^-1 by forward substitution, one thread per column; the strict
 //      lower part of X goes to the (dead) upper triangle, transposed, its
 //      diagonal to a separate vector;
 //   3. S^-1 = X^H X, written to global memory (both triangles).
-#include "hk_common.cuh"
+#include "herm_chol.cuh"
 
 namespace {
 constexpr int HI_THREADS = 512;
@@ -40,35 +41,8 @@ herm_inv_kernel(const float2* __restrict__ S, float2* __restrict__ out,
   for (int e = tid; e < n * n; e += nt) A[(e / n) * ld + e % n] = Sb[e];
   __syncthreads();
 
-  // 1. Cholesky: step k updates the trailing lower triangle with the
-  //    unscaled column k, then scales column k.
-  for (int k = 0; k < n; ++k) {
-    const float d = fmaxf(A[k * ld + k].x, FLT_MIN);
-    const float invd = 1.0f / d;
-    const int m = n - k - 1;
-    for (int e = tid; e < m * m; e += nt) {
-      const int i = k + 1 + e / m, j = k + 1 + e % m;
-      if (j <= i) {
-        const float2 aik = A[i * ld + k], ajk = A[j * ld + k];
-        float2& aij = A[i * ld + j];
-        aij.x -= (aik.x * ajk.x + aik.y * ajk.y) * invd;
-        aij.y -= (aik.y * ajk.x - aik.x * ajk.y) * invd;
-      }
-    }
-    __syncthreads();
-    const float sd = sqrtf(d);
-    const float isd = 1.0f / sd;
-    for (int i = k + tid; i < n; i += nt) {
-      if (i == k) {
-        A[k * ld + k] = make_float2(sd, 0.f);
-      } else {
-        A[i * ld + k].x *= isd;
-        A[i * ld + k].y *= isd;
-      }
-    }
-    // step k+1 neither reads nor writes column k: no barrier needed here
-  }
-  __syncthreads();
+  // 1. Cholesky (herm_chol.cuh)
+  chol_lower_inplace(A, n, ld);
 
   // 2. X = L^-1, column j by thread j: X[i][j] stored at A[j][i] (i > j)
   for (int j = tid; j < n; j += nt) {

@@ -5,15 +5,17 @@
 // (hydra_pspec_tpu/ops/pallas/megachain.py), the core-PRNG draws seeded on
 // (seed, sid, k) with Box-Muller (:238-302; megastep.py:55-73) and the
 // bandpower conditional _sample_bandpowers_body (:102-145): free bins
-// beta / Gamma(alpha) with Gamma = -sum log u, and at most 8 bounded bins by
-// inversion of the tabulated truncated inverse gamma (_q_at, _y_at).
+// beta / Gamma(alpha) with Gamma = -sum log u, and the bounded bins by
+// inversion of the tabulated truncated inverse gamma (_q_at, _y_at): at
+// most 8 on the megachain engine, any number on the single-step and real
+// engines, which call the same kernel.
 //
 // Streams (the plain twin is hydra_pspec_torch/ops/philox.py): key =
 // (run seed, global chain stream id sid); counter = (global iteration g,
 // purpose, i, j). Purpose 0: omegas at (row i, time j); 1: the Gamma
-// uniforms 4j..4j+3 of bin i; 2: the 8 prior uniforms. Keying on the global
-// iteration keeps streams unchanged by chunk size, resume and batch
-// composition.
+// uniforms 4j..4j+3 of bin i; 2: the prior uniforms 4j..4j+3. Keying on
+// the global iteration keeps streams unchanged by chunk size, resume and
+// batch composition.
 //
 // Grouped time-flags mode (megachain.py:220-229, 256-263, 409-418): each
 // chain spans G chain-major rows, row c*G + g solving flag-pattern time

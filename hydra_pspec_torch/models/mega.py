@@ -1,5 +1,5 @@
-"""Chain constants in the padded, time-transposed megachain layout (port of
-``hydra_pspec_tpu/models/mega.py:25-166``).
+"""Chain constants in the padded, time-transposed mega layout, and the
+single-step mega engine (port of ``hydra_pspec_tpu/models/mega.py``).
 
 The layout is the JAX package's: frequencies padded to a multiple of 128
 (``n``), times to a multiple of 128 (``t``), modes to a multiple of 8
@@ -7,6 +7,11 @@ The layout is the JAX package's: frequencies padded to a multiple of 128
 JAX package keeps a ``(re, im)`` float32 pair, this package keeps one
 complex64 tensor. :meth:`MegaOperators.to_numpy` and
 :func:`from_jax_arrays` convert between the two.
+
+The mega engine (:func:`gibbs_step_mega`, :func:`run_chain_mega`) takes one
+iteration per call of the ``gcr_megastep`` entry: it serves more than 8
+bounded prior bins and ``Ntimes > 1025``, which the megachain engine does
+not take. Sample outputs leave the step trimmed, in the reference layout.
 """
 from typing import NamedTuple, Optional
 
@@ -14,7 +19,10 @@ import numpy as np
 import torch
 
 from ..ops.invgamma import InvGammaTable
-from .rgibbs import RChainOperators
+from ..ops.kernels.impl import KERNELS, Impl
+from ..ops.kernels.megastep import gcr_megastep
+from .rgibbs import (ChainSample, RChainOperators, bandpower_args,
+                     iteration_randomness, row_sum)
 
 # complex fields, each the JAX package's (<name>_re, <name>_im) pair
 _COMPLEX = ("pt", "nid", "dw", "fg", "g", "mi", "a0", "f")
@@ -101,7 +109,12 @@ def _pad_np(x, shape):
 def from_chain_operators(ops: RChainOperators, device,
                          t_pad: Optional[int] = None) -> tuple:
     """(a batch of) host chain operators -> (MegaOperators on ``device``,
-    MegaDims). ``t_pad`` forces the padded time width."""
+    MegaDims). ``t_pad`` forces the padded time width. Dense noise is
+    refused, as in the JAX package: it runs on the real engine."""
+    if ops.ni_dense is not None:
+        raise NotImplementedError(
+            "the mega layout takes diagonal noise; a dense Ninv runs on the "
+            "real engine")
     B, T0, n0 = ops.d_w.shape
     m0 = ops.fg.shape[-1]
     n = -(-n0 // 128) * 128
@@ -163,3 +176,81 @@ def pad_ps(ps, dims: MegaDims, device) -> torch.Tensor:
                       device=device)
     out[:, :dims.nfreqs] = ps
     return out
+
+
+def ln_post(noise_nu, bmask, ps):
+    """Log posterior from the per-iteration vectors (any leading axes),
+    summed in a fixed order (:func:`rgibbs.row_sum`)."""
+    tiny = torch.finfo(torch.float32).tiny
+    sig_term = row_sum(bmask / torch.clamp(ps, min=tiny))
+    return -(row_sum(noise_nu) + sig_term)
+
+
+def chi_mean(chit, dims: MegaDims, chi_mask):
+    """Lean (K, B, n) time-reduced chi -> (K, B) mean over the true times
+    and the (masked) channels."""
+    nf, nt = dims.nfreqs, dims.ntimes
+    if chi_mask is None:
+        return torch.sum(chit[:, :, :nf], dim=2) / (nf * nt)
+    cm = torch.as_tensor(np.asarray(chi_mask, np.float32)).to(chit.device)
+    return torch.sum(chit[:, :, :nf] * cm, dim=2) / (torch.sum(cm) * nt)
+
+
+def gibbs_step_mega(mops: MegaOperators, dims: MegaDims, ps_pad, prior,
+                    tlog, q, rand: dict, *, refine: int = 1,
+                    store_cr: bool = True, impl: Impl = KERNELS):
+    """One Gibbs alternation through the ``gcr_megastep`` entry
+    (``mega.py:169-278``). ``ps_pad`` (B, n) padded bandpowers; ``prior``
+    the bounded bins (any count); ``tlog``/``q`` the table rows. ``rand``:
+    external (``oa``, ``ob`` complex64 (B, n, t), ``gam`` (B, n), ``u_pb``
+    (B, >= bounded bins)) or the streams ``seed``, ``sids``, ``g``: the
+    omegas are then the megachain engine's words for that chain and
+    iteration (``rng_fields``), so with the exact inverse each iteration
+    the two engines draw alike. Returns ``(ps_new_pad, DrawOut)``; pad bins
+    of ``ps_new_pad`` are held at exactly 0."""
+    if "oa" in rand:
+        oa, ob = rand["oa"], rand["ob"]
+    else:
+        oa, ob = impl.rng_fields(rand["seed"], rand["sids"], rand["g"],
+                                 dims.n, dims.t, dims.ntimes, dims.nfreqs)
+    d = gcr_megastep(mops, ps_pad, oa, ob, nfreqs=dims.nfreqs,
+                     ntimes=dims.ntimes, all_unflagged=dims.all_unflagged,
+                     refine=refine, lean=not store_cr, impl=impl)
+    ps_new = impl.bandpower(d.beta, prior, tlog, q,
+                            **bandpower_args(rand, dims.ntimes - 1))
+    keep = (torch.arange(dims.n, device=ps_pad.device)
+            < dims.nfreqs).to(ps_new.dtype)
+    return ps_new * keep, d
+
+
+def run_chain_mega(mops: MegaOperators, dims: MegaDims, ps0_pad, prior,
+                   niter: int, tlog, q, *, seed=None, sids=None,
+                   iter0: int = 0, randomness: Optional[dict] = None,
+                   refine: int = 1, store_cr: bool = True, chi_mask=None,
+                   impl: Impl = KERNELS):
+    """``niter`` mega steps from ``ps0_pad`` (``mega.py:281-297``, a Python
+    loop). Randomness as :func:`rgibbs.run_chain`, with the omegas in the
+    padded ``(B, n, t)`` layout. ``chi_mask`` (optional (nfreqs,) 0/1, lean
+    runs): the chi^2 mean over the masked channels. Returns
+    ``(ps_pad_final, ChainSample)`` trimmed to the true widths."""
+    nf, nt, nm = dims.nfreqs, dims.ntimes, dims.nmodes
+    ps = ps0_pad
+    parts = {name: [] for name in ("ps", "ln_post", "sig", "amp", "chi")}
+    for k in range(niter):
+        rand = iteration_randomness(randomness, k, seed, sids, iter0 + k)
+        ps, d = gibbs_step_mega(mops, dims, ps, prior, tlog, q, rand,
+                                refine=refine, store_cr=store_cr, impl=impl)
+        parts["ps"].append(ps[:, :nf])
+        parts["ln_post"].append(ln_post(d.noise_nu, d.bmask, ps))
+        if store_cr:   # trimmed copies: the padded fields die here
+            trim = lambda x, w: x[:, :w, :nt].transpose(1, 2).contiguous()
+            parts["sig"].append(trim(d.sig, nf))
+            parts["amp"].append(trim(d.amp, nm))
+            parts["chi"].append(trim(d.chi, nf))
+        else:
+            parts["chi"].append(d.chit)
+    st = lambda name: torch.stack(parts[name]) if parts[name] else None
+    chisq = st("chi") if store_cr else chi_mean(st("chi"), dims, chi_mask)
+    return ps, ChainSample(signal_cr=st("sig"), ps=st("ps"),
+                           fg_amps=st("amp"), chisq=chisq,
+                           ln_post=st("ln_post"))

@@ -27,9 +27,11 @@ import torch
 from ..ops.invgamma import make_invgamma_table
 from ..ops.kernels.impl import KERNELS, Impl
 from ..ops.kernels.megachain import TimeScatter, gcr_megachain
-from ..ops.kernels.rng_bandpower import MAX_PRIOR_BINS, prior_bins
-from .mega import (MegaDims, MegaOperators, from_chain_operators,
-                   from_jax_arrays)
+from ..ops.kernels.rng_bandpower import (MAX_PRIOR_BINS, bounded_bins,
+                                         prior_bins)
+from .mega import (MegaDims, MegaOperators, chi_mean, from_chain_operators,
+                   from_jax_arrays, ln_post)
+from .rgibbs import ChainSample
 
 MAX_TIME_GROUPS = 8
 
@@ -42,18 +44,6 @@ class MegaChainTables(NamedTuple):
     q: torch.Tensor     # (S,) Q(alpha, y)
 
 
-class ChainSample(NamedTuple):
-    """Samples stacked over iterations, trimmed to the true dims and in the
-    reference layout. Lean runs carry None for the per-time fields and a
-    scalar chi^2 mean per iteration."""
-
-    signal_cr: Optional[torch.Tensor]   # (K, B, Ntimes, Nfreqs) complex
-    ps: torch.Tensor                    # (K, B, Nfreqs)
-    fg_amps: Optional[torch.Tensor]     # (K, B, Ntimes, Nmodes) complex
-    chisq: torch.Tensor                 # (K, B, Ntimes, Nfreqs) or (K, B)
-    ln_post: torch.Tensor               # (K, B)
-
-
 def make_chain_tables(mops: MegaOperators, device) -> MegaChainTables:
     return MegaChainTables(
         tlog=torch.from_numpy(np.array(mops.igt.log_y, np.float32)).to(
@@ -64,21 +54,12 @@ def make_chain_tables(mops: MegaOperators, device) -> MegaChainTables:
 def prior_static_from(prior, dims: MegaDims):
     """Host (2, Nfreqs-or-n) prior -> ``((idx, lo, hi), ...)`` for the
     bounded bins, with ``lo = prior[1]`` and ``hi = prior[0]``."""
-    p = np.asarray(prior)
-    idxs = np.nonzero(np.any(p > 0, axis=0))[0]
-    if len(idxs) > MAX_PRIOR_BINS:
-        raise NotImplementedError(
+    static = bounded_bins(prior)
+    if len(static) > MAX_PRIOR_BINS:
+        raise ValueError(
             f"megachain supports <= {MAX_PRIOR_BINS} bounded prior bins; "
-            f"got {len(idxs)}; the single-step engine that takes more is "
-            f"not ported yet (ROADMAP.md, Queue 1 item 9)")
-    return tuple((int(i), float(p[1, i]), float(p[0, i])) for i in idxs)
-
-
-def ln_post(noise_nu, bmask, ps):
-    """(K, B) log posterior from the per-iteration vectors."""
-    tiny = torch.finfo(torch.float32).tiny
-    sig_term = torch.sum(bmask / torch.clamp(ps, min=tiny), dim=-1)
-    return -(torch.sum(noise_nu, dim=-1) + sig_term)
+            f"got {len(static)}: run the single-step engine (engine='mega')")
+    return static
 
 
 # --- grouped time-flags layout ---------------------------------------------
@@ -176,17 +157,20 @@ def time_scatter(group_times, group_idx, dims: MegaDims,
                        dims.nfreqs, dims.nmodes)
 
 
-def _randomness_on(randomness: dict, device) -> dict:
-    """JAX-layout external randomness -> complex64 device tensors."""
+def randomness_on(randomness: dict, device) -> dict:
+    """JAX-layout external randomness -> device tensors: complex64 ``oa``
+    and ``ob`` (where given as ``_re``/``_im`` pairs), float32 ``gam`` and
+    ``u_pb``."""
     def t(x):
         if torch.is_tensor(x):
             return x.to(device=device, dtype=torch.float32)
         return torch.from_numpy(np.array(x, np.float32)).to(device)
-    return dict(oa=torch.complex(t(randomness["oa_re"]),
-                                 t(randomness["oa_im"])),
-                ob=torch.complex(t(randomness["ob_re"]),
-                                 t(randomness["ob_im"])),
-                gam=t(randomness["gam"]), u_pb=t(randomness["u_pb"]))
+    out = dict(gam=t(randomness["gam"]), u_pb=t(randomness["u_pb"]))
+    for name in ("oa", "ob"):
+        if f"{name}_re" in randomness:
+            out[name] = torch.complex(t(randomness[f"{name}_re"]),
+                                      t(randomness[f"{name}_im"]))
+    return out
 
 
 def run_chunk_megachain(
@@ -241,7 +225,7 @@ def run_chunk_megachain(
             "accepted)")
     device = ps_pad.device
     if randomness is not None:
-        rnd = _randomness_on(randomness, device)
+        rnd = randomness_on(randomness, device)
         seed = sids = None
     else:
         rnd = None
@@ -285,7 +269,7 @@ def run_chunk_megachain(
     else:
         sample = ChainSample(signal_cr=None, ps=outs.ps[:, :, :nf],
                              fg_amps=None,
-                             chisq=_chi_mean(outs.chit, dims, chi_mask),
+                             chisq=chi_mean(outs.chit, dims, chi_mask),
                              ln_post=lnp)
     return outs.ps_final, sample
 
@@ -293,16 +277,6 @@ def run_chunk_megachain(
 def _ids_on(ids, device):
     return (ids.to(device=device, dtype=torch.int32) if torch.is_tensor(ids)
             else torch.as_tensor(np.asarray(ids, np.int32)).to(device))
-
-
-def _chi_mean(chit, dims: MegaDims, chi_mask):
-    """Lean (K, B, n) time-reduced chi -> (K, B) mean over the true times
-    and the (masked) channels."""
-    nf, nt = dims.nfreqs, dims.ntimes
-    if chi_mask is None:
-        return torch.sum(chit[:, :, :nf], dim=2) / (nf * nt)
-    cm = torch.as_tensor(np.asarray(chi_mask, np.float32)).to(chit.device)
-    return torch.sum(chit[:, :, :nf] * cm, dim=2) / (torch.sum(cm) * nt)
 
 
 def _assemble_grouped(outs, dims: MegaDims, G: int, store_cr: bool,
@@ -322,7 +296,7 @@ def _assemble_grouped(outs, dims: MegaDims, G: int, store_cr: bool,
                            fg_amps=outs.amp, chisq=outs.chi, ln_post=lnp)
     chit = torch.sum(dei(outs.chit), dim=2)
     return ChainSample(signal_cr=None, ps=ps_c[:, :, :nf], fg_amps=None,
-                       chisq=_chi_mean(chit, dims, chi_mask), ln_post=lnp)
+                       chisq=chi_mean(chit, dims, chi_mask), ln_post=lnp)
 
 
 def auto_chunk(niter: int, batch: int, dims: MegaDims,

@@ -9,14 +9,17 @@ row form a group with its own per-channel weights; within a group the GCR
 operator is constant, and the bandpower draw pools the delay statistics of
 all groups (``models/megachain.py``, grouped mode).
 
-Not ported yet: the complex-engine step (``gibbs_step_tflags``,
-ROADMAP.md Queue 1 item 10) and the real-engine step
-(``gibbs_step_tflags_real``, Queue 1 item 9).
+The real engine's grouped step (``gibbs_step_tflags_real``, ``:187-332``)
+runs a signature with more than 8 patterns; the megachain engine's grouped
+mode (``models/megachain.py``) runs the others. Not ported: the complex
+engine's step (``gibbs_step_tflags``, ROADMAP.md Queue 1 item 10).
 """
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import numpy as np
+import torch
 
+from ..ops.kernels.impl import KERNELS, Impl
 from . import rgibbs
 
 
@@ -48,3 +51,86 @@ def build_grouped_operators_real(vis, flags_tf, fgmodes, ninv,
     return [TimeGroupReal(ops=rgibbs.build_chain_operators(
                 vis[idx], w_g, fgmodes, ninv, dtype=dtype), idx=idx)
             for w_g, idx in group_flag_patterns(flags_tf)]
+
+
+def to_device(groups, device):
+    """Host groups (``ops`` stacked over the signature's chains) ->
+    groups of :class:`rgibbs.RealOperators` with ``idx`` as an int64
+    tensor, on ``device``."""
+    return [TimeGroupReal(ops=rgibbs.to_device(g.ops, device),
+                          idx=torch.as_tensor(np.asarray(g.idx),
+                                              dtype=torch.int64,
+                                              device=device))
+            for g in groups]
+
+
+def gibbs_step_tflags_real(groups, ps, prior, tlog_total, q_total,
+                           rand: dict, *, map_estimate: bool = False,
+                           jitter: float = 0.0, solver: str = "auto",
+                           impl: Impl = KERNELS):
+    """One grouped Gibbs alternation of the real engine
+    (``tflags.py:187-305``): every time group solves its own GCR system
+    with the chain's ``ps`` (B, Nfreqs), and the bandpower draw pools
+    ``beta`` over the groups, through the table ``tlog_total``/``q_total``
+    at alpha + 1 = the TOTAL time count (each group's own table carries the
+    group's alpha). ``rand``: as :func:`rgibbs.gibbs_step`, with the omegas
+    over all times in time order; group g takes those of its global time
+    indices. As in the JAX package, the ln-posterior noise term uses the
+    diagonal of ``Ni``."""
+    batch, nfreqs = ps.shape
+    ntimes_total = sum(int(g.idx.shape[0]) for g in groups)
+    oa_t = ob_t = None
+    if not map_estimate:
+        oa_t, ob_t = rgibbs.omegas_t(rand, ntimes_total, nfreqs, impl)
+    dev = ps.device
+    f32 = dict(dtype=torch.float32, device=dev)
+    c64 = dict(dtype=torch.complex64, device=dev)
+    nmodes = groups[0].ops.fg.shape[-1]
+    sig_t = torch.zeros((batch, nfreqs, ntimes_total), **c64)
+    fga_t = torch.zeros((batch, nmodes, ntimes_total), **c64)
+    chi_t = torch.zeros((batch, nfreqs, ntimes_total), **f32)
+    beta = torch.zeros((batch, nfreqs), **f32)
+    beta_masked = torch.zeros((batch, nfreqs), **f32)
+    noise = torch.zeros((batch,), **f32)
+    chi_sum = torch.zeros((batch,), **f32)
+    for grp in groups:
+        pick = lambda z: None if z is None else z[:, :, grp.idx]
+        d = rgibbs.draw(grp.ops, ps, pick(oa_t), pick(ob_t), jitter, solver,
+                        impl)
+        r = rgibbs.residual(grp.ops, d, dense_noise=False,
+                            all_unflagged=False, impl=impl)
+        sig_t[:, :, grp.idx] = d.sig_t
+        fga_t[:, :, grp.idx] = d.fga_t
+        chi_t[:, :, grp.idx] = r.chi_t
+        beta = beta + d.beta
+        noise = noise + r.noise
+        beta_masked = beta_masked + r.beta_masked
+        chi_sum = chi_sum + r.chi_sum
+    ps_new = impl.bandpower(beta, prior, tlog_total, q_total,
+                            **rgibbs.bandpower_args(rand, ntimes_total - 1))
+    ln_post = -(noise + rgibbs.sig_term(beta_masked, ps_new))
+    t = rgibbs._t
+    return ps_new, rgibbs.RealSample(t(sig_t), ps_new, t(fga_t), t(chi_t),
+                                     ln_post,
+                                     chi_sum / (ntimes_total * nfreqs))
+
+
+def run_chain_tflags_real(groups, ps0, prior, niter: int, tlog_total,
+                          q_total, *, seed=None, sids=None, iter0: int = 0,
+                          randomness: Optional[dict] = None,
+                          map_estimate: bool = False, jitter: float = 0.0,
+                          store_cr: bool = True, solver: str = "auto",
+                          impl: Impl = KERNELS):
+    """``niter`` grouped steps (``tflags.py:308-332``); arguments and
+    result as :func:`rgibbs.run_chain`."""
+    ps = ps0
+    parts = {name: [] for name in rgibbs.ChainSample._fields}
+    for k in range(niter):
+        rand = rgibbs.iteration_randomness(randomness, k, seed, sids,
+                                           iter0 + k)
+        ps, s = gibbs_step_tflags_real(
+            groups, ps, prior, tlog_total, q_total, rand,
+            map_estimate=map_estimate, jitter=jitter, solver=solver,
+            impl=impl)
+        rgibbs.append_sample(parts, s, store_cr)
+    return ps, rgibbs.stack_samples(parts)

@@ -4,12 +4,14 @@ Port of ``hydra_pspec_tpu/ops/invgamma.py:81-160``. The table of the
 regularized upper gamma ``Q(alpha, y)`` on a log-spaced ``y`` grid is built
 once on the host in float64 with scipy and stored in float32, as the JAX
 package does. The lookups below are plain torch and serve as the reference
-semantics of the bandpower kernel (``ops/kernels/megachain.py``).
+semantics of the bandpower kernel (``ops/kernels/rng_bandpower.py``).
 """
 from typing import NamedTuple
 
 import numpy as np
 import torch
+
+from . import philox
 
 
 class InvGammaTable(NamedTuple):
@@ -75,3 +77,35 @@ def truncated_invgamma_sample_table(u, beta, lo, hi, log_y, q):
     y = table_y_at(log_y, q, c)
     x = beta / torch.clamp(y, min=torch.finfo(beta.dtype).tiny)
     return torch.minimum(torch.maximum(x, lo), hi)
+
+
+def sample_bandpowers_from_beta(beta, prior, log_y, q, *, gam=None, u=None,
+                                seed=None, sids=None, g: int = 0,
+                                alpha=None):
+    """The bandpower conditional draw from ``beta`` (B, n) (port of
+    ``ops/invgamma.py:201-264``), for any number of bounded bins and any
+    integer ``alpha = Ntimes - 1``, in plain torch on ``beta``'s device.
+
+    Free bins get ``beta / Gamma(alpha)``; the bounded bins ``prior.idx``
+    (bounds ``prior.lo``, ``prior.hi``) the truncated inverse gamma through
+    the table ``log_y``/``q`` at alpha + 1 = Ntimes, lane j of the
+    uniforms for bounded bin j. Randomness: external ``gam`` (B, n) and
+    ``u`` (B, >= npb), or the Philox streams of ``seed`` and the chain ids
+    ``sids`` at global iteration ``g``: ``Gamma = -sum log u`` over the
+    GAMMA words, exact for integer alpha at any size (the JAX package
+    switches to ``jax.random.gamma`` above alpha = 512, the same
+    distribution), and the UNIFORM words. This is the plain version of
+    the ``bandpower`` kernel (``ops/kernels/rng_bandpower.py``)."""
+    npb = prior.idx.shape[0]
+    if gam is None:
+        gam = philox.gamma_draws(seed, sids, g, beta.shape[1], int(alpha))
+        u = philox.prior_uniforms(seed, sids, g, npb)
+    free = beta / gam
+    if npb == 0:
+        return free
+    idx = prior.idx.long()
+    x = truncated_invgamma_sample_table(
+        u[:, :npb], beta[:, idx], prior.lo, prior.hi, log_y, q)
+    out = free.clone()
+    out[:, idx] = x
+    return out

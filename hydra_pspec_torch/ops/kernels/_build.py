@@ -9,7 +9,8 @@ an edit always rebuilds. Nothing is built when a module is imported.
 
 Every C entry point returns ``cudaGetLastError()`` after its launch;
 :func:`call` raises if that is not 0. Each launch adds one to its kernel's
-count in :data:`LAUNCHES`.
+count in :data:`LAUNCHES`; each call on the card of an entry composed from
+the kernels adds one to the entry's count there (:func:`count_entry`).
 """
 import ctypes
 import hashlib
@@ -35,6 +36,7 @@ U = ctypes.c_uint
 SIGNATURES = {
     "hk_cgemm": [P, P, P, P, I, I, I, I, I, I, F, F, P],
     "hk_herm_inv": [P, P, I, I, P],
+    "hk_herm_chol_solve": [P, P, P, P, I, I, I, P],
     "hk_draw_rhs": [P, P, P, P, I, I, I, I, P, P],
     "hk_draw_system": [P, P, P, P, P, P, P, P, I, I, I, I, I, P, P],
     "hk_row_scale_sumsq": [P, P, P, P, P, I, I, P],
@@ -46,10 +48,13 @@ SIGNATURES = {
     "hk_philox_raw": [P, P, P, I, P],
 }
 
-# launches per kernel since the last reset_launches()
-LAUNCHES = {"cgemm": 0, "herm_inv": 0, "draw_rhs": 0, "draw_system": 0,
-            "row_scale_sumsq": 0, "draw_resid": 0, "rng_fields": 0,
-            "bandpower": 0, "philox_raw": 0}
+# launches per kernel since the last reset_launches(), and calls of the two
+# entries composed from kernels (``hermitian_solve``, ``gcr_megastep``) on
+# the card
+LAUNCHES = {"cgemm": 0, "herm_inv": 0, "herm_chol_solve": 0, "draw_rhs": 0,
+            "draw_system": 0, "row_scale_sumsq": 0, "draw_resid": 0,
+            "rng_fields": 0, "bandpower": 0, "philox_raw": 0,
+            "hermitian_solve": 0, "gcr_megastep": 0}
 
 
 class _Library:
@@ -139,6 +144,12 @@ def call(kernel: str, entry: str, *args):
             f"{entry}: CUDA error {err}: "
             f"{lib.hk_error_string(err).decode()}")
     LAUNCHES[kernel] += 1
+
+
+def count_entry(entry: str):
+    """Count one call of an entry composed from the kernels (it launches
+    those kernels; the caller counts it only on the card)."""
+    LAUNCHES[entry] += 1
 
 
 def ptr(x):

@@ -17,6 +17,7 @@ import torch
 
 from . import _build
 from .cgemm import cgemm
+from .spd_solve import equilibrate
 
 MAX_N = 128  # the whole matrix must fit one block's shared memory
 
@@ -62,15 +63,22 @@ def apply_refine(e, inv, rhs, refine: int = 1, mm=cgemm):
     return x
 
 
-def hermitian_solve(m: torch.Tensor, b: torch.Tensor, refine: int = 1):
+def hermitian_solve(m: torch.Tensor, b: torch.Tensor, refine: int = 1,
+                    jitter: float = 0.0, inv=herm_inv, mm=cgemm):
     """Jacobi-equilibrated solve of ``m x = b`` for Hermitian PD ``m``
-    (B, n, n) and ``b`` (B, n, k): the complex counterpart of
-    ``ops/pallas/spd_inv.py::hermitian_solve_pallas2``."""
-    tiny = torch.finfo(torch.float32).tiny
-    d = torch.sqrt(torch.clamp(torch.diagonal(m, dim1=-2, dim2=-1).real,
-                               min=tiny))
-    dinv = 1.0 / d
-    ms = (m * (dinv[..., :, None] * dinv[..., None, :])).contiguous()
+    (B, n, n) and ``b`` (B, n, k), ``jitter`` added to the equilibrated
+    diagonal: the counterpart of ``ops/pallas/spd_inv.py::spd_inv_solve``
+    through its wrapper ``hermitian_solve_pallas2`` (:119-198). The inverse
+    is :func:`herm_inv`, then ``x = A^-1 b`` and ``refine`` steps of
+    ``x += A^-1 (b - A x)`` through :func:`cgemm` (``inv``/``mm``: the
+    plain versions may be given instead). The real engine's
+    ``solver="pallas2f"`` is this entry with ``refine=2``: the card has no
+    counterpart of the TPU's 1-pass bf16 inverse build, and TF32 stays off,
+    so the inverse is always built at FP32 grade. Each call on the card
+    with the kernels counts one ``hermitian_solve`` launch."""
+    ms, dinv = equilibrate(m, jitter)
     bs = (b * dinv[..., :, None]).contiguous()
-    x = apply_refine(ms, herm_inv(ms), bs, refine)
+    if inv is herm_inv and not _build.on_cpu(ms, bs):
+        _build.count_entry("hermitian_solve")
+    x = apply_refine(ms, inv(ms), bs, refine, mm=mm)
     return x * dinv[..., :, None]

@@ -11,11 +11,13 @@ from . import cgemm as _cg
 from . import draw_fused as _df
 from . import herm_inv as _hi
 from . import rng_bandpower as _rb
+from . import spd_solve as _ss
 
 
 class Impl(NamedTuple):
     cgemm: Callable
     herm_inv: Callable
+    herm_chol_solve: Callable
     draw_rhs: Callable
     draw_system: Callable
     row_scale_sumsq: Callable
@@ -24,9 +26,10 @@ class Impl(NamedTuple):
     bandpower: Callable
 
 
-KERNELS = Impl(_cg.cgemm, _hi.herm_inv, _df.draw_rhs, _df.draw_system,
-               _df.row_scale_sumsq, _df.draw_resid, _rb.rng_fields,
-               _rb.bandpower)
-PLAIN = Impl(_cg.plain_cgemm, _hi.plain_herm_inv, _df.plain_draw_rhs,
-             _df.plain_draw_system, _df.plain_row_scale_sumsq,
-             _df.plain_draw_resid, _rb.plain_rng_fields, _rb.plain_bandpower)
+KERNELS = Impl(_cg.cgemm, _hi.herm_inv, _ss.herm_chol_solve, _df.draw_rhs,
+               _df.draw_system, _df.row_scale_sumsq, _df.draw_resid,
+               _rb.rng_fields, _rb.bandpower)
+PLAIN = Impl(_cg.plain_cgemm, _hi.plain_herm_inv, _ss.plain_herm_chol_solve,
+             _df.plain_draw_rhs, _df.plain_draw_system,
+             _df.plain_row_scale_sumsq, _df.plain_draw_resid,
+             _rb.plain_rng_fields, _rb.plain_bandpower)

@@ -1,6 +1,7 @@
 """One GCR draw plus its statistics: phases 1-6 of
 ``ops/pallas/megastep.py::_draw_body`` (:111-235), composed from the
-hand-written kernels.
+hand-written kernels, and the standalone single-step entry
+:func:`gcr_megastep` (``megastep.py:303-409``) of the mega engine.
 
 Every matrix product goes through :func:`cgemm`, the system inverse
 through :func:`herm_inv`, and every ``(B, n, t)`` elementwise or reduction
@@ -22,6 +23,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from . import _build
 from .herm_inv import apply_refine
 from .impl import KERNELS, Impl
 
@@ -82,3 +84,28 @@ def draw_body(mops, ps, oa, ob, *, nfreqs: int, ntimes: int,
         _, bmask = impl.row_scale_sumsq(mm(mops.f, ws), want_y=False)
     return DrawOut(None if lean else sig, amp, chi, chit, beta, noise_nu,
                    bmask)
+
+
+def gcr_megastep(mops, ps, oa, ob, *, nfreqs: int, ntimes: int,
+                 all_unflagged: bool, refine: int = 1, lean: bool = False,
+                 impl: Impl = KERNELS) -> DrawOut:
+    """One GCR draw plus its statistics for the whole batch: the port of
+    the standalone TPU entry ``ops/pallas/megastep.py::gcr_megastep``
+    (:303-409, ``_mega_kernel``), the mega engine's step.
+
+    It is :func:`draw_body` with the exact ``herm_inv`` inverse and
+    ``refine`` refinement steps, on explicit omegas ``oa``/``ob`` (B, n, t)
+    (the engine draws them with the Philox ``rng_fields`` kernel, which
+    takes the place of the TPU entry's in-kernel RNG mode: that mode's
+    streams were seeded per grid step and were not invariant to batch
+    composition). Full mode returns the JAX entry's 8 outputs in
+    :class:`DrawOut`: ``sig`` and ``amp`` complex (the ``_re``/``_im``
+    pairs), ``chi``, ``beta``, ``noise_nu`` and ``bmask``; ``lean`` returns
+    the time-reduced ``chit`` instead of ``sig``, ``amp`` and ``chi``. Each
+    call on the card with the kernels counts one ``gcr_megastep``
+    launch."""
+    if impl is KERNELS and ps.device.type == "cuda":
+        _build.count_entry("gcr_megastep")
+    return draw_body(mops, ps, oa, ob, nfreqs=nfreqs, ntimes=ntimes,
+                     all_unflagged=all_unflagged, refine=refine, lean=lean,
+                     impl=impl)

@@ -17,10 +17,11 @@ stream, and writes that chain's ``ps`` to all G rows.
 """
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from .. import philox
-from ..invgamma import truncated_invgamma_sample_table
+from ..invgamma import sample_bandpowers_from_beta
 from . import _build
 
 F32 = torch.float32
@@ -35,13 +36,18 @@ class PriorBins(NamedTuple):
     hi: torch.Tensor    # (np,) float32 upper bounds
 
 
+def bounded_bins(prior) -> tuple:
+    """Host (2, Nfreqs) prior -> ``((idx, lo, hi), ...)`` for every bounded
+    bin (either bound > 0), with ``lo = prior[1]`` and ``hi = prior[0]``."""
+    p = np.asarray(prior)
+    idxs = np.nonzero(np.any(p > 0, axis=0))[0]
+    return tuple((int(i), float(p[1, i]), float(p[0, i])) for i in idxs)
+
+
 def prior_bins(prior_static, device) -> PriorBins:
-    """``((idx, lo, hi), ...)`` -> :class:`PriorBins` on ``device``."""
-    if len(prior_static) > MAX_PRIOR_BINS:
-        raise NotImplementedError(
-            f"at most {MAX_PRIOR_BINS} bounded prior bins; more run only on "
-            f"the single-step engine, not ported yet (ROADMAP.md, Queue 1 "
-            f"item 9)")
+    """``((idx, lo, hi), ...)`` -> :class:`PriorBins` on ``device``. The
+    kernel takes any number of bins (the megachain engine at most
+    :data:`MAX_PRIOR_BINS`, its TPU kernel's 8 prior lanes)."""
     idx = [int(p[0]) for p in prior_static]
     return PriorBins(
         torch.tensor(idx, dtype=torch.int32, device=device),
@@ -80,21 +86,6 @@ def rng_fields(seed: int, sids: torch.Tensor, g: int, n: int, t: int,
 
 # --- bandpower conditional -------------------------------------------------
 
-def _conditional(beta, gam, u_pb, prior: PriorBins, tlog, q):
-    """``beta / gam`` on free bins; truncated inverse gamma on the bounded
-    ones, lane j of ``u_pb`` for prior bin j."""
-    free = beta / gam
-    npb = prior.idx.shape[0]
-    if npb == 0:
-        return free
-    idx = prior.idx.long()
-    x = truncated_invgamma_sample_table(
-        u_pb[:, :npb], beta[:, idx], prior.lo, prior.hi, tlog, q)
-    out = free.clone()
-    out[:, idx] = x
-    return out
-
-
 def _check_rand(gam, u_pb, sids):
     external = gam is not None
     if external == (sids is not None) or (u_pb is None) != (gam is None):
@@ -125,8 +116,8 @@ def plain_bandpower(beta, prior: PriorBins, tlog, q, *, gam=None, u_pb=None,
             sids = sids[::group].to(torch.int64) + philox.CHAIN_STREAM_OFFSET
     if not _check_rand(gam, u_pb, sids):
         gam = philox.gamma_draws(seed, sids, g, beta.shape[1], alpha)
-        u_pb = philox.prior_uniforms(seed, sids, g)
-    ps = _conditional(beta, gam, u_pb, prior, tlog, q)
+        u_pb = philox.prior_uniforms(seed, sids, g, prior.idx.shape[0])
+    ps = sample_bandpowers_from_beta(beta, prior, tlog, q, gam=gam, u=u_pb)
     if group > 1:
         ps = ps.repeat_interleave(group, dim=0)
         gam = gam.repeat_interleave(group, dim=0)
@@ -138,9 +129,10 @@ def bandpower(beta, prior: PriorBins, tlog, q, *, gam=None, u_pb=None,
               group: int = 1):
     """Draw the new bandpowers (B, n) from ``beta`` (B, n).
 
-    Randomness: external ``gam`` (B, n) and ``u_pb`` (B, >=8), or the
-    streams of ``seed``/``sids`` at global iteration ``g`` with
-    Gamma shape ``alpha``. ``gam_out``: also return the Gamma draws.
+    Randomness: external ``gam`` (B, n) and ``u_pb`` (B, >= bounded bins),
+    or the streams of ``seed``/``sids`` at global iteration ``g`` with
+    Gamma shape ``alpha`` (any bin count: bounded bin l takes UNIFORM
+    counter l // 4, lane l % 4). ``gam_out``: also return the Gamma draws.
 
     ``group = G > 1`` (grouped time-flags mode): rows come in chain-major
     blocks of G; ``beta`` is pooled over each block, ``sids`` holds each

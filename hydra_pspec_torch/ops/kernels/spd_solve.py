@@ -1,0 +1,75 @@
+"""Hermitian factor + multi-right-hand-side solve: the port of the TPU
+kernel ``ops/pallas/spd_solve.py::spd_factor_solve`` (``_spd_kernel``) and
+of its wrapper ``hermitian_solve_pallas`` (:251-275), the real engine's
+default solver on an accelerator.
+
+Kernel: ``csrc/herm_chol_solve.cu``. The TPU factored the 2n x 2n real
+embedding in blocks of 32 with 3-pass bf16 products, because it has no
+complex ALU and Mosaic no f32 product. Here the n x n Hermitian matrix is
+factored directly in FP32 complex arithmetic (half the memory, half the
+real FMAs; no tensor cores, no TF32): one CTA per chain factors it in
+shared memory, then one CTA per (chain, 64 right-hand sides) runs the
+forward and backward sweeps over 32 x 32 blocks of L, a warp per 32 rows
+of 32 columns. n <= 128, as for ``herm_inv``. One call launches both
+kernels and counts one ``herm_chol_solve`` launch.
+"""
+import torch
+
+from . import _build
+
+MAX_N = 128  # the factor holds the whole matrix in one block's shared memory
+
+
+def plain_herm_chol_solve(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """The same function with ordinary torch ops, on any device: Cholesky
+    and two triangular solves."""
+    l, _ = torch.linalg.cholesky_ex(a)
+    y = torch.linalg.solve_triangular(l, b, upper=False)
+    return torch.linalg.solve_triangular(l.transpose(-2, -1).conj(), y,
+                                         upper=True)
+
+
+def herm_chol_solve(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``x = a^-1 b`` for Hermitian PD complex64 ``a`` (B, n, n) and ``b``
+    (B, n, K), without equilibration (see :func:`hermitian_solve_chol`)."""
+    if _build.on_cpu(a, b):
+        return plain_herm_chol_solve(a, b)
+    batch, n, n2 = a.shape
+    if n != n2 or n > MAX_N:
+        raise ValueError(f"herm_chol_solve takes (B, n, n) with n <= "
+                         f"{MAX_N}; got {tuple(a.shape)}")
+    _build.check(a, "a", torch.complex64)
+    _build.check(b, "b", torch.complex64, (batch, n, None), a.device)
+    k = b.shape[2]
+    l_scratch = torch.empty_like(a)
+    x = torch.empty_like(b)
+    _build.call("herm_chol_solve", "hk_herm_chol_solve", _build.ptr(a),
+                _build.ptr(b), _build.ptr(l_scratch), _build.ptr(x), batch,
+                n, k)
+    return x
+
+
+def equilibrate(m: torch.Tensor, jitter: float = 0.0):
+    """Jacobi equilibration of Hermitian ``m`` (B, n, n): ``(D m D + jitter
+    I, D)`` with ``D = diag(m)^-1/2`` (pivots clamped at the float32 tiny),
+    as ``hermitian_solve_pallas`` does before its solve."""
+    tiny = torch.finfo(torch.float32).tiny
+    dinv = 1.0 / torch.sqrt(torch.clamp(
+        torch.diagonal(m, dim1=-2, dim2=-1).real, min=tiny))
+    ms = m * (dinv[..., :, None] * dinv[..., None, :])
+    if jitter:
+        ms = ms + jitter * torch.eye(m.shape[-1], dtype=m.dtype,
+                                     device=m.device)
+    return ms.contiguous(), dinv
+
+
+def hermitian_solve_chol(m: torch.Tensor, b: torch.Tensor,
+                         jitter: float = 0.0, solve=herm_chol_solve):
+    """Jacobi-equilibrated solve of ``m x = b`` for Hermitian PD ``m``
+    (B, n, n) and ``b`` (B, n, K), ``jitter`` added to the equilibrated
+    diagonal: the counterpart of ``hermitian_solve_pallas``. ``solve``:
+    the factor-solve to use (the kernel by default; the real engine's
+    ``solver="chol"`` passes :func:`plain_herm_chol_solve`)."""
+    ms, dinv = equilibrate(m, jitter)
+    x = solve(ms, (b * dinv[..., :, None]).contiguous())
+    return x * dinv[..., :, None]

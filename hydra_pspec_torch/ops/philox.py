@@ -15,8 +15,17 @@ resume. The second word names the purpose:
   frequency-basis omega (Box-Muller), words 2-3 the delay-basis omega;
 * ``GAMMA`` (1): counter ``(g, 1, bin i, r)``; words are the uniforms
   ``4r .. 4r+3`` of the integer-alpha draw ``Gamma = -sum log u``;
-* ``UNIFORM`` (2): counter ``(g, 2, 0, r)``, r = 0, 1; the 8 prior-bin
-  uniforms.
+* ``UNIFORM`` (2): counter ``(g, 2, 0, r)``, r = 0 .. ceil(npb/4) - 1;
+  the prior-bin uniforms, lane ``4r + q`` for bounded bin ``4r + q`` (the
+  first 8 are those of the megachain engine's at most 8 bins).
+
+The single-step engines draw the same words. The mega engine's omegas
+are the ``(B, n, t)`` fields of :func:`omega_fields`; the real engine's
+``(B, Ntimes, Nfreqs)`` omegas are those fields at ``n = Nfreqs``,
+``t = Ntimes`` transposed, so a chain draws the same numbers on all three
+engines at a given iteration. Its grouped time-flags path takes group g's
+omegas at the group's GLOBAL time indices, so a single all-False pattern
+draws exactly what the ungrouped real engine draws.
 
 Grouped time-flags mode (G > 1 flag-pattern time groups per chain, rows
 chain-major): the omegas of row ``c*G + g`` are keyed on the row stream
@@ -135,28 +144,42 @@ def omega_fields(seed: int, sids: torch.Tensor, g: int, n: int, t: int,
     return oa, ob
 
 
+GAMMA_CHUNK = 64  # Philox calls per bin held at once by gamma_draws
+
+
 def gamma_draws(seed: int, sids: torch.Tensor, g: int, n: int,
                 alpha: int) -> torch.Tensor:
     """(B, n) float32 Gamma(alpha) = -sum_r log(u_4r u_4r+1 u_4r+2 u_4r+3),
-    uniforms at index >= alpha taken as exactly 1."""
+    uniforms at index >= alpha taken as exactly 1. The r axis is taken
+    :data:`GAMMA_CHUNK` counters at a time (one chunk up to alpha = 256),
+    so a long night (alpha ~ 1100) holds no ``(B, n, alpha)`` tensor."""
     dev = sids.device
     k0, k1 = _keys(seed, sids)
     nr = -(-alpha // 4)
     i = torch.arange(n, dtype=torch.int64, device=dev)[None, :, None]
-    r = torch.arange(nr, dtype=torch.int64, device=dev)[None, None, :]
-    words = philox4x32(int(g) & MASK32, GAMMA, i, r, k0, k1[:, None, None])
-    prod = None
-    for q, wq in enumerate(words):
-        u = torch.where(4 * r + q < alpha, uniform_open(wq),
-                        torch.ones((), dtype=torch.float32, device=dev))
-        prod = u if prod is None else prod * u
-    return -torch.sum(torch.log(prod), dim=2)
+    total = None
+    for r0 in range(0, nr, GAMMA_CHUNK):
+        r = torch.arange(r0, min(nr, r0 + GAMMA_CHUNK), dtype=torch.int64,
+                         device=dev)[None, None, :]
+        words = philox4x32(int(g) & MASK32, GAMMA, i, r, k0,
+                           k1[:, None, None])
+        prod = None
+        for q, wq in enumerate(words):
+            u = torch.where(4 * r + q < alpha, uniform_open(wq),
+                            torch.ones((), dtype=torch.float32, device=dev))
+            prod = u if prod is None else prod * u
+        part = torch.sum(torch.log(prod), dim=2)
+        total = part if total is None else total + part
+    return -total
 
 
-def prior_uniforms(seed: int, sids: torch.Tensor, g: int) -> torch.Tensor:
-    """(B, 8) float32 uniforms for the bounded prior bins."""
+def prior_uniforms(seed: int, sids: torch.Tensor, g: int,
+                   count: int = N_PRIOR_UNIFORMS) -> torch.Tensor:
+    """(B, 4 ceil(count/4)) float32 uniforms for the bounded prior bins
+    (at least the 8 lanes of the megachain engine)."""
     k0, k1 = _keys(seed, sids)
-    r = torch.arange(2, dtype=torch.int64, device=sids.device)[None, :]
+    nr = max(2, -(-int(count) // 4))
+    r = torch.arange(nr, dtype=torch.int64, device=sids.device)[None, :]
     words = philox4x32(int(g) & MASK32, UNIFORM, 0, r, k0, k1[:, None])
-    # (B, 2, 4): lane 4r + q
-    return uniform_open(torch.stack(words, dim=2)).reshape(-1, 8)
+    # (B, nr, 4): lane 4r + q
+    return uniform_open(torch.stack(words, dim=2)).reshape(-1, 4 * nr)

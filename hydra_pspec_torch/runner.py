@@ -1,25 +1,34 @@
-"""Multi-baseline, multi-chain execution on one device (port of the
-megachain branch of ``hydra_pspec_tpu/runner.py``).
+"""Multi-baseline, multi-chain execution on one device (port of
+``hydra_pspec_tpu/runner.py``).
 
-The (baseline x chain) product is one batch axis run by the megachain
-engine (``models/megachain.py``). Samples are flushed every ``write_niter``
-iterations with the reference's file names, and a run-level checkpoint
-allows resume with complete output files. Every chain's randomness is keyed
-on (seed, global chain stream id, global iteration), so a subset of
-baselines, a different chunking or a resumed run reproduces the same
-chains.
+The (baseline x chain) product is one batch axis, run by one of three
+engines, routed as the JAX runner routes them (:func:`route_engine`):
+
+* ``megachain`` (the default, ``models/megachain.py``): K whole iterations
+  per chunk on the hand-written kernels;
+* ``mega`` (``models/mega.py``): one ``gcr_megastep`` per iteration, for
+  more than 8 bounded prior bins or ``Ntimes > 1025``;
+* ``real`` (``models/rgibbs.py``): the unpadded real engine with the
+  factor-solve kernel, for a dense ``Ninv``, MAP mode, and time flags with
+  more than 8 patterns (``models/tflags.py``).
+
+Samples are flushed every ``write_niter`` iterations with the reference's
+file names, and a run-level checkpoint allows resume with complete output
+files. Every chain's randomness is keyed on (seed, global chain stream id,
+global iteration) on every engine, so a subset of baselines, a different
+chunking or a resumed run reproduces the same chains.
 
 Jobs with time-dependent flags (``flags_tf``) run the grouped time-flags
 path (``runner.py:775-1109`` of the JAX package): baselines with identical
-flag arrays form a signature and run as one batch of chain-major
-(chain, time group) rows (``models/megachain.py::TflagsMegaSetup``), one
-signature after another, each with its own checkpoint.
+flag arrays form a signature and run as one batch, one signature after
+another, each with its own checkpoint: on the megachain engine as
+chain-major (chain, time group) rows (``models/megachain.py::
+TflagsMegaSetup``), on the real engine one group after another.
 
-Single device only. These raise ``NotImplementedError`` naming the
-ROADMAP item that ports them: MAP mode, a dense ``Ninv``, more than 8
-bounded prior bins, ``Ntimes > 1025``, more than 8 flag-pattern time
-groups, more than one process or device. Sample files are written with
-``np.save`` (the native writer of ``utils/fastio.py`` is not ported).
+Single device only: more than one process or device raises
+``NotImplementedError`` (ROADMAP.md, Queue 1 item 7), as does the complex
+engine (item 10). Sample files are written with ``np.save`` (the native
+writer of ``utils/fastio.py`` is not ported).
 """
 import time
 from dataclasses import dataclass
@@ -31,9 +40,12 @@ import torch
 
 from .models import mega, megachain, rgibbs, tflags
 from .ops import philox
+from .ops.invgamma import make_invgamma_table
+from .ops.kernels import rng_bandpower as rb
 from .utils import io as hio
 
 MAX_NTIMES = 1025
+ENGINES = ("megachain", "mega", "real")
 
 
 @dataclass
@@ -45,7 +57,7 @@ class BaselineJob:
     w: np.ndarray              # (Nfreqs,) 1 = keep
     fgmodes: np.ndarray        # (Nfreqs, Nmodes)
     S_initial: np.ndarray      # (Nfreqs, Nfreqs) or bandpowers (Nfreqs,)
-    Ninv: np.ndarray           # (Nfreqs,) diag, diagonal matrix, or scalar
+    Ninv: np.ndarray           # (Nfreqs,) diag, (Nfreqs, Nfreqs), or scalar
     out_dir: Optional[Path] = None
     # (Ntimes, Nfreqs) bool, True = flagged: the grouped time-flags path
     # runs instead of the per-channel ``w`` (which it then ignores)
@@ -85,45 +97,56 @@ def _max_tflag_groups(jobs):
 
 
 def select_engine(engine: str = "auto") -> str:
-    """The port has one engine: megachain."""
-    if engine in ("auto", "megachain"):
+    """``auto`` is the megachain engine on any device (the port's policy;
+    :func:`route_engine` then sends what it does not cover elsewhere);
+    ``megachain``, ``mega`` and ``real`` are taken as given."""
+    if engine == "auto":
         return "megachain"
-    raise NotImplementedError(
-        f"engine {engine!r} is not ported yet; only megachain runs "
-        f"(ROADMAP.md, Queue 1 items 9-10)")
-
-
-def _check_supported(jobs, ps_prior, map_estimate, num_processes,
-                     mesh_devices):
-    if map_estimate:
+    if engine in ENGINES:
+        return engine
+    if engine == "complex":
         raise NotImplementedError(
-            "MAP mode runs on the real engine, not ported yet "
-            "(ROADMAP.md, Queue 1 item 9)")
+            "the complex engine is not ported yet (ROADMAP.md, Queue 1 "
+            "item 10)")
+    raise ValueError(f"unknown engine {engine!r}")
+
+
+def route_engine(jobs, ps_prior, engine: str = "auto",
+                 map_estimate: bool = False) -> str:
+    """The engine that runs ``jobs``: ``hydra_pspec_tpu/runner.py:180-211``
+    rule for rule. Megachain gives way to mega for MAP mode, more than 8
+    bounded prior bins, ``Ntimes > 1025`` or more than 8 flag patterns;
+    mega and megachain give way to real for MAP mode or a dense ``Ninv``;
+    mega gives way to real for time flags."""
+    engine = select_engine(engine)
+    if engine == "megachain":
+        n_prior = int(np.count_nonzero(np.any(np.asarray(ps_prior) > 0,
+                                              axis=0)))
+        if (map_estimate or n_prior > megachain.MAX_PRIOR_BINS
+                or jobs[0].d.shape[0] > MAX_NTIMES
+                or _max_tflag_groups(jobs) > megachain.MAX_TIME_GROUPS):
+            engine = "mega"
+    if engine in ("mega", "megachain") and (
+            map_estimate or any(rgibbs.is_dense(j.Ninv) for j in jobs)):
+        engine = "real"
+    if engine == "mega" and any(j.flags_tf is not None for j in jobs):
+        engine = "real"
+    return engine
+
+
+def _check_supported(num_processes, mesh_devices):
     if num_processes > 1 or (mesh_devices is not None
                              and len(mesh_devices) > 1):
         raise NotImplementedError(
             "multi-process and multi-device runs are not ported yet "
             "(ROADMAP.md, Queue 1 item 7)")
-    n_groups = _max_tflag_groups(jobs)
-    if n_groups > megachain.MAX_TIME_GROUPS:
-        raise NotImplementedError(
-            f"{n_groups} flag-pattern time groups: more than "
-            f"{megachain.MAX_TIME_GROUPS} run on the real engine, not ported "
-            f"yet (ROADMAP.md, Queue 1 item 9)")
-    n_prior = int(np.count_nonzero(np.any(np.asarray(ps_prior) > 0, axis=0)))
-    if n_prior > megachain.MAX_PRIOR_BINS:
-        raise NotImplementedError(
-            f"{n_prior} bounded prior bins: more than "
-            f"{megachain.MAX_PRIOR_BINS} run on the single-step engine, not "
-            f"ported yet (ROADMAP.md, Queue 1 item 9)")
-    if jobs[0].d.shape[0] > MAX_NTIMES:
-        raise NotImplementedError(
-            f"Ntimes > {MAX_NTIMES} runs on the single-step engine, not "
-            f"ported yet (ROADMAP.md, Queue 1 item 9)")
-    for j in jobs:
-        ninv = np.asarray(j.Ninv)
-        if ninv.ndim == 2 and np.abs(ninv - np.diag(np.diag(ninv))).max() > 0:
-            raise NotImplementedError(rgibbs.DENSE_NINV_ITEM)
+
+
+def _chunk_randomness(randomness, it, k, device, **kw):
+    """One chunk's external randomness on ``device``, or None."""
+    if randomness is None:
+        return None
+    return megachain.randomness_on(randomness(it, k, **kw), device)
 
 
 def run_baselines(
@@ -137,7 +160,9 @@ def run_baselines(
     write_niter: int = 100,
     map_estimate: bool = False,
     store_cr: bool = True,
+    jitter: float = 0.0,
     engine: str = "auto",
+    solver: str = "auto",
     warm_ns: int = 3,
     drift_max: float = 0.6,
     checkpoint: bool = True,
@@ -153,28 +178,39 @@ def run_baselines(
     """Run Gibbs chains for every (baseline, chain) pair on ``device`` (the
     card by default; ``device="cpu"`` runs the plain versions of the
     kernels); returns ``(results, timings)`` with one :class:`RunResult`
-    per pair.
+    per pair. ``timings["engine"]`` names the engine that ran
+    (:func:`route_engine`).
 
-    ``checkpoint_niter``: checkpoint cadence in iterations (rounded up to
-    whole ``write_niter`` chunks); 0 = every chunk. ``warm_ns`` /
-    ``drift_max``: Newton-Schulz refresh steps of the carried system
-    inverse and the largest relative bandpower move that trusts it (0
-    disables). ``global_baseline_ids``: the baselines' global indices, which
-    key their streams. ``randomness``: optional callable ``(iteration,
-    k_total) -> dict`` of external randomness per chunk (the JAX package's
-    layout), for pinning against it; default is the Philox streams of
-    ``seed``. On the time-flags path it is called as ``randomness(
-    iteration, k_total, sids=row stream ids, sidc=chain id of each row,
-    group=G)``, since each signature has its own rows.
+    ``map_estimate``: the MAP estimate (no fluctuation draws), one
+    iteration on the real engine (``niter`` and ``write_niter`` become 1).
+    ``solver`` / ``jitter``: the real engine's Hermitian solve (``auto``,
+    ``chol``, ``pallas``, ``pallas2``, ``pallas2f``; see
+    ``models/rgibbs.py``) and the jitter added to its equilibrated
+    diagonal. ``checkpoint_niter``: checkpoint cadence in iterations
+    (rounded up to whole ``write_niter`` chunks); 0 = every chunk.
+    ``warm_ns`` / ``drift_max``: megachain engine only, Newton-Schulz
+    refresh steps of the carried system inverse and the largest relative
+    bandpower move that trusts it (0 disables). ``global_baseline_ids``:
+    the baselines' global indices, which key their streams. ``randomness``:
+    optional callable ``(iteration, k_total) -> dict`` of external
+    randomness per chunk in the JAX package's layout (``oa_re``, ``oa_im``,
+    ``ob_re``, ``ob_im`` in the engine's omega layout, ``gam``, ``u_pb``,
+    each with a leading K axis), for pinning against it; default is the
+    Philox streams of ``seed``. On the time-flags path it is called as
+    ``randomness(iteration, k_total, sids=row stream ids, sidc=chain id of
+    each row, group=G)`` on the megachain engine and ``randomness(
+    iteration, k_total, sids=chain ids)`` on the real engine (omegas over
+    all times), since each signature has its own rows.
 
     Jobs with ``flags_tf`` (a job without it in such a run gets all-False
     flags) run the grouped time-flags path: each signature checkpoints at
     every flush (``checkpoint_niter`` is not read there, as in the JAX
     package), and ``timings`` sums ``scatter`` (host build and transfer)
     and ``process`` (sampling and flushes) over the signatures."""
-    engine = select_engine(engine)
-    _check_supported(jobs, ps_prior, map_estimate, num_processes,
-                     mesh_devices)
+    if map_estimate:
+        niter = write_niter = 1
+    engine = route_engine(jobs, ps_prior, engine, map_estimate)
+    _check_supported(num_processes, mesh_devices)
     device = torch.device(device)
     seed = 0 if seed is None else int(seed)
     if any(j.flags_tf is not None for j in jobs):
@@ -184,7 +220,8 @@ def run_baselines(
             engine=engine, warm_ns=warm_ns, drift_max=drift_max,
             checkpoint=checkpoint, resume=resume, run_dir=run_dir,
             global_baseline_ids=global_baseline_ids, randomness=randomness,
-            verbose=verbose)
+            verbose=verbose, map_estimate=map_estimate, jitter=jitter,
+            solver=solver)
     nbl = len(jobs)
     nfreqs = jobs[0].d.shape[-1]
     meta = [(ib, ic) for ib in range(nbl) for ic in range(nchains)]
@@ -197,19 +234,45 @@ def run_baselines(
     ops_list = [rgibbs.build_chain_operators(j.d, j.w, j.fgmodes, j.Ninv)
                 for j in jobs]
     stacked = rgibbs.stack_chain_operators([ops_list[ib] for ib, _ in meta])
-    mops, dims = mega.from_chain_operators(stacked, device)
-    ps_b = mega.pad_ps(np.stack([_initial_ps_host(jobs[ib].S_initial, nfreqs)
-                                 for ib, _ in meta]), dims, device)
+    ps_host = np.stack([_initial_ps_host(jobs[ib].S_initial, nfreqs)
+                        for ib, _ in meta])
+    if engine == "real":
+        rops = rgibbs.to_device(stacked, device)
+        to_state = lambda ps: torch.as_tensor(
+            np.asarray(ps, np.float32)).to(device)
+    else:
+        mops, dims = mega.from_chain_operators(stacked, device)
+        tables = megachain.make_chain_tables(mops, device)
+        to_state = lambda ps: mega.pad_ps(ps, dims, device)
+    del stacked
+    ps_b = to_state(ps_host)
+    bins = rb.prior_bins(rb.bounded_bins(prior_host), device)
     gids = (list(global_baseline_ids) if global_baseline_ids is not None
             else list(range(nbl)))
     # global chain stream ids: a chain's draws depend on this id only
     sid_b = torch.as_tensor(np.asarray(
         [gids[ib] * nchains + ic for ib, ic in meta], dtype=np.int32)).to(
             device)
-    tables = megachain.make_chain_tables(mops, device)
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     t_scatter = time.perf_counter() - t_scatter0
+
+    def run_chunk(ps, n, done):
+        if engine == "megachain":
+            return megachain.run_chain_megachain(
+                mops, dims, ps, prior_host, n, seed=seed, sids=sid_b,
+                iter0=done, randomness=randomness, tables=tables,
+                store_cr=store_cr, chunk=n, warm_ns=warm_ns,
+                drift_max=drift_max)
+        rnd = _chunk_randomness(randomness, done, n, device)
+        if engine == "mega":
+            return mega.run_chain_mega(
+                mops, dims, ps, bins, n, tables.tlog, tables.q, seed=seed,
+                sids=sid_b, iter0=done, randomness=rnd, store_cr=store_cr)
+        return rgibbs.run_chain(
+            rops, ps, bins, n, seed=seed, sids=sid_b, iter0=done,
+            randomness=rnd, map_estimate=map_estimate, jitter=jitter,
+            store_cr=store_cr, solver=solver)
 
     # --- resume ------------------------------------------------------------
     start_iter = 0
@@ -227,7 +290,7 @@ def run_baselines(
                                       store_cr)
             if prefix is not None:
                 start_iter = ck["iteration"]
-                ps_b = mega.pad_ps(ck["ps"], dims, device)
+                ps_b = to_state(ck["ps"])
                 if verbose:
                     print(f"resuming from iteration {start_iter}")
             elif verbose:
@@ -245,13 +308,10 @@ def run_baselines(
     done = start_iter
     while done < niter:
         n = min(write_niter, niter - done)
-        ps_b, samples = megachain.run_chain_megachain(
-            mops, dims, ps_b, prior_host, n, seed=seed, sids=sid_b,
-            iter0=done, randomness=randomness, tables=tables,
-            store_cr=store_cr, chunk=n, warm_ns=warm_ns,
-            drift_max=drift_max)
+        ps_b, samples = run_chunk(ps_b, n, done)
         done += n
         host_chunks.append(_to_host(samples, store_cr))
+        del samples
         n_chunks += 1
         if verbose:
             hc = host_chunks[-1]
@@ -295,9 +355,10 @@ def _per_row(ps, G):
 def _run_baselines_tflags(jobs, ps_prior, niter, *, device, seed, nchains,
                           write_niter, store_cr, engine, warm_ns, drift_max,
                           checkpoint, resume, run_dir, global_baseline_ids,
-                          randomness, verbose):
+                          randomness, verbose, map_estimate, jitter, solver):
     """The grouped time-flags path, one flag signature after another
-    (``runner.py:812-1063`` of the JAX package, single device)."""
+    (``runner.py:775-1063`` of the JAX package, single device), on the
+    megachain or the real engine."""
     nbl = len(jobs)
     flags_of = [np.zeros(j.d.shape, dtype=bool) if j.flags_tf is None
                 else np.asarray(j.flags_tf, dtype=bool) for j in jobs]
@@ -307,6 +368,7 @@ def _run_baselines_tflags(jobs, ps_prior, niter, *, device, seed, nchains,
     if run_dir is None and jobs[0].out_dir is not None:
         run_dir = Path(jobs[0].out_dir).parent
     prior_host = np.asarray(ps_prior, dtype=np.float64)
+    bins = rb.prior_bins(rb.bounded_bins(prior_host), device)
     gids = (list(global_baseline_ids) if global_baseline_ids is not None
             else list(range(nbl)))
     results_by_row = {}
@@ -316,7 +378,7 @@ def _run_baselines_tflags(jobs, ps_prior, niter, *, device, seed, nchains,
         meta = [(ib, ic) for ib in ibs for ic in range(nchains)]
         nfreqs = jobs[ibs[0]].d.shape[-1]
 
-        # --- build: per-(baseline, group) operators, stacked, interleaved
+        # --- build: per-(baseline, group) operators, stacked over chains --
         t0 = time.perf_counter()
         per_bl = {ib: tflags.build_grouped_operators_real(
                       jobs[ib].d, flags_of[ib], jobs[ib].fgmodes,
@@ -329,18 +391,20 @@ def _run_baselines_tflags(jobs, ps_prior, niter, *, device, seed, nchains,
                       idx=first[g].idx)
                   for g in range(len(first))]
         del per_bl
-        setup = megachain.build_tflags_mega_setup(groups, device)
-        del groups
-        G = len(setup.group_times)
         sid_host = np.asarray([gids[ib] * nchains + ic for ib, ic in meta],
                               dtype=np.int64)
-        sids_row, sidc_rows = philox.grouped_stream_ids(sid_host, G)
-        sids_t = torch.from_numpy(sids_row).to(device)
-        sidc_t = torch.from_numpy(sidc_rows).to(device)
-        ps_state = _per_row(mega.pad_ps(np.stack(
-            [_initial_ps_host(jobs[ib].S_initial, nfreqs) for ib, _ in meta]),
-            setup.dims, device), G)
-        tables = megachain.make_chain_tables(setup.mops, device)
+        ps_host = np.stack([_initial_ps_host(jobs[ib].S_initial, nfreqs)
+                            for ib, _ in meta])
+        if engine == "real":
+            run, to_state, chain_ps = _tflags_real(
+                groups, sid_host, device, seed, store_cr, randomness,
+                map_estimate, jitter, solver, bins)
+        else:
+            run, to_state, chain_ps = _tflags_megachain(
+                groups, sid_host, device, seed, store_cr, randomness,
+                warm_ns, drift_max, prior_host)
+        ps_state = to_state(ps_host)
+        del groups
         if device.type == "cuda":
             torch.cuda.synchronize(device)
         t_build += time.perf_counter() - t0
@@ -359,30 +423,20 @@ def _run_baselines_tflags(jobs, ps_prior, niter, *, device, seed, nchains,
                                       store_cr)
                 if prefix is not None:
                     start_iter = ck["iteration"]
-                    ps_state = _per_row(
-                        mega.pad_ps(ck["ps"], setup.dims, device), G)
+                    ps_state = to_state(ck["ps"])
                     if verbose:
                         print(f"[tflags] resuming signature {si} from "
                               f"iteration {start_iter}")
         start_iters.append(start_iter)
 
         # --- chunked chains with host flushes ------------------------------
-        rnd = None
-        if randomness is not None:
-            rnd = (lambda it, k, _r=sids_row, _c=sidc_rows, _g=G:
-                   randomness(it, k, sids=_r, sidc=_c, group=_g))
         host_chunks = []
         row_write_sec = [0.0] * len(meta)
         t0 = time.perf_counter()
         done = start_iter
         while done < niter:
             n = min(write_niter, niter - done)
-            ps_state, samples = megachain.run_chain_megachain(
-                setup.mops, setup.dims, ps_state, prior_host, n, seed=seed,
-                sids=sids_t, iter0=done, randomness=rnd, tables=tables,
-                store_cr=store_cr, chunk=n, warm_ns=warm_ns,
-                drift_max=drift_max, group_times=setup.group_times,
-                sidc=sidc_t, group_idx=setup.group_idx)
+            ps_state, samples = run(ps_state, n, done)
             host_chunks.append(_to_host(samples, store_cr))
             del samples
             done += n
@@ -396,7 +450,7 @@ def _run_baselines_tflags(jobs, ps_prior, niter, *, device, seed, nchains,
                 if checkpoint and run_dir is not None:
                     hio.save_checkpoint(
                         run_dir, iteration=done,
-                        ps=ps_state[::G, :nfreqs].cpu().numpy(),
+                        ps=chain_ps(ps_state)[:, :nfreqs].cpu().numpy(),
                         key_data=np.asarray([seed], dtype=np.int64),
                         extra={"niter": niter, "engine": engine,
                                "nchains": nchains, "tflags": True},
@@ -406,7 +460,7 @@ def _run_baselines_tflags(jobs, ps_prior, niter, *, device, seed, nchains,
         rows = _collect(jobs, meta, host_chunks, nchains, store_cr, nfreqs,
                         row_write_sec, prefix)
         results_by_row.update(zip(meta, rows))
-        del host_chunks, setup, tables, ps_state
+        del host_chunks, run, to_state, ps_state
 
     results = [results_by_row[(ib, ic)]
                for ib in range(nbl) for ic in range(nchains)]
@@ -421,6 +475,60 @@ def _run_baselines_tflags(jobs, ps_prior, niter, *, device, seed, nchains,
         "device": str(device),
     }
     return results, timings
+
+
+def _tflags_megachain(groups, sid_host, device, seed, store_cr, randomness,
+                      warm_ns, drift_max, prior_host):
+    """A signature on the grouped megachain mode: chain-major (chain, time
+    group) rows, row streams ``sid*G + g`` and chain streams ``sid``.
+    Returns ``(run(ps, n, done), to_state(host ps), chain_ps(state))``:
+    the chunk runner, and the state layout (one row per (chain, group))."""
+    setup = megachain.build_tflags_mega_setup(groups, device)
+    G = len(setup.group_times)
+    sids_row, sidc_rows = philox.grouped_stream_ids(sid_host, G)
+    sids_t = torch.from_numpy(sids_row).to(device)
+    sidc_t = torch.from_numpy(sidc_rows).to(device)
+    tables = megachain.make_chain_tables(setup.mops, device)
+    rnd = None
+    if randomness is not None:
+        rnd = (lambda it, k: randomness(it, k, sids=sids_row, sidc=sidc_rows,
+                                        group=G))
+
+    def run(ps, n, done):
+        return megachain.run_chain_megachain(
+            setup.mops, setup.dims, ps, prior_host, n, seed=seed,
+            sids=sids_t, iter0=done, randomness=rnd, tables=tables,
+            store_cr=store_cr, chunk=n, warm_ns=warm_ns,
+            drift_max=drift_max, group_times=setup.group_times,
+            sidc=sidc_t, group_idx=setup.group_idx)
+
+    return (run, lambda ps: _per_row(mega.pad_ps(ps, setup.dims, device), G),
+            lambda ps: ps[::G])
+
+
+def _tflags_real(groups, sid_host, device, seed, store_cr, randomness,
+                 map_estimate, jitter, solver, bins):
+    """A signature on the real engine: every time group's operators stacked
+    over the chains, the pooled draw through the table at the total time
+    count (``runner.py:939-983`` of the JAX package). Returns as
+    :func:`_tflags_megachain` (one state row per chain)."""
+    ntimes_total = sum(int(np.asarray(g.idx).size) for g in groups)
+    igt = make_invgamma_table(ntimes_total)
+    tlog = torch.from_numpy(np.asarray(igt.log_y)).to(device)
+    q = torch.from_numpy(np.asarray(igt.q)).to(device)
+    gdev = tflags.to_device(groups, device)
+    sids_t = torch.from_numpy(sid_host.astype(np.int32)).to(device)
+
+    def run(ps, n, done):
+        rnd = _chunk_randomness(randomness, done, n, device, sids=sid_host)
+        return tflags.run_chain_tflags_real(
+            gdev, ps, bins, n, tlog, q, seed=seed, sids=sids_t, iter0=done,
+            randomness=rnd, map_estimate=map_estimate, jitter=jitter,
+            store_cr=store_cr, solver=solver)
+
+    return (run,
+            lambda ps: torch.as_tensor(np.asarray(ps, np.float32)).to(device),
+            lambda ps: ps)
 
 
 class _HostSample:

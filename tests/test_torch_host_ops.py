@@ -67,8 +67,14 @@ def case_chain_operators():
         _equal(getattr(t, f), _c(getattr(j, f)), f)
     for f in ("log_y", "q", "alpha"):
         _equal(getattr(t.igt, f), np.asarray(getattr(j.igt, f)), f)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-        trg.build_chain_operators(d, w, fg, np.diag(ninv) + 0.01)
+    assert t.ni_dense is None and t.nih_dense is None
+    # a dense Ninv builds (the real engine's path, pinned field for field
+    # in tests/test_torch_rgibbs.py); the mega layout refuses it, as the
+    # JAX package's does
+    dense = trg.build_chain_operators(d, w, fg, np.diag(ninv) + 0.01)
+    assert dense.ni_dense is not None
+    with pytest.raises(NotImplementedError, match="real engine"):
+        tmega.from_chain_operators(dense, CPU)
 
 
 def case_mega_operators():

@@ -558,8 +558,11 @@ def case_nine_patterns(tmp_path, jax_out):
         f[r:, r] = True                               # 9 distinct rows
     assert len(ttf.group_flag_patterns(f)) == 9
     jobs = _jobs(trunner.BaselineJob, None, flags=f, nbl=1)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-        trunner.run_baselines(jobs, _prior(), 2, device="cpu")
+    # more than 8 patterns: the real engine's grouped path, as in JAX
+    res, tim = trunner.run_baselines(jobs, _prior(), 2, device="cpu")
+    assert tim["engine"] == "real"
+    assert res[0].signal_cr.shape == (2, NT, NF)
+    assert np.isfinite(res[0].signal_cr).all()
 
 
 CASES = {f.__name__[5:]: f for f in (case_matches_jax, case_resume,

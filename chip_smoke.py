@@ -13,7 +13,9 @@ Phases, one printed line each (any failure raises; exit code non-zero):
      tflags path's shapes (8 chains x G=4 rows, t=128); the Hermitian
      factor-solve (herm_chol_solve) at B=8, n=120, K=203, the herm_inv
      solve entry (hermitian_solve) and the single-step entry
-     (gcr_megastep) against their plain compositions;
+     (gcr_megastep) against their plain compositions; cgemm at every
+     product shape of the paths (C aliasing X included); the blocked
+     herm_inv at B=8, n=256 and herm_chol_solve at B=8, n=180, K=203;
   4. chain phase: run_chunk_megachain with numpy-made randomness, K=3,
      B=8, kernels against the plain path, at the CPU pin's tolerances; the
      same for a grouped chain (8 chains x G=4);
@@ -39,14 +41,32 @@ Phases, one printed line each (any failure raises; exit code non-zero):
      the mega engine with a 21-bin prior (100 baselines x 100) and with
      1100 times (10 x 50): chi^2 within 2 %; with 7 bins mega is
      bit-identical to megachain without the warm start;
+  wideband: the same model-drawn data at 203 times x 180 channels (HERA
+     Phase I sub-bands), where the blocked herm_inv and herm_chol_solve
+     run, from S_initial = I as everywhere, 400 iterations with the gates
+     over the last 200 (the noise-dominated delay bins burn in slowly):
+     megachain at n = 256, 100 baselines with files and checkpoint (chi^2
+     within 2 % and by 50-iteration window, every main kernel launched,
+     the first 10 baselines alone bit-identical); a dense Ninv on the
+     real engine, 20 baselines (whitened chi^2 within 2 %, two
+     factor-solve calls a solve); solver="pallas2", 10 x 50; the mega
+     engine with 21 prior bins, 20 baselines (chi^2 within 2 %, two
+     herm_inv launches an iteration);
   9. times: one chain iteration and each kernel at B=100, one grouped
      chain iteration and the grouped kernels at 100 chains x G=4, one real
      iteration (dense noise, pallas and pallas2) and one mega iteration at
      B=100, the factor-solve at B=100, n=120, K=203, kernels against the
      plain versions (CUDA events), with each kernel's bound and the
-     iteration bounds.
+     iteration bounds (each cgemm launch priced at its own shape); cgemm,
+     its plain version and one PyTorch call at every product shape of the
+     paths, each beside its bound; torch.profiler over 5 plain iterations
+     at B=100 (each kernel's device time per iteration, the device's busy
+     share, the longest idle gaps); the wide band's megachain iteration
+     (n = 256) and the blocked herm_inv (n = 256) and herm_chol_solve
+     (n = 180, K = 203) against their plain versions and library calls.
 The line before the last is a JSON object with every kernel's launches,
-error, times and bound; the last line is the device JSON object.
+error, times and bound, the cgemm shapes, the profiler window and the
+wideband runs; the last line is the device JSON object.
 """
 import collections
 import dataclasses
@@ -78,6 +98,16 @@ N_TF_REAL, N_TF_SUB, TF_REAL_NITER = 20, 5, 100
 MEGA_HALF, MEGA_NITER = 10, 100   # 21 bounded prior bins
 LONG_NT, N_LONG, LONG_NITER = 1100, 10, 50
 N_MEGA_EQ, MEGA_EQ_NITER = 10, 20
+# the wide band: HERA Phase I sub-bands of ~15-18 MHz at 97.66 kHz (HERA
+# Collaboration 2022, ApJ 925, 221); megachain pads 180 channels to n = 256
+WIDE_NF = 180
+# from S_initial = I the noise-dominated delay bins of 180 channels burn in
+# slowly: chi^2 climbs to its equilibrium over ~400 iterations, so the wide
+# chains run twice as long and their gates read the second half
+WIDE_NITER, WIDE_WRITE_NITER, WIDE_BURN = 400, 200, 200
+N_WIDE_DENSE, N_WIDE_MEGA = 20, 20
+N_WIDE_PALLAS2, WIDE_PALLAS2_NITER = 10, 50
+PROFILE_ITERS = 5             # the profiler window: plain iterations at B=100
 
 # kernel name -> (source, the TPU code it replaces)
 KERNELS = {
@@ -118,6 +148,38 @@ HOME_PATH = dict({k: "main" for k in MAIN_KERNELS},
                  herm_chol_solve="dense", hermitian_solve="pallas2",
                  gcr_megastep="mega")
 
+# every cgemm product of the paths, per chain: (what, M, K, N, op, A shared,
+# X) with X None, "x" (its own tensor) or "out" (C aliases X). The plain
+# megachain iteration (ops/kernels/megastep.py:58-75, megachain.py:112-113,
+# herm_inv.py apply_refine), the real engine (n = 120, t = 203), the wide
+# band (n = 256) and the blocked inverse and factor-solve at n = 180
+# (blocks of 128 and 52; the n = 256 blocks are the NS shape)
+CGEMM_SHAPES = (
+    ("ba = Fg^H rc", 16, 128, 256, "H", False, None),
+    ("rc -= G ba", 128, 16, 256, "N", False, "out"),
+    ("frc = F rc", 128, 128, 256, "N", True, None),
+    ("NS ex = S inv", 128, 128, 128, "N", False, None),
+    ("NS 2 inv - inv ex", 128, 128, 128, "N", False, "x"),
+    ("x = inv xs", 128, 128, 256, "N", False, None),
+    ("r = xs - S x", 128, 128, 256, "N", False, "x"),
+    ("x += inv r", 128, 128, 256, "N", False, "out"),
+    ("sig = F^H sk / n", 128, 128, 256, "H", True, None),
+    ("ma = mi ba", 16, 16, 256, "N", False, None),
+    ("da = G^H sig - ma", 16, 128, 256, "H", False, "out"),
+    ("fa = Fg da", 128, 16, 256, "N", False, None),
+    ("real F rc", 120, 120, 203, "N", True, None),
+    ("real b_a = Fg^H rc", 12, 120, 203, "H", False, None),
+    ("real rc - G b_a", 120, 12, 203, "N", False, "x"),
+    ("real sig = F^H sk", 120, 120, 203, "H", True, None),
+    ("wide F rc (n=256)", 256, 256, 256, "N", True, None),
+    ("wide NS (n=256)", 256, 256, 256, "N", False, None),
+    ("blocked T = A11^-1 A12", 128, 128, 52, "N", False, None),
+    ("blocked S = A22 - A12^H T", 52, 128, 52, "H", False, "x"),
+    ("blocked TS = T S^-1", 128, 52, 52, "N", False, None),
+    ("blocked A11^-1 + TS T^H", 128, 52, 128, "N", False, "out"),
+    ("blocked b2 - A12^H Y", 52, 128, 203, "H", False, "x"),
+)
+
 
 def say(phase, msg):
     print(f"[{phase}] {msg}", flush=True)
@@ -154,56 +216,56 @@ def phase_env():
 
 # --- synthetic data from the model -------------------------------------------
 
-def ps_truth():
-    delay = np.arange(NF) - NF // 2
+def ps_truth(nf=NF):
+    delay = np.arange(nf) - nf // 2
     return 1000.0 / (1.0 + (delay / 8.0) ** 2)
 
 
-def noise_cov(b, nbl):
+def noise_cov(b, nbl, nf=NF):
     """Baseline b's dense noise covariance C_ij = s^2 rho^|i-j|, s^2 from
     0.5 to 2 over the baselines: stationary noise correlated between
     neighbouring channels, the np.cov of the data that
     scripts/calc_vis_cov_matrices.py writes."""
-    i = np.arange(NF)
+    i = np.arange(nf)
     s2 = 0.5 + 1.5 * b / max(nbl - 1, 1)
     return s2 * CHI2_DENSE_RHO ** np.abs(i[:, None] - i[None, :])
 
 
 def make_jobs(nbl, job_cls, legendre_fgmodes, out_root=None, ntimes=NT,
-              dense=False, seed=SEED):
+              dense=False, seed=SEED, nf=NF):
     """d = s + Fg a + n with s ~ CN(0, F^H diag(ps/n^2) F), foreground
     amplitudes ~1e3 x the noise, n ~ CN(0, 1/Ninv), Ninv = 1; with
     ``dense``, n ~ CN(0, C) with C from :func:`noise_cov` and Ninv = C^-1,
-    a dense matrix."""
+    a dense matrix. ``nf`` channels; the chains start from S_initial = I."""
     rng = np.random.default_rng(seed)
-    i = np.arange(NF) - NF // 2
-    f = np.exp(-2j * np.pi * np.outer(i, i) / NF)
-    amp = np.sqrt(ps_truth() / NF**2)
-    fg = legendre_fgmodes(NF, NM)
+    i = np.arange(nf) - nf // 2
+    f = np.exp(-2j * np.pi * np.outer(i, i) / nf)
+    amp = np.sqrt(ps_truth(nf) / nf**2)
+    fg = legendre_fgmodes(nf, NM)
     cn = lambda *s: (rng.standard_normal(s)
                      + 1j * rng.standard_normal(s)) / np.sqrt(2)
     jobs = []
     for b in range(nbl):
-        s = (cn(ntimes, NF) * amp) @ f.conj()      # rows: F^H (amp z)
+        s = (cn(ntimes, nf) * amp) @ f.conj()      # rows: F^H (amp z)
         a = cn(ntimes, NM) * 1e3 / (1.0 + np.arange(NM))
         if dense:
-            c = noise_cov(b, nbl)
-            n, ninv = cn(ntimes, NF) @ np.linalg.cholesky(c).T, \
+            c = noise_cov(b, nbl, nf)
+            n, ninv = cn(ntimes, nf) @ np.linalg.cholesky(c).T, \
                 np.linalg.inv(c)
         else:
-            n, ninv = cn(ntimes, NF), np.ones(NF)
+            n, ninv = cn(ntimes, nf), np.ones(nf)
         jobs.append(job_cls(
-            antpair=(b, b + 1), d=s + a @ fg.T + n, w=np.ones(NF),
-            fgmodes=fg, S_initial=np.eye(NF), Ninv=ninv,
+            antpair=(b, b + 1), d=s + a @ fg.T + n, w=np.ones(nf),
+            fgmodes=fg, S_initial=np.eye(nf), Ninv=ninv,
             out_dir=None if out_root is None else out_root / f"{b}-{b + 1}"))
     return jobs
 
 
-def make_prior(half=PRIOR_HALF):
-    prior = np.zeros((2, NF))
-    sl = slice(NF // 2 - half, NF // 2 + half + 1)
-    prior[0, sl] = ps_truth()[sl] * 10.0
-    prior[1, sl] = ps_truth()[sl] / 10.0
+def make_prior(half=PRIOR_HALF, nf=NF):
+    prior = np.zeros((2, nf))
+    sl = slice(nf // 2 - half, nf // 2 + half + 1)
+    prior[0, sl] = ps_truth(nf)[sl] * 10.0
+    prior[1, sl] = ps_truth(nf)[sl] / 10.0
     return prior
 
 
@@ -218,20 +280,21 @@ def build_ops(jobs, device):
 
 def real_system(jobs, device):
     """The real engine's operators of ``jobs`` on ``device``, its GCR
-    system S = I + D P~ D at ps = truth (B, NF, NF), and the bins of the
+    system S = I + D P~ D at ps = truth (B, nf, nf), and the bins of the
     7-bin prior."""
     from hydra_pspec_torch.models import rgibbs
     from hydra_pspec_torch.ops.kernels import rng_bandpower as rb
 
+    nf = jobs[0].d.shape[1]
     rops = rgibbs.to_device(rgibbs.stack_chain_operators(
         [rgibbs.build_chain_operators(j.d, j.w, j.fgmodes, j.Ninv)
          for j in jobs]), device)
-    ps = torch.as_tensor(np.tile(ps_truth(), (len(jobs), 1)),
+    ps = torch.as_tensor(np.tile(ps_truth(nf), (len(jobs), 1)),
                          dtype=torch.float32).to(device)
-    dd = torch.sqrt(ps / NF)
-    eye = torch.eye(NF, dtype=torch.complex64, device=device)
+    dd = torch.sqrt(ps / nf)
+    eye = torch.eye(nf, dtype=torch.complex64, device=device)
     s_u = ((dd[:, :, None] * dd[:, None, :]) * rops.p_tilde + eye)
-    bins = rb.prior_bins(rb.bounded_bins(make_prior()), device)
+    bins = rb.prior_bins(rb.bounded_bins(make_prior(nf=nf)), device)
     return rops, ps, s_u.contiguous(), bins
 
 
@@ -314,7 +377,28 @@ def numpy_randomness(rng, K, B, n, t, nfreqs, ntimes, group=1):
 
 # --- 3. kernels against their plain versions --------------------------------
 
-def phase_kernels(dev, jobs8, errs):
+def cgemm_operands(shape, B, dev, gen):
+    """Random operands (a, b, x, alpha, beta) of one :data:`CGEMM_SHAPES`
+    product at batch ``B``."""
+    _, M, K, N, op, shared, xmode = shape
+    rn = lambda *s: torch.randn(s, dtype=torch.complex64, device=dev,
+                                generator=gen)
+    dims = (M, K) if op == "N" else (K, M)
+    a = rn(*dims) if shared else rn(B, *dims)
+    x = rn(B, M, N) if xmode else None
+    return a, rn(B, K, N), x, (-1.0 if xmode else 0.5), 1.0
+
+
+def cgemm_bound(B, M, K, N, shared, with_x):
+    """(ms, "bytes" or "operations") of one product: A, B (and X) read
+    once, C written once; 8 real flops per complex multiply-add."""
+    nbytes = 8 * (M * K * (1 if shared else B) + B * K * N
+                  + B * M * N * (2 if with_x else 1))
+    tb, to = nbytes / HBM_BYTES_S * 1e3, 8 * B * M * N * K / FP32_OPS_S * 1e3
+    return (tb, "bytes") if tb >= to else (to, "operations")
+
+
+def phase_kernels(dev, jobs8, jobs_w8, errs):
     from hydra_pspec_torch.models import mega, megachain
     from hydra_pspec_torch.ops import philox
     from hydra_pspec_torch.ops.kernels import _build
@@ -543,6 +627,64 @@ def phase_kernels(dev, jobs8, errs):
         hi.hermitian_solve(s_u, rhs, inv=P.herm_inv, mm=P.cgemm), 1e-3,
         f"{what} vs plain (pallas2)")
 
+    # cgemm at every product shape of the paths, and C aliasing X
+    gen = torch.Generator(device=dev).manual_seed(SEED + 11)
+    for shape in CGEMM_SHAPES:
+        a, b, x, alpha, beta = cgemm_operands(shape, 8, dev, gen)
+        op, what = shape[4], shape[0]
+        mm(a, b, op=op, x=x, alpha=alpha, beta=beta, what=what)
+        if shape[6] == "out":
+            got = K.cgemm(a, b, op=op, x=x, alpha=alpha, beta=beta)
+            K.cgemm(a, b, op=op, x=x, alpha=alpha, beta=beta, out=x)
+            require(torch.equal(x, got), f"cgemm {what}: out=x differs")
+
+    # the blocked paths: herm_inv at the wide band's padded megachain
+    # system (n = 256: blocks of 128 and 128), herm_chol_solve at the real
+    # engine's wide band (n = 180, K = 203: blocks of 128 and 52)
+    wm, wdims = build_ops(jobs_w8, dev)
+    Bw, nw, tw = wm.nid.shape
+    wsids = torch.arange(Bw, dtype=torch.int32, device=dev)
+    oa, ob = P.rng_fields(SEED, wsids, 7, nw, tw, wdims.ntimes, wdims.nfreqs)
+    rc = P.draw_rhs(wm.nid, wm.nih, ob, wdims.ntimes)
+    rc = P.cgemm(wm.g, P.cgemm(wm.fg, rc, op="H"), x=rc, alpha=-1.0)
+    psw = mega.pad_ps(np.tile(ps_truth(WIDE_NF), (Bw, 1)), wdims, dev)
+    sw = P.draw_system(wm.pt, psw, P.cgemm(wm.f, rc), oa, wdims.ntimes,
+                       wdims.nfreqs)[0]
+    _build.reset_launches()
+    inv_k = K.herm_inv(sw)
+    sync(dev)
+    got = {k: v for k, v in _build.LAUNCHES.items() if v}
+    say("kernels", f"herm_inv         blocked B={Bw} n={nw}: launches {got}")
+    require(got == {"herm_inv": 2, "cgemm": 4},
+            "blocked herm_inv: not two base launches and four products")
+    cmp("herm_inv", inv_k, P.herm_inv(sw), 1e-3,
+        f"blocked n={nw} vs Cholesky inverse")
+    eye = torch.eye(nw, dtype=sw.dtype, device=dev)
+    res = float(torch.abs(torch.matmul(sw, inv_k) - eye).max())
+    say("kernels", f"herm_inv         blocked n={nw}: max|A A^-1 - I| "
+        f"{res:.3e} <= 1e-3")
+    require(res <= 1e-3, "blocked herm_inv residual")
+    _, _, s_w, _ = real_system(jobs_w8, dev)
+    ms_w, _ = ss.equilibrate(s_w)
+    rhs_w = torch.randn((Bw, WIDE_NF, NT), dtype=torch.complex64,
+                        generator=gen, device=dev)
+    _build.reset_launches()
+    x_k = K.herm_chol_solve(ms_w, rhs_w)
+    sync(dev)
+    got = {k: v for k, v in _build.LAUNCHES.items() if v}
+    what = f"blocked B={Bw} n={WIDE_NF} K={NT}"
+    say("kernels", f"herm_chol_solve  {what}: launches {got}")
+    require(got == {"herm_chol_solve": 2, "cgemm": 3},
+            "blocked herm_chol_solve: not two base calls and three products")
+    cmp("herm_chol_solve", x_k, P.herm_chol_solve(ms_w, rhs_w), 1e-3,
+        f"{what} vs plain")
+    res = float(torch.abs(torch.matmul(ms_w, x_k) - rhs_w).max())
+    mag = float((torch.matmul(torch.abs(ms_w), torch.abs(x_k))
+                 + torch.abs(rhs_w)).max())
+    say("kernels", f"herm_chol_solve  {what}: max|A x - b| {res:.3e} <= "
+        f"1e-4 x max(|A||x| + |b|) {mag:.3e}")
+    require(res <= 1e-4 * mag, "blocked herm_chol_solve residual")
+
     # the single-step entry against its plain composition, main shapes
     rng = np.random.default_rng(SEED + 8)
     rnd = numpy_randomness(rng, 1, B, n, t, nf, nt)
@@ -638,40 +780,47 @@ class _DeviceAudit(TorchDispatchMode):
         return out
 
 
-def phase_main(dev, out_root):
+def run_megachain_path(label, dev, jobs, nf, niter=NITER,
+                       write_niter=WRITE_NITER, burn=50):
+    """run_baselines on ``jobs`` (megachain, files and checkpoint) for
+    ``niter`` iterations under the device audit, with the launch counts
+    set to 0 just before and read just after: the six reference files, the
+    checkpoint, the chi^2 gate over the iterations after ``burn`` and
+    every main kernel launched. Returns (results, launches, the sampling
+    rate in baseline-iterations/s, stats)."""
     from hydra_pspec_torch import runner
-    from hydra_pspec_torch.cli.run import legendre_fgmodes
     from hydra_pspec_torch.ops.kernels import _build
     from hydra_pspec_torch.utils import io as hio
 
-    jobs = make_jobs(N_BASELINES, runner.BaselineJob, legendre_fgmodes,
-                     out_root)
     audit = _DeviceAudit()
     _build.reset_launches()
     t0 = time.perf_counter()
     with audit:
         results, tim = runner.run_baselines(
-            jobs, make_prior(), NITER, device=dev, seed=SEED,
-            write_niter=WRITE_NITER, store_cr=True, warm_ns=3,
+            jobs, make_prior(nf=nf), niter, device=dev, seed=SEED,
+            write_niter=write_niter, store_cr=True, warm_ns=3,
             drift_max=0.6)
     sync(dev)
     wall = time.perf_counter() - t0
     launches = dict(_build.LAUNCHES)
-    say("main", f"{N_BASELINES} baselines x {NITER} iterations: wall "
-        f"{wall:.2f} s, process {tim['process']:.2f} s (write "
-        f"{tim['write']:.2f} s), build+transfer {tim['scatter']:.2f} s")
+    say(label, f"{len(jobs)} baselines x {niter} iterations at {nf} "
+        f"channels: wall {wall:.2f} s, process {tim['process']:.2f} s "
+        f"(write {tim['write']:.2f} s), build+transfer "
+        f"{tim['scatter']:.2f} s")
     sampling = tim["process"] - tim["write"]
-    say("main", f"iterations/s {NITER / sampling:.2f} sampling only "
-        f"({NITER / tim['process']:.2f} with flushes); baseline-iterations/s "
-        f"{N_BASELINES * NITER / sampling:.1f}")
+    rate = len(jobs) * niter / sampling
+    say(label, f"iterations/s {niter / sampling:.2f} sampling only "
+        f"({niter / tim['process']:.2f} with flushes); baseline-iterations/s "
+        f"{rate:.1f}")
     require(tim["device"].startswith("cuda"), "runner did not run on cuda")
-    say("main", f"device audit: {audit.cuda_ops} cuda tensor ops, CPU "
+    require(tim["engine"] == "megachain", f"{label}: ran {tim['engine']}")
+    say(label, f"device audit: {audit.cuda_ops} cuda tensor ops, CPU "
         f"compute ops {dict(audit.cpu_ops) or 'none'}")
     require(not audit.cpu_ops and audit.cuda_ops > 0,
             "tensors of the path left the device")
-    shapes = {"signal_cr": (NITER, NT, NF), "signal_S": (NF, NF),
-              "signal_ps": (NITER, NF), "fg_amps": (NITER, NT, NM),
-              "chisq": (NITER, NT, NF), "ln_post": (NITER,)}
+    shapes = {"signal_cr": (niter, NT, nf), "signal_S": (nf, nf),
+              "signal_ps": (niter, nf), "fg_amps": (niter, NT, NM),
+              "chisq": (niter, NT, nf), "ln_post": (niter,)}
     for job in jobs:
         got = hio.load_samples(job.out_dir)
         for k, shape in shapes.items():
@@ -679,55 +828,85 @@ def phase_main(dev, out_root):
                     f"{job.out_dir}: {k} missing or wrong shape")
             require(np.isfinite(got[k]).all(), f"{job.out_dir}: {k} "
                     f"not finite")
-    say("main", f"six reference files per baseline with the JAX runner's "
-        f"shapes, all finite")
-    chi2 = float(np.mean([r.chisq[50:NITER].mean() for r in results]))
-    say("main", f"mean chi^2 over iterations 51-{NITER}: {chi2:.5f} "
-        f"(gate |chi^2 - 1| <= {CHI2_GATE})")
-    require(abs(chi2 - 1.0) <= CHI2_GATE, "chi^2 gate")
-    truth = ps_truth()
-    delay = np.abs(np.arange(NF) - NF // 2)
+    ck = hio.load_checkpoint(Path(jobs[0].out_dir).parent)
+    require(ck is not None and ck["iteration"] == niter,
+            f"{label}: no checkpoint at the last iteration")
+    say(label, f"six reference files per baseline with the JAX runner's "
+        f"shapes, all finite; checkpoint at iteration {niter}")
+    chi2 = float(np.mean([r.chisq[burn:niter].mean() for r in results]))
+    windows = [float(np.mean([r.chisq[w:w + 50].mean() for r in results]))
+               for w in range(0, niter, 50)]
+    say(label, f"mean chi^2 over iterations {burn + 1}-{niter}: {chi2:.5f} "
+        f"(gate |chi^2 - 1| <= {CHI2_GATE}); by 50-iteration window "
+        f"{[round(c, 5) for c in windows]}")
+    require(abs(chi2 - 1.0) <= CHI2_GATE, f"{label} chi^2 gate")
+    truth = ps_truth(nf)
+    delay = np.abs(np.arange(nf) - nf // 2)
     eor = (delay >= 4) & (delay <= 16)
-    ratio = np.median([r.signal_ps[50:].mean(axis=0)[eor] / truth[eor]
+    ratio = np.median([r.signal_ps[burn:].mean(axis=0)[eor] / truth[eor]
                        for r in results])
-    say("main", f"posterior-mean / truth on EoR bins 4 <= |delay| <= 16: "
+    say(label, f"posterior-mean / truth on EoR bins 4 <= |delay| <= 16: "
         f"median {ratio:.4f} (information only)")
     missing = [k for k in MAIN_KERNELS if launches[k] == 0]
-    say("main", f"launches {launches}")
-    require(not missing, f"kernels never launched on the main path: "
+    say(label, f"launches {launches}")
+    require(not missing, f"kernels never launched on the {label} path: "
             f"{missing}")
-    return jobs, results, launches, N_BASELINES * NITER / sampling
+    stats = {"baselines": len(jobs), "niter": niter, "nfreqs": nf,
+             "wall_s": wall, "build_s": tim["scatter"],
+             "process_s": tim["process"], "flush_s": tim["write"],
+             "baseline_iters_per_s": rate, "chi2": chi2,
+             "chi2_burn": burn, "chi2_windows_50": windows}
+    return results, launches, rate, stats
+
+
+def phase_main(dev, out_root):
+    from hydra_pspec_torch import runner
+    from hydra_pspec_torch.cli.run import legendre_fgmodes
+
+    jobs = make_jobs(N_BASELINES, runner.BaselineJob, legendre_fgmodes,
+                     out_root)
+    results, launches, rate, _ = run_megachain_path("main", dev, jobs, NF)
+    return jobs, results, launches, rate
 
 
 # --- 6. invariance -----------------------------------------------------------
 
-def phase_invariance(dev, jobs, results):
+def subset_identical(label, dev, jobs, nf, niter=NITER,
+                     write_niter=WRITE_NITER):
+    """The first :data:`N_SUBSET` baselines alone give dps-eor files
+    bit-identical to the full run's; returns their jobs without files."""
     from hydra_pspec_torch import runner
 
-    sub = [runner.BaselineJob(j.antpair, j.d, j.w, j.fgmodes, j.S_initial,
-                              j.Ninv) for j in jobs[:10]]
-    res10, _ = runner.run_baselines(
-        sub, make_prior(), NITER, device=dev, seed=SEED,
-        write_niter=WRITE_NITER, store_cr=True, warm_ns=3, drift_max=0.6,
-        global_baseline_ids=list(range(10)))
-    for j, r in zip(jobs[:10], res10):
+    sub = [dataclasses.replace(j, out_dir=None) for j in jobs[:N_SUBSET]]
+    res, _ = runner.run_baselines(
+        sub, make_prior(nf=nf), niter, device=dev, seed=SEED,
+        write_niter=write_niter, store_cr=True, warm_ns=3, drift_max=0.6,
+        global_baseline_ids=list(range(N_SUBSET)))
+    for j, r in zip(jobs, res):
         dps = np.load(Path(j.out_dir) / "dps-eor.npy")
         require(np.array_equal(dps, r.signal_ps),
                 f"baseline {j.antpair}: dps-eor differs in the subset run")
-    say("invariance", "first 10 baselines alone: dps-eor bit-identical to "
-        "the 100-baseline run")
+    say(label, f"first {N_SUBSET} baselines alone: dps-eor bit-identical "
+        f"to the {len(jobs)}-baseline run")
+    return sub
+
+
+def phase_invariance(dev, jobs, results):
+    from hydra_pspec_torch import runner
+
+    sub = subset_identical("invariance", dev, jobs, NF)
     none = np.zeros((NT, NF), dtype=bool)
     res_tf, tim = runner.run_baselines(
         [dataclasses.replace(j, flags_tf=none) for j in sub], make_prior(),
         NITER, device=dev, seed=SEED, write_niter=WRITE_NITER,
         store_cr=True, warm_ns=3, drift_max=0.6,
-        global_baseline_ids=list(range(10)))
-    for j, r in zip(jobs[:10], res_tf):
+        global_baseline_ids=list(range(N_SUBSET)))
+    for j, r in zip(jobs, res_tf):
         dps = np.load(Path(j.out_dir) / "dps-eor.npy")
         require(np.array_equal(dps, r.signal_ps),
                 f"baseline {j.antpair}: all-False flags_tf changes dps-eor")
-    say("invariance", "the same 10 with all-False flags_tf (grouped path, "
-        "G=1): dps-eor bit-identical to the plain run")
+    say("invariance", f"the same {N_SUBSET} with all-False flags_tf "
+        f"(grouped path, G=1): dps-eor bit-identical to the plain run")
 
 
 # --- 7. tflags ---------------------------------------------------------------
@@ -825,77 +1004,96 @@ def _chi2_unflagged(results, flags, lo, hi):
     return float(np.mean([r.chisq[lo:hi][:, ~flags].mean() for r in results]))
 
 
+def drive(dev, launches, stats, label, kernels, engine, jobs, niter,
+          prior=None, **kw):
+    """run_baselines on ``jobs``, routed to ``engine``, under the device
+    audit, with the launch counts set to 0 just before and read just
+    after into ``launches[label]``; every kernel of ``kernels`` must have
+    launched. Its timings go to ``stats[label]``."""
+    from hydra_pspec_torch import runner
+    from hydra_pspec_torch.ops.kernels import _build
+
+    prior = make_prior() if prior is None else prior
+    want = runner.route_engine(jobs, prior, kw.get("engine", "auto"),
+                               kw.get("map_estimate", False))
+    require(want == engine, f"{label}: routed to {want}, not {engine}")
+    audit = _DeviceAudit()
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    with audit:
+        res, tim = runner.run_baselines(jobs, prior, niter, device=dev,
+                                        seed=SEED, **kw)
+    sync(dev)
+    wall = time.perf_counter() - t0
+    got = dict(_build.LAUNCHES)
+    launches[label] = got
+    sampling = tim["process"] - tim["write"]
+    stats[label] = {"engine": tim["engine"], "baselines": len(jobs),
+                    "nfreqs": jobs[0].d.shape[1], "niter": tim["niter"],
+                    "wall_s": wall, "build_s": tim["scatter"],
+                    "process_s": tim["process"], "flush_s": tim["write"],
+                    "baseline_iters_per_s": len(jobs) * tim["niter"]
+                    / sampling}
+    phase = "wideband" if label.startswith("wide") else "fallback"
+    say(phase, f"{label}: engine {tim['engine']}, {len(jobs)} baselines x "
+        f"{tim['niter']} iterations at {jobs[0].d.shape[1]} channels, wall "
+        f"{wall:.2f} s, build+transfer {tim['scatter']:.2f} s, process "
+        f"{tim['process']:.2f} s (write {tim['write']:.2f} s), "
+        f"baseline-iterations/s {stats[label]['baseline_iters_per_s']:.1f}")
+    say(phase, f"{label}: launches {({k: got[k] for k in kernels})}; "
+        f"device audit {audit.cuda_ops} cuda tensor ops, CPU compute ops "
+        f"{dict(audit.cpu_ops) or 'none'}")
+    require(tim["engine"] == engine, f"{label}: ran {tim['engine']}")
+    require(not audit.cpu_ops and audit.cuda_ops > 0,
+            f"{label}: tensors of the path left the device")
+    missing = [k for k in kernels if got[k] == 0]
+    require(not missing, f"{label}: never launched: {missing}")
+    return res, tim
+
+
+def whitened_chi2(jobs, niter, burn):
+    """Mean of r^H Ninv r / (Ntimes Nfreqs) over ``jobs`` from their
+    written samples, iterations after ``burn``."""
+    from hydra_pspec_torch.utils import io as hio
+
+    white = []
+    for j in jobs:
+        nt, nf = j.d.shape
+        got = hio.load_samples(j.out_dir)
+        require(got["signal_cr"].shape == (niter, nt, nf)
+                and np.isfinite(got["signal_cr"]).all(),
+                f"{j.out_dir}: signal_cr")
+        r = (j.d[None] - got["signal_cr"][burn:]
+             - got["fg_amps"][burn:] @ j.fgmodes.T).reshape(-1, nf)
+        white.append(float(np.sum((r.conj() * (r @ j.Ninv.T)).real))
+                     / (r.shape[0] * nf))
+    return float(np.mean(white))
+
+
 def phase_fallback(dev, jobs_plain, out_root):
     """The engines run_baselines routes away from megachain, each driven
     through run_baselines with the launch counts set to 0 just before and
     read just after, under the device audit."""
+    import functools
+
     from hydra_pspec_torch import runner
     from hydra_pspec_torch.cli.run import legendre_fgmodes
-    from hydra_pspec_torch.ops.kernels import _build
     from hydra_pspec_torch.utils import io as hio
 
     launches, stats = {}, {}
     plain_jobs = [dataclasses.replace(j, out_dir=None) for j in jobs_plain]
-
-    def drive(label, kernels, engine, jobs, niter, prior=None, **kw):
-        prior = make_prior() if prior is None else prior
-        want = runner.route_engine(jobs, prior, kw.get("engine", "auto"),
-                                   kw.get("map_estimate", False))
-        require(want == engine, f"{label}: routed to {want}, not {engine}")
-        audit = _DeviceAudit()
-        _build.reset_launches()
-        t0 = time.perf_counter()
-        with audit:
-            res, tim = runner.run_baselines(jobs, prior, niter, device=dev,
-                                            seed=SEED, **kw)
-        sync(dev)
-        wall = time.perf_counter() - t0
-        got = dict(_build.LAUNCHES)
-        launches[label] = got
-        sampling = tim["process"] - tim["write"]
-        stats[label] = {"engine": tim["engine"], "baselines": len(jobs),
-                        "niter": tim["niter"], "wall_s": wall,
-                        "build_s": tim["scatter"],
-                        "process_s": tim["process"], "flush_s": tim["write"],
-                        "baseline_iters_per_s":
-                            len(jobs) * tim["niter"] / sampling}
-        say("fallback", f"{label}: engine {tim['engine']}, {len(jobs)} "
-            f"baselines x {tim['niter']} iterations, wall {wall:.2f} s, "
-            f"build+transfer {tim['scatter']:.2f} s, process "
-            f"{tim['process']:.2f} s (write {tim['write']:.2f} s), "
-            f"baseline-iterations/s "
-            f"{stats[label]['baseline_iters_per_s']:.1f}")
-        say("fallback", f"{label}: launches "
-            f"{ {k: got[k] for k in kernels} }; device audit "
-            f"{audit.cuda_ops} cuda tensor ops, CPU compute ops "
-            f"{dict(audit.cpu_ops) or 'none'}")
-        require(tim["engine"] == engine, f"{label}: ran {tim['engine']}")
-        require(not audit.cpu_ops and audit.cuda_ops > 0,
-                f"{label}: tensors of the path left the device")
-        missing = [k for k in kernels if got[k] == 0]
-        require(not missing, f"{label}: never launched: {missing}")
-        return res, tim
+    run = functools.partial(drive, dev, launches, stats)
 
     # a dense Ninv at full width: the real engine, the factor-solve kernel
     dense = make_jobs(len(jobs_plain), runner.BaselineJob, legendre_fgmodes,
                       out_root / "dense", dense=True, seed=SEED + 3)
-    res, _ = drive("dense", REAL_KERNELS, "real", dense, NITER,
+    res, _ = run("dense", REAL_KERNELS, "real", dense, NITER,
                    write_niter=WRITE_NITER, store_cr=True)
     ck = hio.load_checkpoint(Path(dense[0].out_dir).parent)
     require(ck is not None and ck["iteration"] == NITER,
             "dense: no checkpoint at the last iteration")
     burn = min(50, NITER // 4)
-    white = []
-    for j in dense:
-        got = hio.load_samples(j.out_dir)
-        require(got["signal_cr"].shape == (NITER, NT, NF)
-                and np.isfinite(got["signal_cr"]).all(),
-                f"{j.out_dir}: signal_cr")
-        r = (j.d[None] - got["signal_cr"][burn:]
-             - got["fg_amps"][burn:] @ j.fgmodes.T).reshape(-1, NF)
-        white.append(float(np.sum((r.conj() * (r @ j.Ninv.T)).real))
-                     / (r.shape[0] * NF))
-    chi2_w = float(np.mean(white))
+    chi2_w = whitened_chi2(dense, NITER, burn)
     chi2_d = float(np.mean([r.chisq[burn:].mean() for r in res]))
     say("fallback", f"dense: whitened chi^2 r^H Ninv r / (Ntimes Nfreqs) "
         f"from the written samples, iterations {burn + 1}-{NITER}: "
@@ -907,7 +1105,7 @@ def phase_fallback(dev, jobs_plain, out_root):
 
     # solver="pallas2": herm_inv and the hermitian_solve entry
     sub = [dataclasses.replace(j, out_dir=None) for j in dense[:N_PALLAS2]]
-    res, _ = drive("pallas2", PALLAS2_KERNELS, "real", sub, PALLAS2_NITER,
+    res, _ = run("pallas2", PALLAS2_KERNELS, "real", sub, PALLAS2_NITER,
                    write_niter=PALLAS2_NITER, solver="pallas2",
                    global_baseline_ids=list(range(N_PALLAS2)))
     chi2 = float(np.mean([r.chisq[PALLAS2_NITER // 2:].mean() for r in res]))
@@ -918,7 +1116,7 @@ def phase_fallback(dev, jobs_plain, out_root):
 
     # MAP mode: the real engine, against the same run on the CPU
     sub = plain_jobs[:N_MAP]
-    res, _ = drive("map", ("cgemm", "herm_chol_solve", "row_scale_sumsq",
+    res, _ = run("map", ("cgemm", "herm_chol_solve", "row_scale_sumsq",
                            "bandpower"), "real", sub, NITER,
                    map_estimate=True, global_baseline_ids=list(range(N_MAP)))
     res_cpu, tim_cpu = runner.run_baselines(
@@ -938,7 +1136,7 @@ def phase_fallback(dev, jobs_plain, out_root):
     flags = rfi_windows()
     tf = [dataclasses.replace(j, d=j.d + RFI * flags, flags_tf=flags)
           for j in plain_jobs[:N_TF_REAL]]
-    res, _ = drive("tflags_real", REAL_KERNELS, "real", tf, TF_REAL_NITER,
+    res, _ = run("tflags_real", REAL_KERNELS, "real", tf, TF_REAL_NITER,
                    write_niter=TF_REAL_NITER, store_cr=True)
     burn = TF_REAL_NITER // 2
     chi2 = _chi2_unflagged(res, flags, burn, TF_REAL_NITER)
@@ -972,7 +1170,7 @@ def phase_fallback(dev, jobs_plain, out_root):
         f"(grouped path, one pattern) dps-eor bit-identical to no flags")
 
     # the single-step mega engine: more than 8 bins, a long night
-    res, _ = drive("mega", MEGA_KERNELS, "mega", plain_jobs, MEGA_NITER,
+    res, _ = run("mega", MEGA_KERNELS, "mega", plain_jobs, MEGA_NITER,
                    prior=make_prior(MEGA_HALF), write_niter=MEGA_NITER,
                    store_cr=False)
     burn = MEGA_NITER // 2
@@ -984,7 +1182,7 @@ def phase_fallback(dev, jobs_plain, out_root):
     stats["mega"].update(chi2=chi2)
     long = make_jobs(N_LONG, runner.BaselineJob, legendre_fgmodes,
                      ntimes=LONG_NT, seed=SEED + 5)
-    res, _ = drive("mega_long", MEGA_KERNELS, "mega", long, LONG_NITER,
+    res, _ = run("mega_long", MEGA_KERNELS, "mega", long, LONG_NITER,
                    write_niter=LONG_NITER, store_cr=False)
     burn = LONG_NITER // 2
     chi2 = float(np.mean([r.chisq[burn:].mean() for r in res]))
@@ -1015,6 +1213,84 @@ def phase_fallback(dev, jobs_plain, out_root):
         f"{diff:.2e}; the CPU runs are bit-identical)")
     require(same, "mega and megachain (warm_ns=0) differ")
     return launches, stats, dense
+
+
+# --- the wide band ------------------------------------------------------------
+
+def phase_wideband(dev, out_root):
+    """The model-drawn data at 203 times x 180 channels: megachain (n = 256,
+    blocked herm_inv on the warm start's rebuilds), a dense Ninv on the
+    real engine (blocked herm_chol_solve), solver="pallas2" and the mega
+    engine (blocked herm_inv every iteration). Each run with the launch
+    counts set to 0 just before and read just after."""
+    import functools
+
+    from hydra_pspec_torch import runner
+    from hydra_pspec_torch.cli.run import legendre_fgmodes
+
+    nf = WIDE_NF
+    depth = dict(niter=WIDE_NITER, write_niter=WIDE_WRITE_NITER)
+    jobs = make_jobs(N_BASELINES, runner.BaselineJob, legendre_fgmodes,
+                     out_root / "megachain", nf=nf, seed=SEED + 20)
+    results, mc_launches, _, mc_stats = run_megachain_path(
+        "wideband", dev, jobs, nf, burn=WIDE_BURN, **depth)
+    del results
+    require(mc_launches["herm_inv"] % 2 == 0,
+            "wideband: herm_inv not launched in blocked pairs")
+    subset_identical("wideband", dev, jobs, nf, **depth)
+    launches, stats = {"wide_megachain": mc_launches}, {
+        "wide_megachain": mc_stats}
+    run = functools.partial(drive, dev, launches, stats)
+
+    dense = make_jobs(N_WIDE_DENSE, runner.BaselineJob, legendre_fgmodes,
+                      out_root / "dense", dense=True, seed=SEED + 21, nf=nf)
+    run("wide_dense", REAL_KERNELS, "real", dense, WIDE_NITER,
+        prior=make_prior(nf=nf), write_niter=WIDE_NITER, store_cr=True)
+    got = launches["wide_dense"]["herm_chol_solve"]
+    say("wideband", f"wide_dense: herm_chol_solve {got} base calls = 2 a "
+        f"solve (blocks of 128 and {nf - 128}) x {WIDE_NITER}")
+    require(got == 2 * WIDE_NITER,
+            "wide_dense: the factor-solve did not run blocked")
+    chi2_w = whitened_chi2(dense, WIDE_NITER, WIDE_BURN)
+    say("wideband", f"wide_dense: whitened chi^2 r^H Ninv r / (Ntimes "
+        f"Nfreqs), iterations {WIDE_BURN + 1}-{WIDE_NITER}: {chi2_w:.5f} "
+        f"(gate |chi^2 - 1| <= {CHI2_GATE})")
+    require(abs(chi2_w - 1.0) <= CHI2_GATE, "wide_dense whitened chi^2")
+    stats["wide_dense"].update(whitened_chi2=chi2_w)
+
+    sub = [dataclasses.replace(j, out_dir=None)
+           for j in dense[:N_WIDE_PALLAS2]]
+    res, _ = run("wide_pallas2", PALLAS2_KERNELS, "real", sub,
+                 WIDE_PALLAS2_NITER, prior=make_prior(nf=nf),
+                 write_niter=WIDE_PALLAS2_NITER, solver="pallas2",
+                 global_baseline_ids=list(range(N_WIDE_PALLAS2)))
+    got = launches["wide_pallas2"]
+    require(got["herm_inv"] == 2 * got["hermitian_solve"],
+            "wide_pallas2: herm_inv did not run blocked")
+    chi2 = float(np.mean([r.chisq[WIDE_PALLAS2_NITER // 2:].mean()
+                          for r in res]))
+    say("wideband", f"wide_pallas2: herm_inv {got['herm_inv']} base "
+        f"launches for {got['hermitian_solve']} solves; diagonal chisq "
+        f"mean, second half {chi2:.5f}, finite: {bool(np.isfinite(chi2))}")
+    require(np.isfinite(chi2), "wide_pallas2 chi^2 not finite")
+    stats["wide_pallas2"].update(diag_chisq=chi2)
+
+    plain = [dataclasses.replace(j, out_dir=None)
+             for j in jobs[:N_WIDE_MEGA]]
+    res, _ = run("wide_mega", MEGA_KERNELS, "mega", plain, WIDE_NITER,
+                 prior=make_prior(MEGA_HALF, nf), write_niter=WIDE_NITER,
+                 store_cr=False)
+    got = launches["wide_mega"]["herm_inv"]
+    require(got == 2 * WIDE_NITER,
+            "wide_mega: herm_inv did not run blocked every iteration")
+    chi2 = float(np.mean([r.chisq[WIDE_BURN:].mean() for r in res]))
+    say("wideband", f"wide_mega: {2 * MEGA_HALF + 1} bounded prior bins, "
+        f"herm_inv {got} base launches (2 an iteration); mean chi^2 over "
+        f"iterations {WIDE_BURN + 1}-{WIDE_NITER}: {chi2:.5f} (gate "
+        f"|chi^2 - 1| <= {CHI2_GATE})")
+    require(abs(chi2 - 1.0) <= CHI2_GATE, "wide_mega chi^2 gate")
+    stats["wide_mega"].update(chi2=chi2)
+    return launches, stats
 
 
 # --- 9. times ----------------------------------------------------------------
@@ -1098,15 +1374,41 @@ def _time_pairs(label, cases, reps=10):
     return times
 
 
+class _CgemmShapes:
+    """Counts the (batch, M, K, N, op, A shared, X) of every cgemm launch
+    while it is active, read at the launch wrapper ``_build.call``."""
+
+    def __enter__(self):
+        from hydra_pspec_torch.ops.kernels import _build
+
+        self._build, self._call = _build, _build.call
+        self.shapes = collections.Counter()
+
+        def spy(kernel, entry, *args):
+            if kernel == "cgemm":
+                batch, M, N, K, op, a_batched = args[4:10]
+                self.shapes[(batch, M, K, N, "NTH"[op], not a_batched,
+                             args[2] is not None)] += 1
+            return self._call(kernel, entry, *args)
+
+        _build.call = spy
+        return self
+
+    def __exit__(self, *exc):
+        self._build.call = self._call
+
+
 def _time_chain(label, run, kit):
     """One iteration's time on the kernel path and the plain path, in turns
-    (kit iterations a run), and the kernels' launches per iteration."""
+    (kit iterations a run), the kernels' launches per iteration and the
+    shapes of its cgemm launches."""
     from hydra_pspec_torch.ops.kernels import _build
     from hydra_pspec_torch.ops.kernels import impl as I
 
     _build.reset_launches()
-    run(I.KERNELS)
-    torch.cuda.synchronize()
+    with _CgemmShapes() as rec:
+        run(I.KERNELS)
+        torch.cuda.synchronize()
     per_iter = {k: v / kit for k, v in _build.LAUNCHES.items() if v}
     chain = {}
     for name, impl in (("kernels", I.KERNELS), ("plain", I.PLAIN),
@@ -1114,6 +1416,8 @@ def _time_chain(label, run, kit):
         ms = _time(lambda: run(impl), 2) / kit
         chain.setdefault(name, []).append(ms)
     chain["launches_per_iteration"] = per_iter
+    chain["cgemm_shapes"] = [list(k) + [v / kit]
+                             for k, v in sorted(rec.shapes.items())]
     say("times", f"one chain iteration, {label}: kernel path "
         f"{chain['kernels']} ms, plain path {chain['plain']} ms; launches "
         f"per iteration {per_iter}")
@@ -1121,14 +1425,147 @@ def _time_chain(label, run, kit):
 
 
 def iteration_bound(chain, bounds):
-    """Sum over the kernels of launches per iteration x bound (each cgemm
-    launch priced at the F rc product's bound, the largest product of the
-    iteration, so this over-states the least time)."""
+    """Sum over the kernels of launches per iteration x bound, each cgemm
+    launch priced at its own shape (:func:`cgemm_bound`)."""
     per = {k: v for k, v in chain["launches_per_iteration"].items()
-           if k not in ENTRIES}     # an entry's kernels count themselves
+           if k not in ENTRIES and k != "cgemm"}   # entries: their kernels
     missing = [k for k in per if k not in bounds]
     require(not missing, f"no bound for {missing}")
-    return sum(v * bounds[k][0] for k, v in per.items())
+    products = sum(c * cgemm_bound(B, M, K, N, shared, with_x)[0]
+                   for B, M, K, N, _, shared, with_x, c
+                   in chain["cgemm_shapes"])
+    return sum(v * bounds[k][0] for k, v in per.items()) + products
+
+
+def _device_ms_pairs(pairs, reps=10):
+    """Device time per call of each (kernel call, library call) pair, from
+    one torch.profiler window in which each pair runs ``reps`` times, the
+    kernel first: the kernels' own time, without the host's launch gaps
+    that CUDA events around short launches also count. The device
+    activities fall into alternating runs of cgemm and library kernels."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for fns in pairs:
+            for fn in fns:
+                for _ in range(reps):
+                    fn()
+                torch.cuda.synchronize()
+    ours = "(anonymous namespace)::cgemm_kernel"
+    ev = sorted((e.time_range.start, e.time_range.end, ours in e.name)
+                for e in prof.events() if e.device_type == DeviceType.CUDA)
+    runs = []
+    for t0, t1, ours in ev:
+        if not runs or runs[-1][0] != ours:
+            runs.append([ours, 0.0, 0])
+        runs[-1][1] += t1 - t0
+        runs[-1][2] += 1
+    require(len(runs) == 2 * len(pairs)
+            and all(r[0] == (i % 2 == 0) for i, r in enumerate(runs))
+            and all(r[2] == reps for r in runs[::2]),
+            "the profiler's device activities do not match the calls")
+    return [(runs[2 * i][1] / reps / 1e3, runs[2 * i + 1][1] / reps / 1e3)
+            for i in range(len(pairs))]
+
+
+def time_cgemm_shapes(dev, B=N_BASELINES):
+    """cgemm, its plain version and one PyTorch call (TF32 off) at every
+    :data:`CGEMM_SHAPES` product, batch ``B``, each beside its bound; the
+    kernel's and the library call's device time from the profiler too."""
+    from hydra_pspec_torch.ops.kernels import impl as I
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 12)
+    rows, pairs = [], []
+    for shape in CGEMM_SHAPES:
+        what, M, K, N, op, shared, xmode = shape
+        a, b, x, alpha, beta = cgemm_operands(shape, B, dev, gen)
+        out = x if xmode == "out" else None
+        call = (lambda M_, a=a, b=b, op=op, x=x, alpha=alpha, beta=beta,
+                out=out: M_.cgemm(a, b, op=op, x=x, alpha=alpha, beta=beta,
+                                  out=out))
+        pk = [_time(lambda: call(I.PLAIN), 10), _time(lambda: call(I.KERNELS), 10),
+              _time(lambda: call(I.KERNELS), 10), _time(lambda: call(I.PLAIN), 10)]
+        aop = a if op == "N" else a.transpose(-2, -1)
+        aop = aop.conj() if op == "H" else aop
+        if xmode is None:
+            library = lambda aop=aop, b=b: torch.matmul(aop, b)
+        else:   # one call with the epilogue: X + alpha op(A) B
+            library = (lambda aop=aop, b=b, x=x, alpha=alpha:
+                       torch.baddbmm(x, aop, b, alpha=alpha))
+        lib = _time(library, 10)
+        b_ms, by = cgemm_bound(B, M, K, N, shared, xmode is not None)
+        rows.append({"what": what, "batch": B, "M": M, "K": K, "N": N,
+                     "op": op, "a_shared": shared, "x": xmode,
+                     "ms": (pk[1] + pk[2]) / 2,
+                     "plain_ms": (pk[0] + pk[3]) / 2, "library_ms": lib,
+                     "bound_ms": b_ms, "bound_by": by})
+        pairs.append((lambda call=call: call(I.KERNELS), library))
+    for row, (dev_ms, lib_dev_ms) in zip(rows, _device_ms_pairs(pairs)):
+        row.update(device_ms=dev_ms, library_device_ms=lib_dev_ms)
+        say("times", f"cgemm {row['what']:26s} B={B} {row['M']}x{row['K']}x"
+            f"{row['N']} {row['op']}: kernel {row['ms']:.4f} ms (device "
+            f"{dev_ms:.4f}), plain {row['plain_ms']:.4f}, library "
+            f"{row['library_ms']:.4f} (device {lib_dev_ms:.4f}), bound "
+            f"{row['bound_ms']:.4f} ({row['bound_by']}), device time at "
+            f"{100 * row['bound_ms'] / dev_ms:.1f} % of it")
+    return rows
+
+
+def device_profile(run, iters):
+    """torch.profiler over one ``run`` of ``iters`` iterations: the
+    device's busy share of the window from its first to its last device
+    activity, the longest idle gaps, and each kernel's summed device time
+    per iteration."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    run()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    ev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    require(ev, "the profiler recorded no device activity")
+    spans = sorted((e.time_range.start, e.time_range.end) for e in ev)
+    busy, gaps = 0.0, []
+    lo, hi = spans[0]
+    for s0, s1 in spans[1:]:
+        if s0 > hi:
+            busy += hi - lo
+            gaps.append(s0 - hi)
+            lo, hi = s0, s1
+        else:
+            hi = max(hi, s1)
+    busy += hi - lo
+    window = spans[-1][1] - spans[0][0]
+    per_kernel = collections.Counter()
+    count = collections.Counter()
+    for e in ev:
+        name = e.name.replace("void ", "").replace("(anonymous namespace)::",
+                                                   "")
+        name = name.split("<")[0].split("(")[0]
+        per_kernel[name] += (e.time_range.end - e.time_range.start) / 1e3
+        count[name] += 1
+    out = {"iterations": iters, "wall_ms": wall,
+           "device_window_ms": window / 1e3, "device_busy_ms": busy / 1e3,
+           "busy_share": busy / window,
+           "longest_gaps_us": sorted(gaps, reverse=True)[:8],
+           "kernel_ms_per_iteration": {k: v / iters for k, v in
+                                       per_kernel.most_common()},
+           "launches_per_iteration": {k: count[k] / iters for k in count}}
+    say("times", f"profiler, {iters} plain iterations at B={N_BASELINES}: "
+        f"wall {wall:.2f} ms, device window {window / 1e3:.3f} ms, busy "
+        f"{busy / 1e3:.3f} ms ({100 * busy / window:.1f} %), {len(ev)} "
+        f"device activities; longest idle gaps (us) "
+        f"{[round(g, 1) for g in out['longest_gaps_us']]}")
+    for k, v in out["kernel_ms_per_iteration"].items():
+        say("times", f"  device time per iteration {k:28s} {v:.4f} ms "
+            f"({out['launches_per_iteration'][k]:.2f} a iteration)")
+    return out
 
 
 def phase_times(dev, jobs):
@@ -1152,6 +1589,15 @@ def phase_times(dev, jobs):
     chain = _time_chain(f"B={B}", lambda impl: megachain.run_chunk_megachain(
         mops, tables, dims, ps, kit, static, seed=SEED, sids=sids,
         warm_ns=3, drift_max=0.6, impl=impl), kit)
+    profile = device_profile(lambda: megachain.run_chunk_megachain(
+        mops, tables, dims, ps, PROFILE_ITERS, static, seed=SEED, sids=sids,
+        warm_ns=3, drift_max=0.6), PROFILE_ITERS)
+    busy = profile["device_busy_ms"] / PROFILE_ITERS
+    profile["busy_share_of_timed_iteration"] = busy / min(chain["kernels"])
+    say("times", f"device busy {busy:.4f} ms an iteration under the "
+        f"profiler = {100 * profile['busy_share_of_timed_iteration']:.1f} % "
+        f"of the iteration timed without it")
+    cgemm_rows = time_cgemm_shapes(dev)
 
     oa, ob = P.rng_fields(SEED, sids, 0, n, t, nt, nf)
     rc = P.draw_rhs(mops.nid, mops.nih, ob, nt)
@@ -1234,7 +1680,8 @@ def phase_times(dev, jobs):
             f"kernel at {100 * b_ms / gtimes[k][0]:.1f} % of it")
     return dict(chain=chain, times=times, library=library, bounds=bounds,
                 gchain=gchain, gtimes=gtimes, gbounds=gbounds,
-                gbatch=(Bg // G, G), iter_bounds={
+                gbatch=(Bg // G, G), profile=profile, cgemm_rows=cgemm_rows,
+                iter_bounds={
                     "plain": iteration_bound(chain, bounds),
                     "grouped": iteration_bound(gchain, gbounds)})
 
@@ -1323,6 +1770,75 @@ def phase_times_fallback(dev, jobs, dense_jobs, tm):
                 bounds=bounds, iter_bounds=iter_bounds, chol_k1_ms=k1)
 
 
+def phase_times_wide(dev, jobs_w):
+    """The wide band at B=100: one megachain iteration at n = 256 and its
+    bound, the blocked herm_inv at n = 256 and the blocked herm_chol_solve
+    at n = 180, K = 203 against their plain versions, bounds and library
+    calls."""
+    from hydra_pspec_torch.models import mega, megachain
+    from hydra_pspec_torch.ops.kernels import _build
+    from hydra_pspec_torch.ops.kernels import herm_inv as hi
+    from hydra_pspec_torch.ops.kernels import impl as I
+    from hydra_pspec_torch.ops.kernels import spd_solve as ss
+
+    P = I.PLAIN
+    mops, dims = build_ops(jobs_w, dev)
+    B, n, t = mops.nid.shape
+    m = mops.fg.shape[2]
+    nf, nt = dims.nfreqs, dims.ntimes
+    sids = torch.arange(B, dtype=torch.int32, device=dev)
+    ps = mega.pad_ps(np.tile(ps_truth(nf), (B, 1)), dims, dev)
+    tables = megachain.make_chain_tables(mops, dev)
+    static = megachain.prior_static_from(make_prior(nf=nf), dims)
+    kit = 5
+    chain = _time_chain(
+        f"wide band n={n} ({nf} channels) B={B}",
+        lambda impl: megachain.run_chunk_megachain(
+            mops, tables, dims, ps, kit, static, seed=SEED, sids=sids,
+            warm_ns=3, drift_max=0.6, impl=impl), kit)
+    shape = dict(B=B, n=n, t=t, m=m, ntimes=nt, alpha=nt - 1)
+    bounds = {k: bound(k, **shape) for k in MAIN_KERNELS if k != "cgemm"}
+    # each herm_inv launch of the blocked inverse is one base block (its
+    # products are priced by their own shapes)
+    bounds["herm_inv"] = bound("herm_inv", **dict(shape, n=hi.BASE_N))
+    it_bound = iteration_bound(chain, bounds)
+    best = min(chain["kernels"])
+    say("times", f"iteration bound wide: {it_bound:.4f} ms; iteration "
+        f"{best:.4f} ms, {100 * it_bound / best:.1f} % of it")
+
+    oa, ob = P.rng_fields(SEED, sids, 0, n, t, nt, nf)
+    rc = P.draw_rhs(mops.nid, mops.nih, ob, nt)
+    s = P.draw_system(mops.pt, ps, P.cgemm(mops.f, rc), oa, nt, nf)[0]
+    _, _, s_u, _ = real_system(jobs_w, dev)
+    ms, _ = ss.equilibrate(s_u)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 13)
+    rhs = torch.randn((B, nf, NT), dtype=torch.complex64, generator=gen,
+                      device=dev)
+    cases = {"herm_inv": lambda M: M.herm_inv(s),
+             "herm_chol_solve": lambda M: M.herm_chol_solve(ms, rhs)}
+    times = _time_pairs(f"blocked B={B}", cases)
+    library = {"herm_inv": _time(lambda: torch.linalg.inv(s), 10),
+               "herm_chol_solve": _time(lambda: torch.linalg.solve(ms, rhs),
+                                        10)}
+    blocked = {}
+    for k, sh in (("herm_inv", dict(shape, n=n)),
+                  ("herm_chol_solve", dict(shape, n=nf, t=NT))):
+        b_ms, by = bound(k, **sh)
+        _build.reset_launches()
+        cases[k](I.KERNELS)
+        torch.cuda.synchronize()
+        per_call = {c: v for c, v in _build.LAUNCHES.items() if v}
+        blocked[f"{k}_n{sh['n']}"] = {
+            "n": sh["n"], "batch": B, "ms": times[k][0],
+            "plain_ms": times[k][1], "library_ms": library[k],
+            "bound_ms": b_ms, "bound_by": by, "launches_per_call": per_call}
+        say("times", f"{k:16s} blocked n={sh['n']} B={B}: bound {b_ms:.4f} "
+            f"ms ({by}), kernel at {100 * b_ms / times[k][0]:.1f} % of it; "
+            f"library call {library[k]:.4f} ms; launches a call {per_call}")
+    _build.reset_launches()
+    return dict(chain=chain, iter_bound=it_bound, blocked=blocked)
+
+
 def main():
     phase_env()
     dev = torch.device("cuda", 0)
@@ -1337,12 +1853,15 @@ def main():
     say("build", f"nvcc sm_90a: {secs if secs is not None else 0:.1f} s "
         f"(call {time.perf_counter() - t0:.1f} s)")
     for line in log.splitlines():
-        if "registers" in line or "Compiling entry" in line:
+        if ("registers" in line or "spill" in line
+                or "Compiling entry" in line):
             say("build", line.strip())
 
     jobs8 = make_jobs(8, runner.BaselineJob, legendre_fgmodes)
+    jobs_w8 = make_jobs(8, runner.BaselineJob, legendre_fgmodes, nf=WIDE_NF,
+                        seed=SEED + 20)
     errs = {}
-    phase_kernels(dev, jobs8, errs)
+    phase_kernels(dev, jobs8, jobs_w8, errs)
     phase_chain(dev, jobs8)
     out_root = Path(tempfile.mkdtemp(prefix="chip_smoke_"))
     try:
@@ -1352,8 +1871,14 @@ def main():
         tf_launches, tf_stats = phase_tflags(dev, jobs, out_root / "tflags")
         fb_launches, fb_stats, dense = phase_fallback(
             dev, jobs, out_root / "fallback")
+        shutil.rmtree(out_root)   # the earlier files are checked: free
+        out_root.mkdir()          # the disk for the wide band's
+        wb_launches, wb_stats = phase_wideband(dev, out_root / "wideband")
         tm = phase_times(dev, jobs)
         tf = phase_times_fallback(dev, jobs, dense, tm)
+        tw = phase_times_wide(dev, make_jobs(
+            N_BASELINES, runner.BaselineJob, legendre_fgmodes, nf=WIDE_NF,
+            seed=SEED + 20))
     finally:
         shutil.rmtree(out_root, ignore_errors=True)
 
@@ -1389,7 +1914,16 @@ def main():
         "herm_chol_solve_k1_ms": tf["chol_k1_ms"],
         "main_baseline_iters_per_s": rate,
         "tflags": dict(tf_stats, launches=tf_launches),
-        "fallback": fb_stats}), flush=True)
+        "fallback": fb_stats,
+        "cgemm_shapes": tm["cgemm_rows"],
+        "device_profile": tm["profile"],
+        "wideband": {
+            "nfreqs": WIDE_NF, "runs": wb_stats, "launches": wb_launches,
+            "blocked": tw["blocked"],
+            "iteration_ms": {k: tw["chain"][k] for k in ("kernels", "plain")},
+            "iteration_bound_ms": tw["iter_bound"],
+            "launches_per_iteration": tw["chain"]["launches_per_iteration"]}}),
+        flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

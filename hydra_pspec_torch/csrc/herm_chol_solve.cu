@@ -1,6 +1,9 @@
 // herm_chol_solve: x = A^-1 b for a batch of Hermitian positive-definite
-// complex64 matrices A (B, n, n), n <= 128, and many right-hand sides
-// b (B, n, K), by Cholesky A = L L^H and two triangular sweeps.
+// complex64 matrices A (B, n, n), n <= 128 per call, and many right-hand
+// sides b (B, n, K), by Cholesky A = L L^H and two triangular sweeps. A
+// larger n is block elimination in the wrapper (ops/kernels/spd_solve.py::
+// blocked_herm_chol_solve), with this kernel on its diagonal blocks and
+// cgemm for its products.
 //
 // Replaces the TPU kernel hydra_pspec_tpu/ops/pallas/spd_solve.py::
 // spd_factor_solve / _spd_kernel (blocked NB = 32 Cholesky of the 2n x 2n

@@ -1,5 +1,8 @@
 // herm_inv: per-chain inverse of the Jacobi-equilibrated Hermitian
-// positive-definite system S = I + D P~ D (n x n complex64, n <= 128).
+// positive-definite system S = I + D P~ D (n x n complex64, n <= 128 per
+// launch; a larger n is the block Schur recursion of the wrapper,
+// ops/kernels/herm_inv.py::blocked_herm_inv, with this kernel on its
+// diagonal blocks and cgemm for its products).
 //
 // Replaces the recursive Schur-complement SPD inverse of the TPU kernel,
 // hydra_pspec_tpu/ops/pallas/spd_inv.py::_spd_inv_into (with its 32x32 base

@@ -1,11 +1,12 @@
 """Build, load and count the hand-written CUDA kernels.
 
 The sources in ``hydra_pspec_torch/csrc/*.cu`` have a plain C interface.
-They are compiled with nvcc by hand into one shared library,
-``-gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared -Xcompiler
--fPIC``, at first use, into ``hydra_pspec_torch/_build/`` (listed in
-``.gitignore``). The library's file name carries a hash of the sources, so
-an edit always rebuilds. Nothing is built when a module is imported.
+They are compiled with nvcc by hand, one nvcc per source and all started
+together (``-gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
+-Xcompiler -fPIC -c``), then linked into one shared library, at first use,
+into ``hydra_pspec_torch/_build/`` (listed in ``.gitignore``). The
+library's file name carries a hash of the sources, so an edit always
+rebuilds. Nothing is built when a module is imported.
 
 Every C entry point returns ``cudaGetLastError()`` after its launch;
 :func:`call` raises if that is not 0. Each launch adds one to its kernel's
@@ -25,7 +26,7 @@ import torch
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC"]
+              "-O3", "-Xcompiler", "-fPIC"]
 
 P = ctypes.c_void_p
 I = ctypes.c_int
@@ -99,18 +100,34 @@ def build(verbose: bool = False) -> Path:
     if so.exists() and not verbose:
         return so
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = so.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
-           "-I", str(CSRC), "-o", str(tmp),
-           *[str(p) for p in sorted(CSRC.glob("*.cu"))]]
+    tag = f"{so.stem}.{os.getpid()}"
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({res.returncode}):\n{res.stdout}\n{res.stderr}")
+    procs = []
+    for src in sorted(CSRC.glob("*.cu")):
+        obj = BUILD_DIR / f"{tag}.{src.stem}.o"
+        cmd = [nvcc, *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
+               "-I", str(CSRC), "-c", "-o", str(obj), str(src)]
+        procs.append((obj, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)))
+    logs = [(obj, p.communicate()[0], p.returncode) for obj, p in procs]
+    failed = [f"{obj.name} ({rc}):\n{log}" for obj, log, rc in logs if rc]
+    tmp = so.with_suffix(f".{os.getpid()}.tmp")
+    if not failed:
+        res = subprocess.run([nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp),
+                              *[str(obj) for obj, _ in procs]],
+                             capture_output=True, text=True)
+        if res.returncode:
+            failed.append(f"link ({res.returncode}):\n{res.stdout}"
+                          f"{res.stderr}")
+    for obj, _ in procs:
+        obj.unlink(missing_ok=True)
+    if failed:
+        raise RuntimeError("nvcc failed: " + "\n".join(failed))
     os.replace(tmp, so)
     _LIB.build_seconds = time.perf_counter() - t0
-    _LIB.build_log = res.stdout + res.stderr
+    _LIB.build_log = "".join(log for _, log, _ in logs)
     return so
 
 

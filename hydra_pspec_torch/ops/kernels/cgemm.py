@@ -1,13 +1,17 @@
 """Batched complex64 matrix product ``C = alpha * op(A) B + beta * X``.
 
 Kernel: ``csrc/cgemm.cu``. It replaces every matrix product inside the TPU
-kernel ``gcr_megachain`` (``ops/pallas/megastep.py:145-152, 191-194,
-203-207, 221, 233`` and the Newton-Schulz steps of
-``ops/pallas/megachain.py:385-388``). On the H100 it is FP32-FMA and
-latency bound at these shapes (128x128x256 per chain); it uses 32x32
-shared-memory tiles, no tensor cores (TF32 would bring back the precision
-loss the reference rejected) and no split-K atomics, so results are
-deterministic and each chain's output depends on that chain alone.
+kernel ``gcr_megachain`` (``ops/pallas/megastep.py:41`` ``_cmm``, used at
+``:145-152, 191-194, 203-207, 221, 233``, and the Newton-Schulz steps of
+``ops/pallas/megachain.py:385-388``), and the products of the blocked
+Hermitian inverse and factor-solve. At the main path's large products
+(128 x 128 x 256 per chain) it is bound by the FP32 FMA rate: 64 x 64
+output tiles of 4 x 4 complex accumulators per thread, fed by a 3-stage
+``cp.async`` ring of 16-deep K tiles; the M = 16 and K = 16 products get
+their own tiles, chosen from the shape alone, never the batch count. No
+tensor cores (TF32 would bring back the precision loss the reference
+rejected) and no split-K, so results are deterministic and each chain's
+output depends on that chain alone.
 
 CPU tensors take :func:`plain_cgemm`; CUDA tensors launch the kernel.
 """

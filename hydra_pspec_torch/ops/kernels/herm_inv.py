@@ -10,6 +10,11 @@ matrix (133 KB at n = 128) in shared memory and runs Cholesky, ``L^-1``
 and ``L^-H L^-1`` there. It is bound by the factorization's n barrier
 steps and shared-memory latency, not by HBM.
 
+One launch takes n <= :data:`BASE_N`. A larger n goes through
+:func:`blocked_herm_inv`, the 2 x 2 block Schur recursion of
+``_spd_inv_into`` lifted to the complex Hermitian case, whose base case is
+that kernel on blocks of at most 128 and whose products are :mod:`cgemm`.
+
 The apply step ``x = A^-1 b`` and the refinement ``x += A^-1 (b - E x)``
 (``megastep.py:176-196``) run through :mod:`cgemm`.
 """
@@ -17,9 +22,9 @@ import torch
 
 from . import _build
 from .cgemm import cgemm
-from .spd_solve import equilibrate
+from .spd_solve import equilibrate, split_at
 
-MAX_N = 128  # the whole matrix must fit one block's shared memory
+BASE_N = 128  # one launch holds the whole matrix in a block's shared memory
 
 
 def plain_herm_inv(s: torch.Tensor, out=None) -> torch.Tensor:
@@ -35,19 +40,57 @@ def plain_herm_inv(s: torch.Tensor, out=None) -> torch.Tensor:
     return out
 
 
+def blocked_herm_inv(s: torch.Tensor, *, base, mm, base_n: int = BASE_N):
+    """Inverse of each (n, n) Hermitian PD matrix of ``s`` (B, n, n) by the
+    2 x 2 block Schur recursion of ``ops/pallas/spd_inv.py::_spd_inv_into``
+    (:57-99) in complex Hermitian form, split at :func:`split_at`:
+
+        T = A11^-1 A12,  S = A22 - A12^H T,  TS = T S^-1,
+        A^-1 = [[A11^-1 + TS T^H, -TS], [-TS^H, S^-1]].
+
+    ``base(s)`` inverts blocks of at most ``base_n``, ``mm`` is the
+    :func:`cgemm` contract. The blocks are copied contiguous, and ``T^H``
+    too (``mm`` has no op on B). Both bases read only the lower triangle
+    of the Schur complement (their Cholesky), so its rounding away from
+    Hermitian symmetry is never seen."""
+    n = s.shape[-1]
+    if n <= base_n:
+        return base(s)
+    n1 = split_at(n, base_n)
+    rec = lambda m: blocked_herm_inv(m, base=base, mm=mm, base_n=base_n)
+    a12 = s[:, :n1, n1:].contiguous()
+    inv11 = rec(s[:, :n1, :n1].contiguous())
+    t = mm(inv11, a12)
+    sinv = rec(mm(a12, t, op="H", x=s[:, n1:, n1:].contiguous(),
+                  alpha=-1.0))
+    ts = mm(t, sinv)
+    out = torch.empty_like(s)
+    out[:, :n1, :n1] = mm(ts, t.transpose(-2, -1).conj().contiguous(),
+                          x=inv11, out=inv11)
+    out[:, :n1, n1:] = -ts
+    out[:, n1:, :n1] = -ts.transpose(-2, -1).conj()
+    out[:, n1:, n1:] = sinv
+    return out
+
+
 def herm_inv(s: torch.Tensor, out=None) -> torch.Tensor:
-    """Inverse of each (n, n) Hermitian PD matrix of ``s`` (B, n, n)."""
+    """Inverse of each (n, n) Hermitian PD matrix of ``s`` (B, n, n), any
+    n: one kernel launch for n <= :data:`BASE_N`, else
+    :func:`blocked_herm_inv` over such launches and :func:`cgemm` products
+    (each counted as its own launch)."""
     if _build.on_cpu(s, out):
         return plain_herm_inv(s, out)
-    batch, n, n2 = s.shape
-    if n != n2 or n > MAX_N:
-        raise ValueError(f"herm_inv takes (B, n, n) with n <= {MAX_N}; "
-                         f"got {tuple(s.shape)}")
+    if s.dim() != 3 or s.shape[1] != s.shape[2]:
+        raise ValueError(f"herm_inv takes (B, n, n); got {tuple(s.shape)}")
+    if out is not None:
+        _build.check(out, "out", torch.complex64, tuple(s.shape), s.device)
+    batch, n, _ = s.shape
+    if n > BASE_N:
+        inv = blocked_herm_inv(s, base=herm_inv, mm=cgemm)
+        return inv if out is None else out.copy_(inv)
     _build.check(s, "s", torch.complex64)
     if out is None:
         out = torch.empty_like(s)
-    else:
-        _build.check(out, "out", torch.complex64, tuple(s.shape), s.device)
     _build.call("herm_inv", "hk_herm_inv", _build.ptr(s), _build.ptr(out),
                 batch, n)
     return out

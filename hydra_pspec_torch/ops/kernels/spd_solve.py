@@ -10,14 +10,17 @@ factored directly in FP32 complex arithmetic (half the memory, half the
 real FMAs; no tensor cores, no TF32): one CTA per chain factors it in
 shared memory, then one CTA per (chain, 64 right-hand sides) runs the
 forward and backward sweeps over 32 x 32 blocks of L, a warp per 32 rows
-of 32 columns. n <= 128, as for ``herm_inv``. One call launches both
-kernels and counts one ``herm_chol_solve`` launch.
+of 32 columns. One call of the kernel takes n <= :data:`BASE_N`, as for
+``herm_inv``; it launches both kernels and counts one ``herm_chol_solve``
+launch. A larger n goes through :func:`blocked_herm_chol_solve`, block
+elimination over such calls with :mod:`cgemm` products.
 """
 import torch
 
 from . import _build
+from .cgemm import cgemm
 
-MAX_N = 128  # the factor holds the whole matrix in one block's shared memory
+BASE_N = 128  # the factor holds the whole matrix in a block's shared memory
 
 
 def plain_herm_chol_solve(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -29,15 +32,54 @@ def plain_herm_chol_solve(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
                                          upper=True)
 
 
+def split_at(n: int, base_n: int) -> int:
+    """Where the block recursions split ``n > base_n``: at a multiple of
+    ``base_n``, ``n1 = base_n ceil(ceil(n / base_n) / 2)``, so the leading
+    block keeps the base kernel's best size."""
+    p = -(-n // base_n)
+    return base_n * -(-p // 2)
+
+
+def blocked_herm_chol_solve(a: torch.Tensor, b: torch.Tensor, *, base, mm,
+                            base_n: int = BASE_N) -> torch.Tensor:
+    """``x = a^-1 b`` for Hermitian PD ``a`` (B, n, n) and ``b`` (B, n, K)
+    by block elimination, split at :func:`split_at`:
+
+        [Y | T] = A11^-1 [b1 | A12]   (one base call, side by side),
+        S = A22 - A12^H T,  x2 = S^-1 (b2 - A12^H Y),  x1 = Y - T x2.
+
+    The same function as one factor-solve, with its own rounding.
+    ``base(a, b)`` solves systems of at most ``base_n``, ``mm`` is the
+    ``cgemm`` contract; ``S`` is read through its lower triangle only, as
+    the base's Cholesky does."""
+    n, k = a.shape[-1], b.shape[-1]
+    if n <= base_n:
+        return base(a, b)
+    n1 = split_at(n, base_n)
+    rec = lambda m, r: blocked_herm_chol_solve(m, r, base=base, mm=mm,
+                                               base_n=base_n)
+    a12 = a[:, :n1, n1:].contiguous()
+    yt = rec(a[:, :n1, :n1].contiguous(), torch.cat([b[:, :n1], a12], 2))
+    y, t = yt[:, :, :k].contiguous(), yt[:, :, k:].contiguous()
+    s = mm(a12, t, op="H", x=a[:, n1:, n1:].contiguous(), alpha=-1.0)
+    x2 = rec(s, mm(a12, y, op="H", x=b[:, n1:].contiguous(), alpha=-1.0))
+    return torch.cat([mm(t, x2, x=y, alpha=-1.0, out=y), x2], 1)
+
+
 def herm_chol_solve(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """``x = a^-1 b`` for Hermitian PD complex64 ``a`` (B, n, n) and ``b``
-    (B, n, K), without equilibration (see :func:`hermitian_solve_chol`)."""
+    (B, n, K), without equilibration (see :func:`hermitian_solve_chol`),
+    any n: one call of the kernel for n <= :data:`BASE_N`, else
+    :func:`blocked_herm_chol_solve` over such calls and ``cgemm``
+    products (each counted as its own launch)."""
     if _build.on_cpu(a, b):
         return plain_herm_chol_solve(a, b)
-    batch, n, n2 = a.shape
-    if n != n2 or n > MAX_N:
-        raise ValueError(f"herm_chol_solve takes (B, n, n) with n <= "
-                         f"{MAX_N}; got {tuple(a.shape)}")
+    if a.dim() != 3 or a.shape[1] != a.shape[2]:
+        raise ValueError(f"herm_chol_solve takes (B, n, n); got "
+                         f"{tuple(a.shape)}")
+    batch, n, _ = a.shape
+    if n > BASE_N:
+        return blocked_herm_chol_solve(a, b, base=herm_chol_solve, mm=cgemm)
     _build.check(a, "a", torch.complex64)
     _build.check(b, "b", torch.complex64, (batch, n, None), a.device)
     k = b.shape[2]

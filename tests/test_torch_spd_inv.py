@@ -119,6 +119,8 @@ def test_kernels_match_plain_on_card():
     from hydra_pspec_torch.cli.run import legendre_fgmodes
 
     jobs = chip_smoke.make_jobs(8, runner.BaselineJob, legendre_fgmodes)
+    wide = chip_smoke.make_jobs(8, runner.BaselineJob, legendre_fgmodes,
+                                nf=chip_smoke.WIDE_NF)
     errs = {}
-    chip_smoke.phase_kernels(torch.device("cuda", 0), jobs, errs)
+    chip_smoke.phase_kernels(torch.device("cuda", 0), jobs, wide, errs)
     assert set(errs) == set(chip_smoke.KERNELS)

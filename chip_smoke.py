@@ -8,7 +8,11 @@ Phases, one printed line each (any failure raises; exit code non-zero):
   2. build the hand-written kernels from hydra_pspec_torch/csrc with nvcc;
   3. each kernel against its plain torch version on the card, at the main
      path's shapes (B=8, n=128, t=256, m=16), with the tolerance stated;
-     Philox bits against the twin; normal and Gamma moments; the grouped
+     Philox bits against the twin; normal and Gamma moments (bandpower at
+     alpha = 202 and, on its own table, 1099); rng_fields also at the
+     real engine's layouts (n = 120 and 180 channels, t = 203 times);
+     draw_rhs and draw_system in keyed mode (the omegas drawn in the kernel) bit-identical to their
+     stored mode fed rng_fields' fields, plain and grouped; the grouped
      time-flags variants (per-row time counts, pooled bandpower) at the
      tflags path's shapes (8 chains x G=4 rows, t=128); the Hermitian
      factor-solve (herm_chol_solve) at B=8, n=120, K=203, the herm_inv
@@ -63,7 +67,14 @@ Phases, one printed line each (any failure raises; exit code non-zero):
      at B=100 (each kernel's device time per iteration, the device's busy
      share, the longest idle gaps); the wide band's megachain iteration
      (n = 256) and the blocked herm_inv (n = 256) and herm_chol_solve
-     (n = 180, K = 203) against their plain versions and library calls.
+     (n = 180, K = 203) against their plain versions and library calls;
+     device times (profiler) of bandpower (alpha 202 and 1099, and 100
+     chains x G=4) and of the omega passes in two layouts (stored
+     rng_fields fields; keyed draw_rhs and draw_system) beside their
+     bounds, and of rng_fields at the real engine's shape (n = 120,
+     t = 203).
+The megachain and mega paths draw their omegas in draw_rhs and draw_system
+and must launch no rng_fields; the real paths launch it.
 The line before the last is a JSON object with every kernel's launches,
 error, times and bound, the cgemm shapes, the profiler window and the
 wideband runs; the last line is the device JSON object.
@@ -91,6 +102,10 @@ CHI2_GATE = 0.02              # README.md:43-48
 N_SIG_A, N_SUBSET = 90, 10    # tflags: baselines of signature A; subset
 RFI = 1.0e4                   # added to every flagged entry of d
 HBM_BYTES_S, FP32_OPS_S = 3.35e12, 67e12   # H100 SXM data sheet
+# operations of one Philox4x32-10 call (10 rounds of two 32x32 -> 64-bit
+# products, xors and key additions) and of one Box-Muller pair with its
+# scale (log, sqrt, cos, sin, conversions, products)
+PHILOX_OPS, BOX_MULLER_OPS = 110, 10
 
 CHI2_DENSE_RHO = 0.5          # dense noise: C_ij = s^2 rho^|i-j|
 N_MAP, N_PALLAS2, PALLAS2_NITER = 10, 10, 50
@@ -136,7 +151,7 @@ KERNELS = {
 }
 # the kernels each path must launch
 MAIN_KERNELS = ("cgemm", "herm_inv", "draw_rhs", "draw_system",
-                "row_scale_sumsq", "draw_resid", "rng_fields", "bandpower")
+                "row_scale_sumsq", "draw_resid", "bandpower")
 REAL_KERNELS = ("cgemm", "herm_chol_solve", "row_scale_sumsq", "rng_fields",
                 "bandpower")
 PALLAS2_KERNELS = ("cgemm", "herm_inv", "hermitian_solve", "row_scale_sumsq",
@@ -146,7 +161,10 @@ ENTRIES = ("hermitian_solve", "gcr_megastep")   # composed from kernels
 # where each kernel's "launches" of the kernels JSON line are read
 HOME_PATH = dict({k: "main" for k in MAIN_KERNELS},
                  herm_chol_solve="dense", hermitian_solve="pallas2",
-                 gcr_megastep="mega")
+                 gcr_megastep="mega", rng_fields="dense")
+# the megachain and mega engines draw their omegas inside draw_rhs and
+# draw_system (keyed mode); only the real engine launches rng_fields
+NOT_ON_KEYED_PATHS = ("rng_fields",)
 
 # every cgemm product of the paths, per chain: (what, M, K, N, op, A shared,
 # X) with X None, "x" (its own tensor) or "out" (C aliases X). The plain
@@ -377,6 +395,15 @@ def numpy_randomness(rng, K, B, n, t, nfreqs, ntimes, group=1):
 
 # --- 3. kernels against their plain versions --------------------------------
 
+def long_tables(dev):
+    """The table rows (tlog, q) at alpha + 1 = LONG_NT on ``dev``."""
+    from hydra_pspec_torch.ops import invgamma
+
+    tab = invgamma.make_invgamma_table(LONG_NT)
+    return tuple(torch.from_numpy(np.array(v, np.float32)).to(dev)
+                 for v in (tab.log_y, tab.q))
+
+
 def cgemm_operands(shape, B, dev, gen):
     """Random operands (a, b, x, alpha, beta) of one :data:`CGEMM_SHAPES`
     product at batch ``B``."""
@@ -400,8 +427,8 @@ def cgemm_bound(B, M, K, N, shared, with_x):
 
 def phase_kernels(dev, jobs8, jobs_w8, errs):
     from hydra_pspec_torch.models import mega, megachain
-    from hydra_pspec_torch.ops import philox
     from hydra_pspec_torch.ops.kernels import _build
+    from hydra_pspec_torch.ops.kernels import draw_fused as df
     from hydra_pspec_torch.ops.kernels import impl as I
     from hydra_pspec_torch.ops.kernels import rng_bandpower as rb
 
@@ -428,6 +455,26 @@ def phase_kernels(dev, jobs8, jobs_w8, errs):
                 f"<= {tol:.0e} x {ref:.3e}")
             require(err <= tol * ref, f"{name} {what}: {err} > "
                     f"{tol} x {ref}")
+
+    def same(name, got, want, what):
+        """Bit-identity of a keyed kernel and its stored mode."""
+        got = got if isinstance(got, (tuple, list)) else (got,)
+        want = want if isinstance(want, (tuple, list)) else (want,)
+        ok = all(torch.equal(g, w) for g, w in zip(got, want))
+        say("kernels", f"{name:16s} {what:22s} torch.equal: {ok}")
+        require(ok, f"{name} {what}: keyed differs from stored mode")
+
+    def gamma_moments(gams, a):
+        gam = torch.cat(gams)
+        N = gam.numel()
+        m, var = float(gam.mean()), float(gam.var())
+        tol_m = 5 * math.sqrt(a / N)
+        tol_v = 5 * math.sqrt((2 * a * a + 6 * a) / N)
+        say("kernels", f"bandpower        Gamma({a}) N={N} mean-a "
+            f"{m - a:+.3f} (5 sigma {tol_m:.3f}) var-a {var - a:+.2f} "
+            f"(5 sigma {tol_v:.2f})")
+        require(abs(m - a) < tol_m and abs(var - a) < tol_v,
+                f"Gamma({a}) moments")
 
     def mm(a, b, op="N", x=None, alpha=1.0, beta=1.0, what=""):
         """cgemm against plain_cgemm; the scale is max(|alpha| |op(A)| |B|
@@ -467,6 +514,12 @@ def phase_kernels(dev, jobs8, jobs_w8, errs):
         require(abs(m) < 5 / math.sqrt(N) and abs(var - 1) <
                 5 * math.sqrt(2 / N), f"{name} normal moments")
         require(torch.all(v[:, :, nt:] == 0), f"{name} pad lanes not zero")
+    # the real engine's transposed layout (i = channel, j = time, no pad
+    # lanes), at the reference width and the wide band's
+    for nr in (NF, WIDE_NF):
+        cmp("rng_fields", K.rng_fields(SEED, sids, 7, nr, NT, NT, nr),
+            P.rng_fields(SEED, sids, 7, nr, NT, NT, nr), 1e-5,
+            f"real layout n={nr} t={NT}")
 
     rc = K.draw_rhs(mops.nid, mops.nih, ob, nt)
     cmp("draw_rhs", rc, P.draw_rhs(mops.nid, mops.nih, ob, nt), 1e-5)
@@ -476,6 +529,18 @@ def phase_kernels(dev, jobs8, jobs_w8, errs):
     sys_k = K.draw_system(mops.pt, ps, frc, oa, nt, nf)
     sys_p = P.draw_system(mops.pt, ps, frc, oa, nt, nf)
     cmp("draw_system", sys_k, sys_p, 1e-5)
+    # keyed mode (the megachain and mega engines): the kernels draw the
+    # omegas in registers, bit-identical to the stored mode fed rng_fields
+    key = df.OmegaKey(SEED, sids, 7)
+    rk = K.draw_rhs(mops.nid, mops.nih, None, nt, key=key)
+    same("draw_rhs", rk, rc, "keyed == stored")
+    cmp("draw_rhs", rk, P.draw_rhs(mops.nid, mops.nih, None, nt, key=key),
+        1e-5, "keyed vs plain")
+    sk_ = K.draw_system(mops.pt, ps, frc, None, nt, nf, key=key)
+    same("draw_system", sk_, sys_k, "keyed == stored")
+    cmp("draw_system", sk_,
+        P.draw_system(mops.pt, ps, frc, None, nt, nf, key=key), 1e-5,
+        "keyed vs plain")
     s = sys_p[0]
     inv_k, inv_p = K.herm_inv(s), P.herm_inv(s)
     cmp("herm_inv", inv_k, inv_p, 1e-3, "vs Cholesky inverse")
@@ -509,28 +574,35 @@ def phase_kernels(dev, jobs8, jobs_w8, errs):
     prior = rb.prior_bins(megachain.prior_static_from(make_prior(), dims),
                           dev)
     beta = P.row_scale_sumsq(x, dinv, dd)[1]
-    gams = []
-    for g in range(16):
-        kp, kg = K.bandpower(beta, prior, tables.tlog, tables.q, seed=SEED,
-                             sids=sids, g=g, alpha=nt - 1, gam_out=True)
-        pp, pg = P.bandpower(beta, prior, tables.tlog, tables.q, seed=SEED,
-                             sids=sids, g=g, alpha=nt - 1, gam_out=True)
-        if g == 0:
-            cmp("bandpower", (kg, kp), (pg, pp), 1e-5, "gamma, ps")
-        require(float(torch.abs(kp - pp).max() / torch.abs(pp).max())
-                < 1e-5, f"bandpower ps g={g}")
-        gams.append(kg.double().flatten())
-    gam = torch.cat(gams)
-    a = nt - 1
-    N = gam.numel()
-    m, var = float(gam.mean()), float(gam.var())
-    tol_m, tol_v = 5 * math.sqrt(a / N), 5 * math.sqrt((2 * a * a + 6 * a) / N)
-    say("kernels", f"bandpower        Gamma({a}) N={N} mean-a {m - a:+.3f} "
-        f"(5 sigma {tol_m:.3f}) var-a {var - a:+.2f} (5 sigma {tol_v:.2f})")
-    require(abs(m - a) < tol_m and abs(var - a) < tol_v, "Gamma moments")
+    # the main path's alpha = 202 and a long night's 1099 (the mega_long
+    # shape, on its own table), each Gamma draw and ps against the plain
+    # version; the warp search needs monotone table rows
+    long_tab = long_tables(dev)
+    for a, (tl, tq) in ((nt - 1, (tables.tlog, tables.q)),
+                        (LONG_NT - 1, long_tab)):
+        require(bool(torch.all(tl[1:] > tl[:-1]))
+                and bool(torch.all(tq[1:] <= tq[:-1])),
+                f"the alpha = {a} table rows are not monotone")
+        gams = []
+        for g in range(16):
+            kp, kg = K.bandpower(beta, prior, tl, tq, seed=SEED, sids=sids,
+                                 g=g, alpha=a, gam_out=True)
+            pp, pg = P.bandpower(beta, prior, tl, tq, seed=SEED, sids=sids,
+                                 g=g, alpha=a, gam_out=True)
+            if g == 0:
+                cmp("bandpower", (kg, kp), (pg, pp), 1e-5,
+                    f"gamma, ps alpha={a}")
+            require(float(torch.abs(kp - pp).max() / torch.abs(pp).max())
+                    < 1e-5, f"bandpower ps g={g} alpha={a}")
+            require(float(torch.abs(kg - pg).max() / torch.abs(pg).max())
+                    < 1e-5, f"bandpower gamma g={g} alpha={a}")
+            gams.append(kg.double().flatten())
+        gamma_moments(gams, a)
+    kp, kg = K.bandpower(beta, prior, tables.tlog, tables.q, seed=SEED,
+                         sids=sids, g=0, alpha=nt - 1, gam_out=True)
     u = torch.rand((B, 128), generator=torch.Generator(device=dev)
                    .manual_seed(3), device=dev)
-    gext = gams[0].float().reshape(B, n).to(dev)
+    gext = kg
     cmp("bandpower",
         K.bandpower(beta, prior, tables.tlog, tables.q, gam=gext, u_pb=u),
         P.bandpower(beta, prior, tables.tlog, tables.q, gam=gext, u_pb=u),
@@ -557,6 +629,11 @@ def phase_kernels(dev, jobs8, jobs_w8, errs):
     sys_k = K.draw_system(gm.pt, psg, frc, oa, ntot, nf, rt)
     sys_p = P.draw_system(gm.pt, psg, frc, oa, ntot, nf, rt)
     cmp("draw_system", sys_k, sys_p, 1e-5, what)
+    gkey = df.OmegaKey(SEED, sids_r, 7)
+    same("draw_rhs", K.draw_rhs(gm.nid, gm.nih, None, ntot, rt, gkey), rc,
+         f"grouped G={G} keyed")
+    same("draw_system", K.draw_system(gm.pt, psg, frc, None, ntot, nf, rt,
+                                      gkey), sys_k, f"grouped G={G} keyed")
     s, xs, dd, dinv = sys_p
     require(torch.all(sys_k[3][G - 1::G] == 1.0),
             "dummy rows: dinv is not 1")
@@ -851,6 +928,8 @@ def run_megachain_path(label, dev, jobs, nf, niter=NITER,
     say(label, f"launches {launches}")
     require(not missing, f"kernels never launched on the {label} path: "
             f"{missing}")
+    require(not any(launches[k] for k in NOT_ON_KEYED_PATHS),
+            f"{label}: rng_fields launched on the keyed megachain path")
     stats = {"baselines": len(jobs), "niter": niter, "nfreqs": nf,
              "wall_s": wall, "build_s": tim["scatter"],
              "process_s": tim["process"], "flush_s": tim["write"],
@@ -978,6 +1057,8 @@ def phase_tflags(dev, jobs_plain, out_root):
     say("tflags", f"launches {launches}")
     require(not missing, f"kernels never launched on the tflags path: "
             f"{missing}")
+    require(not any(launches[k] for k in NOT_ON_KEYED_PATHS),
+            "tflags: rng_fields launched on the keyed megachain path")
 
     nsub = min(N_SUBSET, n_a)
     sub = [dataclasses.replace(j, out_dir=None) for j in jobs[:nsub]]
@@ -1048,6 +1129,9 @@ def drive(dev, launches, stats, label, kernels, engine, jobs, niter,
             f"{label}: tensors of the path left the device")
     missing = [k for k in kernels if got[k] == 0]
     require(not missing, f"{label}: never launched: {missing}")
+    if engine != "real":
+        require(not any(got[k] for k in NOT_ON_KEYED_PATHS),
+                f"{label}: rng_fields launched on the keyed {engine} path")
     return res, tim
 
 
@@ -1302,8 +1386,13 @@ def work(name, B, n, t, m, ntimes, valid=None, chains=None, alpha=None):
     transcendental step counted as one operation. ``valid``: time lanes
     drawn in all rows (default B * ntimes); ``chains``: Gamma draws (the
     grouped bandpower draws once per chain). The solves take ``t`` as
-    their right-hand-side count K."""
+    their right-hand-side count K. ``draw_rhs`` and ``draw_system`` are
+    the keyed mode of the main path (no omega field read; a Philox call
+    and a Box-Muller pair per drawn lane instead); ``*_stored`` their
+    stored mode."""
     cfield, vec = 8 * B * n * t, 4 * B * n
+    lanes = B * ntimes if valid is None else valid
+    draw = n * lanes * (PHILOX_OPS + BOX_MULLER_OPS)   # one omega field
     if name == "herm_chol_solve":  # Cholesky n^3/6 + two sweeps n^2 K cMACs
         return 8 * B * n * n + 2 * cfield, 8 * B * (n ** 3 // 6 + n * n * t)
     if name == "hermitian_solve":  # herm_inv + apply + refine (3 n^2 K)
@@ -1320,18 +1409,20 @@ def work(name, B, n, t, m, ntimes, valid=None, chains=None, alpha=None):
     if name == "herm_inv":     # Cholesky, L^-1, L^-H L^-1: n^3/2 cMACs
         return 2 * 8 * B * n * n, 4 * n ** 3 * B
     if name == "draw_rhs":
+        return 2 * cfield + vec, 4 * B * n * t + draw
+    if name == "draw_rhs_stored":
         return 3 * cfield + vec, 4 * B * n * t
-    if name == "draw_system":
-        return 2 * 8 * B * n * n + 3 * cfield + 3 * vec, \
-            6 * B * n * n + 6 * B * n * t
+    if name in ("draw_system", "draw_system_stored"):
+        keyed = name == "draw_system"
+        return (2 * 8 * B * n * n + (2 if keyed else 3) * cfield + 3 * vec,
+                6 * B * n * n + 6 * B * n * t + (draw if keyed else 0))
     if name == "row_scale_sumsq":
         return 2 * cfield + 3 * vec, 8 * B * n * t
     if name == "draw_resid":   # full: chi and amps, no w sig
         return (3 * cfield + 2 * vec + 3 * 8 * B * m * t + 4 * B * n * t
                 + vec), 10 * B * n * t + 2 * B * m * t
-    if name == "rng_fields":   # 10 Philox rounds ~110 ops, 2 Box-Muller
-        lanes = B * ntimes if valid is None else valid
-        return 2 * cfield, 130 * n * lanes
+    if name == "rng_fields":   # a Philox call, two Box-Muller pairs a lane
+        return 2 * cfield, draw + n * lanes * BOX_MULLER_OPS
     if name == "bandpower":    # ceil(alpha/4) Philox calls + logs per bin
         draws = B if chains is None else chains
         return 2 * vec + 8 * 4096, draws * n * (-(-alpha // 4)) * 120
@@ -1355,6 +1446,47 @@ def _time(fn, reps):
     b.record()
     torch.cuda.synchronize()
     return a.elapsed_time(b) / reps
+
+
+def _profile_window(run, accept, tries=3, cpu=False):
+    """One torch.profiler window over ``run`` (called once before it, to
+    warm up): its device activities as (start us, end us, name) in start
+    order, and the window's wall time in ms. The window is taken again, up
+    to ``tries`` times, while ``accept(activities)`` is false: the
+    profiler can lose activities. ``cpu``: record host activities too."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    acts = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if cpu else [])
+    run()
+    torch.cuda.synchronize()
+    for _ in range(tries):
+        t0 = time.perf_counter()
+        with profile(activities=acts) as prof:
+            run()
+            torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        ev = sorted((e.time_range.start, e.time_range.end, e.name)
+                    for e in prof.events()
+                    if e.device_type == DeviceType.CUDA)
+        if ev and accept(ev):
+            return ev, wall
+        say("times", f"profiler window lost device activities ({len(ev)} "
+            f"recorded); taking it again")
+    raise AssertionError("the profiler's device activities do not match "
+                         "the calls")
+
+
+def _device_ms(fn, reps=20):
+    """Device time per call of ``fn`` (the sum of its device activities)
+    from a profiler window of ``reps`` calls, whose activity count must be
+    a multiple of ``reps``."""
+    def run():
+        for _ in range(reps):
+            fn()
+
+    ev, _ = _profile_window(run, lambda ev: len(ev) % reps == 0)
+    return sum(t1 - t0 for t0, t1, _ in ev) / reps / 1e3
 
 
 def _time_pairs(label, cases, reps=10):
@@ -1439,32 +1571,36 @@ def iteration_bound(chain, bounds):
 
 def _device_ms_pairs(pairs, reps=10):
     """Device time per call of each (kernel call, library call) pair, from
-    one torch.profiler window in which each pair runs ``reps`` times, the
-    kernel first: the kernels' own time, without the host's launch gaps
-    that CUDA events around short launches also count. The device
-    activities fall into alternating runs of cgemm and library kernels."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    one profiler window in which each pair runs ``reps`` times, the kernel
+    first: the kernels' own time, without the host's launch gaps that CUDA
+    events around short launches also count. The device activities must
+    fall into alternating runs of cgemm and library kernels."""
+    ours = "(anonymous namespace)::cgemm_kernel"
 
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    def run():
         for fns in pairs:
             for fn in fns:
                 for _ in range(reps):
                     fn()
                 torch.cuda.synchronize()
-    ours = "(anonymous namespace)::cgemm_kernel"
-    ev = sorted((e.time_range.start, e.time_range.end, ours in e.name)
-                for e in prof.events() if e.device_type == DeviceType.CUDA)
-    runs = []
-    for t0, t1, ours in ev:
-        if not runs or runs[-1][0] != ours:
-            runs.append([ours, 0.0, 0])
-        runs[-1][1] += t1 - t0
-        runs[-1][2] += 1
-    require(len(runs) == 2 * len(pairs)
-            and all(r[0] == (i % 2 == 0) for i, r in enumerate(runs))
-            and all(r[2] == reps for r in runs[::2]),
-            "the profiler's device activities do not match the calls")
+
+    def runs_of(ev):
+        runs = []
+        for t0, t1, name in ev:
+            is_ours = ours in name
+            if not runs or runs[-1][0] != is_ours:
+                runs.append([is_ours, 0.0, 0])
+            runs[-1][1] += t1 - t0
+            runs[-1][2] += 1
+        return runs
+
+    def accept(ev):
+        runs = runs_of(ev)
+        return (len(runs) == 2 * len(pairs)
+                and all(r[0] == (i % 2 == 0) for i, r in enumerate(runs))
+                and all(r[2] == reps for r in runs[::2]))
+
+    runs = runs_of(_profile_window(run, accept)[0])
     return [(runs[2 * i][1] / reps / 1e3, runs[2 * i + 1][1] / reps / 1e3)
             for i in range(len(pairs))]
 
@@ -1517,20 +1653,8 @@ def device_profile(run, iters):
     device's busy share of the window from its first to its last device
     activity, the longest idle gaps, and each kernel's summed device time
     per iteration."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    run()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        run()
-        torch.cuda.synchronize()
-    wall = (time.perf_counter() - t0) * 1e3
-    ev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    require(ev, "the profiler recorded no device activity")
-    spans = sorted((e.time_range.start, e.time_range.end) for e in ev)
+    ev, wall = _profile_window(run, lambda ev: True, cpu=True)
+    spans = [(t0, t1) for t0, t1, _ in ev]
     busy, gaps = 0.0, []
     lo, hi = spans[0]
     for s0, s1 in spans[1:]:
@@ -1544,11 +1668,11 @@ def device_profile(run, iters):
     window = spans[-1][1] - spans[0][0]
     per_kernel = collections.Counter()
     count = collections.Counter()
-    for e in ev:
-        name = e.name.replace("void ", "").replace("(anonymous namespace)::",
-                                                   "")
+    for t0, t1, name in ev:
+        name = name.replace("void ", "").replace("(anonymous namespace)::",
+                                                 "")
         name = name.split("<")[0].split("(")[0]
-        per_kernel[name] += (e.time_range.end - e.time_range.start) / 1e3
+        per_kernel[name] += (t1 - t0) / 1e3
         count[name] += 1
     out = {"iterations": iters, "wall_ms": wall,
            "device_window_ms": window / 1e3, "device_busy_ms": busy / 1e3,
@@ -1570,11 +1694,11 @@ def device_profile(run, iters):
 
 def phase_times(dev, jobs):
     from hydra_pspec_torch.models import mega, megachain
-    from hydra_pspec_torch.ops.kernels import _build
+    from hydra_pspec_torch.ops.kernels import draw_fused as df
     from hydra_pspec_torch.ops.kernels import impl as I
     from hydra_pspec_torch.ops.kernels import rng_bandpower as rb
 
-    P = I.PLAIN
+    K, P = I.KERNELS, I.PLAIN
     mops, dims = build_ops(jobs, dev)
     B, n, t = mops.nid.shape
     m = mops.fg.shape[2]
@@ -1597,6 +1721,12 @@ def phase_times(dev, jobs):
     say("times", f"device busy {busy:.4f} ms an iteration under the "
         f"profiler = {100 * profile['busy_share_of_timed_iteration']:.1f} % "
         f"of the iteration timed without it")
+    per = profile["kernel_ms_per_iteration"]
+    profile["omega_passes_ms"] = sum(per.get(k, 0.0) for k in (
+        "fields_kernel", "rhs_kernel", "system_kernel"))
+    say("times", f"omega passes (rng_fields, draw_rhs, draw_system) "
+        f"{profile['omega_passes_ms']:.4f} ms device time an iteration; "
+        f"fields_kernel launched {per.get('fields_kernel', 0.0):.4f} ms")
     cgemm_rows = time_cgemm_shapes(dev)
 
     oa, ob = P.rng_fields(SEED, sids, 0, n, t, nt, nf)
@@ -1607,16 +1737,18 @@ def phase_times(dev, jobs):
     x = P.cgemm(inv, xs)
     beta = P.row_scale_sumsq(x, dinv, dd)[1]
     da = torch.zeros_like(mops.a0)
-    cases = {
+    key = df.OmegaKey(SEED, sids, 0)
+    cases = {   # draw_rhs and draw_system in the main path's keyed mode
         "cgemm": lambda M: M.cgemm(mops.f, rc),
         "herm_inv": lambda M: M.herm_inv(s),
-        "draw_rhs": lambda M: M.draw_rhs(mops.nid, mops.nih, ob, nt),
-        "draw_system": lambda M: M.draw_system(mops.pt, ps, frc, oa, nt, nf),
+        "draw_rhs": lambda M: M.draw_rhs(mops.nid, mops.nih, None, nt,
+                                         key=key),
+        "draw_system": lambda M: M.draw_system(mops.pt, ps, frc, None, nt,
+                                               nf, key=key),
         "row_scale_sumsq": lambda M: M.row_scale_sumsq(x, dinv, dd),
         "draw_resid": lambda M: M.draw_resid(
             mops.dw, x, rc, mops.ninv_full, mops.w, da, mops.a0, nt,
             want_chi=True, want_chit=False, want_amp=True, want_ws=False),
-        "rng_fields": lambda M: M.rng_fields(SEED, sids, 0, n, t, nt, nf),
         "bandpower": lambda M: M.bandpower(
             beta, prior, tables.tlog, tables.q, seed=SEED, sids=sids, g=0,
             alpha=nt - 1),
@@ -1633,6 +1765,41 @@ def phase_times(dev, jobs):
         say("times", f"{k:16s} B={B}: bound {b_ms:.4f} ms ({by}), kernel "
             f"at {100 * b_ms / times[k][0]:.1f} % of it; library call "
             f"{library.get(k, float('nan')):.4f} ms")
+
+    # device times (profiler) of the bandpower conditional and of the omega
+    # passes in their two layouts, beside their bounds
+    long_tab = long_tables(dev)
+    dcases = {
+        "bandpower": ("bandpower", shape, cases["bandpower"]),
+        f"bandpower alpha={LONG_NT - 1}": (
+            "bandpower", dict(shape, alpha=LONG_NT - 1),
+            lambda M: M.bandpower(beta, prior, *long_tab, seed=SEED,
+                                  sids=sids, g=0, alpha=LONG_NT - 1)),
+        "draw_rhs": ("draw_rhs", shape, cases["draw_rhs"]),
+        "draw_system": ("draw_system", shape, cases["draw_system"]),
+        "rng_fields stored": ("rng_fields", shape, lambda M: M.rng_fields(
+            SEED, sids, 0, n, t, nt, nf)),
+        "draw_rhs stored": ("draw_rhs_stored", shape, lambda M: M.draw_rhs(
+            mops.nid, mops.nih, ob, nt)),
+        "draw_system stored": ("draw_system_stored", shape,
+                               lambda M: M.draw_system(mops.pt, ps, frc, oa,
+                                                       nt, nf)),
+    }
+    device = {}
+    for k, (wk, sh, fn) in dcases.items():
+        ms = _device_ms(lambda: fn(K))
+        b_ms, by = bound(wk, **sh)
+        device[k] = {"ms": ms, "bound_ms": b_ms, "bound_by": by}
+        say("times", f"device time {k:22s} B={B}: {ms:.5f} ms, bound "
+            f"{b_ms:.5f} ms ({by}), {100 * b_ms / ms:.1f} % of it")
+    layouts = {
+        "stored: rng_fields + draw_rhs + draw_system":
+            ("rng_fields stored", "draw_rhs stored", "draw_system stored"),
+        "keyed draw_rhs + keyed draw_system": ("draw_rhs", "draw_system")}
+    layouts = {k: sum(device[c]["ms"] for c in v)
+               for k, v in layouts.items()}
+    for k, v in layouts.items():
+        say("times", f"omega passes, layout {k}: {v:.5f} ms device time")
 
     # the grouped time-flags layout: 100 chains x G=4 of signature A
     gs = grouped_setup(jobs[:1], tflag_signatures()[0], B, dev)
@@ -1656,16 +1823,16 @@ def phase_times(dev, jobs):
     x = P.cgemm(P.herm_inv(s), xs)
     beta = P.row_scale_sumsq(x, dinv, dd)[1]
     da = torch.zeros_like(gm.a0)
+    gkey = df.OmegaKey(SEED, sids_r, 0)
     gcases = {
-        "draw_rhs": lambda M: M.draw_rhs(gm.nid, gm.nih, ob, ntot, rt),
-        "draw_system": lambda M: M.draw_system(gm.pt, psg, frc, oa, ntot,
-                                               nf, rt),
+        "draw_rhs": lambda M: M.draw_rhs(gm.nid, gm.nih, None, ntot, rt,
+                                         gkey),
+        "draw_system": lambda M: M.draw_system(gm.pt, psg, frc, None, ntot,
+                                               nf, rt, gkey),
         "draw_resid": lambda M: M.draw_resid(
             gm.dw, x, rc, gm.ninv_full, gm.w, da, gm.a0, ntot,
             want_chi=True, want_chit=False, want_amp=True, want_ws=False,
             row_times=rt),
-        "rng_fields": lambda M: M.rng_fields(SEED, sids_r, 0, n, tg, ntot,
-                                             nf, rt),
         "bandpower": lambda M: M.bandpower(
             beta, prior, gtab.tlog, gtab.q, seed=SEED, sids=sidc_r, g=0,
             alpha=ntot - 1, group=G),
@@ -1678,9 +1845,17 @@ def phase_times(dev, jobs):
         b_ms, by = gbounds[k]
         say("times", f"{k:16s} grouped B={Bg}: bound {b_ms:.4f} ms ({by}), "
             f"kernel at {100 * b_ms / gtimes[k][0]:.1f} % of it")
+    ms = _device_ms(lambda: gcases["bandpower"](K))
+    b_ms, by = gbounds["bandpower"]
+    device[f"bandpower grouped G={G}"] = {"ms": ms, "bound_ms": b_ms,
+                                          "bound_by": by}
+    say("times", f"device time bandpower {Bg // G} chains x G={G}: "
+        f"{ms:.5f} ms, bound {b_ms:.5f} ms ({by}), {100 * b_ms / ms:.1f} % "
+        f"of it")
     return dict(chain=chain, times=times, library=library, bounds=bounds,
                 gchain=gchain, gtimes=gtimes, gbounds=gbounds,
                 gbatch=(Bg // G, G), profile=profile, cgemm_rows=cgemm_rows,
+                device=device, omega_layouts=layouts,
                 iter_bounds={
                     "plain": iteration_bound(chain, bounds),
                     "grouped": iteration_bound(gchain, gbounds)})
@@ -1731,6 +1906,8 @@ def phase_times_fallback(dev, jobs, dense_jobs, tm):
         "gcr_megastep": lambda M: gcr_megastep(
             mops, ps, oa, ob, nfreqs=nf, ntimes=nt,
             all_unflagged=dims.all_unflagged, impl=M),
+        # the real engine's omegas: n = Nfreqs, t = Ntimes
+        "rng_fields": lambda M: M.rng_fields(SEED, sids, 0, NF, NT, NT, NF),
     }
     times = _time_pairs(f"B={B}", cases)
     one = rhs[:, :, :1].contiguous()
@@ -1745,11 +1922,17 @@ def phase_times_fallback(dev, jobs, dense_jobs, tm):
     main_shape = dict(B=B, n=n, t=t, m=m, ntimes=nt, alpha=nt - 1)
     bounds = {"herm_chol_solve": bound("herm_chol_solve", **solve_shape),
               "hermitian_solve": bound("hermitian_solve", **solve_shape),
-              "gcr_megastep": bound("gcr_megastep", **main_shape)}
+              "gcr_megastep": bound("gcr_megastep", **main_shape),
+              "rng_fields": bound("rng_fields", **solve_shape)}
     for k, (b_ms, by) in bounds.items():
         say("times", f"{k:16s} B={B}: bound {b_ms:.4f} ms ({by}), kernel "
             f"at {100 * b_ms / times[k][0]:.1f} % of it; library call "
             f"{library.get(k, float('nan')):.4f} ms")
+    ms_f = _device_ms(lambda: cases["rng_fields"](I.KERNELS))
+    b_ms, by = bounds["rng_fields"]
+    device = {"rng_fields": {"ms": ms_f, "bound_ms": b_ms, "bound_by": by}}
+    say("times", f"device time rng_fields B={B} n={NF} t={NT}: {ms_f:.5f} "
+        f"ms, bound {b_ms:.5f} ms ({by}), {100 * b_ms / ms_f:.1f} % of it")
     # the real engine's iteration bound: its kernels at n = 120, t = 203
     rb_ = {k: bound(k, **solve_shape) for k in
            ("cgemm", "row_scale_sumsq", "rng_fields", "bandpower",
@@ -1767,7 +1950,8 @@ def phase_times_fallback(dev, jobs, dense_jobs, tm):
             f"{100 * v / best:.1f} % of it")
     _build.reset_launches()
     return dict(real=real, mega=mega_it, times=times, library=library,
-                bounds=bounds, iter_bounds=iter_bounds, chol_k1_ms=k1)
+                bounds=bounds, device=device, iter_bounds=iter_bounds,
+                chol_k1_ms=k1)
 
 
 def phase_times_wide(dev, jobs_w):
@@ -1883,9 +2067,10 @@ def main():
         shutil.rmtree(out_root, ignore_errors=True)
 
     paths = dict(main=launches, tflags=tf_launches, **fb_launches)
+    device_ms = dict(tm["device"], **tf["device"])
     rows = []
     for k, (src, rep) in KERNELS.items():
-        t = tm if k in MAIN_KERNELS else tf
+        t = tm if k in tm["times"] else tf
         row = {"name": k, "route": "cuda", "source": src, "replaces": rep,
                "launches": paths[HOME_PATH[k]][k], "max_abs_err": errs[k],
                "ms": t["times"][k][0], "plain_ms": t["times"][k][1],
@@ -1895,6 +2080,8 @@ def main():
                "launches_path": HOME_PATH[k],
                "launches_by_path": {p: c[k] for p, c in paths.items()
                                     if c.get(k)}}
+        if k in device_ms:
+            row.update(device_ms=device_ms[k]["ms"])
         if k in tm["gtimes"]:
             row.update(tflags_ms=tm["gtimes"][k][0],
                        tflags_plain_ms=tm["gtimes"][k][1],
@@ -1917,6 +2104,8 @@ def main():
         "fallback": fb_stats,
         "cgemm_shapes": tm["cgemm_rows"],
         "device_profile": tm["profile"],
+        "device_ms": device_ms,
+        "omega_layouts_ms": tm["omega_layouts"],
         "wideband": {
             "nfreqs": WIDE_NF, "runs": wb_stats, "launches": wb_launches,
             "blocked": tw["blocked"],

@@ -21,23 +21,74 @@
 // block per row of n (or t) elements, consecutive threads on consecutive
 // elements (coalesced), row sums by a fixed-order block reduction so every
 // result is deterministic and independent of the batch.
+//
+// Omegas (megachain.py:238-302 on the TPU, drawn in the kernel there too):
+// draw_rhs and draw_system take them either as stored fields (ob, oa: the
+// external randomness of the JAX pins, or rng_fields' output) or keyed on
+// (seed, row stream ids sids, iteration g). Keyed, each thread draws the
+// Philox words of its (b, i, j) and forms omega_b (draw_rhs, words 0-1) or
+// omega_a (draw_system, words 2-3) with csrc/philox.cuh, the functions
+// rng_fields uses; pad lanes (j >= the row's time count) take 0 as the
+// stored fields hold there. So no omega field goes through device memory
+// (52 MB of writes and reads an iteration at B = 100, n = 128, t = 256):
+// both kernels stay bandwidth bound on their other fields, with the Philox
+// rounds and Box-Muller running under those streams, at one Philox call per
+// element more than a shared draw would take. A keyed omega carries the
+// bits of the stored one and enters the same expression, so keyed and
+// stored modes give equal results. The other layout, draw_rhs drawing both
+// halves and writing omega_a for a stored-mode draw_system, measured slower
+// on the H100 (PERF.md).
 #include "hk_common.cuh"
+#include "philox.cuh"
 
 namespace {
 constexpr int ROW_THREADS = 256;
 
+// the keyed omega streams: (run seed, row stream ids, iteration g)
+struct OmegaKey {
+  unsigned seed;
+  const int* sids;
+  unsigned g;
+};
+
+// rc = d + h (w mk) and xs = dinv (dd f + w mk) with their roundings
+// written out (one fma each, as the compiler formed them before the keyed
+// mode existed), so a keyed omega and a stored one give the same bits
+__device__ __forceinline__ float rhs_of(float d, float h, float w, float mk) {
+  return __fmaf_rn(h, __fmul_rn(w, mk), d);
+}
+
+__device__ __forceinline__ float xs_of(float dvi, float ddi, float f, float w,
+                                       float mk) {
+  return __fmul_rn(dvi, __fmaf_rn(ddi, f, __fmul_rn(w, mk)));
+}
+
+template <bool KEYED>
 __global__ void __launch_bounds__(ROW_THREADS)
 rhs_kernel(const float2* __restrict__ nid, const float* __restrict__ nih,
-           const float2* __restrict__ ob, float2* __restrict__ rc, int n,
-           int t, int ntimes, const int* __restrict__ row_times) {
+           const float2* __restrict__ ob, OmegaKey key,
+           float2* __restrict__ rc, int n, int t, int ntimes,
+           const int* __restrict__ row_times) {
   const long long row = blockIdx.x;  // b * n + i
+  const int b = (int)(row / n), i = (int)(row % n);
   const float h = nih[row];
-  const int ntb = row_times ? row_times[row / n] : ntimes;
+  const int ntb = row_times ? row_times[b] : ntimes;
+  const unsigned sid = KEYED ? (unsigned)key.sids[b] : 0u;
   for (int j = threadIdx.x; j < t; j += blockDim.x) {
     const long long o = row * t + j;
     const float mk = j < ntb ? 1.f : 0.f;
-    const float2 w = ob[o], d = nid[o];
-    rc[o] = make_float2(d.x + h * (w.x * mk), d.y + h * (w.y * mk));
+    float2 w;
+    if constexpr (KEYED) {
+      w = make_float2(0.f, 0.f);
+      if (j < ntb) {
+        const uint4 q = omega_words(key.seed, sid, key.g, i, j);
+        w = omega_of(q.x, q.y, OMEGA_B_SCALE);
+      }
+    } else {
+      w = ob[o];
+    }
+    const float2 d = nid[o];
+    rc[o] = make_float2(rhs_of(d.x, h, w.x, mk), rhs_of(d.y, h, w.y, mk));
   }
 }
 
@@ -49,10 +100,12 @@ __device__ __forceinline__ float dinv_of(float dd, float ptjj) {
   return rsqrtf(fmaxf(1.f + dd * dd * ptjj, FLT_MIN));
 }
 
+template <bool KEYED>
 __global__ void __launch_bounds__(ROW_THREADS)
 system_kernel(const float2* __restrict__ pt, const float* __restrict__ ps,
               const float2* __restrict__ frc, const float2* __restrict__ oa,
-              float2* __restrict__ S, float2* __restrict__ xs,
+              OmegaKey key, float sa, float2* __restrict__ S,
+              float2* __restrict__ xs,
               float* __restrict__ dd_out, float* __restrict__ dinv_out,
               int n, int t, int ntimes, const int* __restrict__ row_times,
               float nf) {
@@ -75,12 +128,23 @@ system_kernel(const float2* __restrict__ pt, const float* __restrict__ ps,
     S[row * n + j] = make_float2((outer * p.x + (i == j ? 1.f : 0.f)) * dscale,
                                  (outer * p.y) * dscale);
   }
+  const unsigned sid = KEYED ? (unsigned)key.sids[b] : 0u;
   for (int j = threadIdx.x; j < t; j += blockDim.x) {
     const long long o = row * t + j;
     const float mk = j < ntb ? 1.f : 0.f;
-    const float2 f = frc[o], w = oa[o];
-    xs[o] = make_float2(dvi * (ddi * f.x + w.x * mk),
-                        dvi * (ddi * f.y + w.y * mk));
+    float2 w;
+    if constexpr (KEYED) {
+      w = make_float2(0.f, 0.f);
+      if (j < ntb) {
+        const uint4 q = omega_words(key.seed, sid, key.g, i, j);
+        w = omega_of(q.z, q.w, sa);
+      }
+    } else {
+      w = oa[o];
+    }
+    const float2 f = frc[o];
+    xs[o] = make_float2(xs_of(dvi, ddi, f.x, w.x, mk),
+                        xs_of(dvi, ddi, f.y, w.y, mk));
   }
 }
 
@@ -149,23 +213,39 @@ resid_kernel(const float2* __restrict__ dw, const float2* __restrict__ sig,
 }
 }  // namespace
 
+// ob == nullptr: keyed mode on (seed, sids, g)
 HK_API int hk_draw_rhs(const float2* nid, const float* nih, const float2* ob,
-                       float2* rc, int batch, int n, int t, int ntimes,
+                       unsigned seed, const int* sids, unsigned g, float2* rc,
+                       int batch, int n, int t, int ntimes,
                        const int* row_times, cudaStream_t stream) {
-  rhs_kernel<<<batch * n, ROW_THREADS, 0, stream>>>(nid, nih, ob, rc, n, t,
-                                                     ntimes, row_times);
+  const OmegaKey key{seed, sids, g};
+  if (ob)
+    rhs_kernel<false><<<batch * n, ROW_THREADS, 0, stream>>>(
+        nid, nih, ob, key, rc, n, t, ntimes, row_times);
+  else
+    rhs_kernel<true><<<batch * n, ROW_THREADS, 0, stream>>>(
+        nid, nih, nullptr, key, rc, n, t, ntimes, row_times);
   return (int)cudaGetLastError();
 }
 
+// oa == nullptr: keyed mode on (seed, sids, g)
 HK_API int hk_draw_system(const float2* pt, const float* ps, const float2* frc,
-                          const float2* oa, float2* S, float2* xs, float* dd,
+                          const float2* oa, unsigned seed, const int* sids,
+                          unsigned g, float2* S, float2* xs, float* dd,
                           float* dinv, int batch, int n, int t, int ntimes,
                           int nfreqs, const int* row_times,
                           cudaStream_t stream) {
+  const OmegaKey key{seed, sids, g};
+  const float sa = omega_a_scale(nfreqs);
   dim3 grid(n, batch);
-  system_kernel<<<grid, ROW_THREADS, 0, stream>>>(
-      pt, ps, frc, oa, S, xs, dd, dinv, n, t, ntimes, row_times,
-      (float)nfreqs);
+  if (oa)
+    system_kernel<false><<<grid, ROW_THREADS, 0, stream>>>(
+        pt, ps, frc, oa, key, sa, S, xs, dd, dinv, n, t, ntimes, row_times,
+        (float)nfreqs);
+  else
+    system_kernel<true><<<grid, ROW_THREADS, 0, stream>>>(
+        pt, ps, frc, nullptr, key, sa, S, xs, dd, dinv, n, t, ntimes,
+        row_times, (float)nfreqs);
   return (int)cudaGetLastError();
 }
 

@@ -1,5 +1,5 @@
-// rng_bandpower: per-chain Philox4x32-10 streams and the in-kernel
-// bandpower conditional.
+// rng_bandpower: the omega fields of the real engine and the bandpower
+// conditional, on per-chain Philox4x32-10 streams (csrc/philox.cuh).
 //
 // Replaces, inside the TPU kernel gcr_megachain
 // (hydra_pspec_tpu/ops/pallas/megachain.py), the core-PRNG draws seeded on
@@ -21,51 +21,55 @@
 // chain spans G chain-major rows, row c*G + g solving flag-pattern time
 // group g. fields_kernel masks row b at its own count row_times[b] (its keys
 // are the row streams sid*G + g, given in sids). bandpower_kernel with
-// G > 1 runs one block per CHAIN: it sums beta over the chain's rows in the
-// fixed order g = 0..G-1, draws Gamma(alpha) and the prior uniforms once on
-// the chain stream (seed, sidc + 2^30), and writes the chain's ps to all G
-// rows. G = 1 is plain mode exactly (key sid, no offset).
+// G > 1 sums beta over the chain's rows in the fixed order g = 0..G-1,
+// draws Gamma(alpha) and the prior uniforms once on the chain stream
+// (seed, sidc + 2^30), and writes the chain's ps to all G rows. G = 1 is
+// plain mode exactly (key sid, no offset).
 //
-// Bound on the H100: rng_fields is ALU bound (10 Philox rounds plus log,
-// sqrt, sin, cos per element pair), one thread per (row, time) element, no
-// memory reads; bandpower is latency bound (alpha/4 Philox calls and logs
-// per bin, a 12-step binary search of the 4096-entry table per bounded bin)
-// and tiny: one block per chain, one thread per bin.
+// rng_fields: ALU bound (10 Philox rounds plus log, sqrt, sin, cos per
+// element pair), one thread per (row, time) element, no memory reads. The
+// megachain and mega engines no longer launch it: their draw_rhs and
+// draw_system draw the omegas they consume in registers (draw_fused.cu,
+// keyed mode), where the generation runs under those kernels' streams. The
+// real engine, whose omegas are the transposed fields, keeps it.
+//
+// bandpower: its old form ran a thread per bin on 100 blocks of 4 warps:
+// ceil(alpha/4) Philox calls and logs strictly one after another (51 at
+// alpha = 202) and three 12-step binary searches of the 4096-entry table
+// per bounded bin, each a chain of dependent loads: latency bound, at 3 %
+// of its bound. Now a block is one chain's 32 bins (lane = bin) and 8
+// warps, the grid every chain and bin group (400 blocks at B = 100,
+// n = 128, all resident at once). The warps split each bin's Philox calls
+// (warp w takes the Gamma words r = w, w + 8, ...) and leave the logs in
+// shared memory; warp 0 sums them in the old order (one running float, r
+// ascending), so every Gamma draw keeps its bits. A bounded bin is searched
+// by one warp, first (its draw does not need the Gamma draw, so its load
+// latency runs under the other warps' Philox calls): the two searches of
+// Q(alpha, .) interleaved, then the inverse search, each a warp-cooperative
+// search that tests 64 pivots a round and narrows by ballot/popc
+// (4096 -> 64 -> 1 in two rounds), finding the binary search's index on
+// the monotone table rows (tlog increasing, tq non-increasing). What bounds
+// it now is the instruction rate of the Philox rounds on the SMs that hold
+// four of the 400 blocks, plus the bounded bins' search latency on their
+// blocks.
+// Tried on the card and dropped, all slower: one warp per (chain, bin) with
+// the lanes splitting r and a shuffle-broadcast sum; the table staged in
+// shared memory (only 7 of 128 bins search, so every staging block paid
+// more than its searches saved); 16-bin blocks; warps taking words from a
+// shared counter; bounded bins spread over the blocks of a chain.
 #include "hk_common.cuh"
+#include "philox.cuh"
 
 namespace {
-
-__device__ __forceinline__ uint4 philox(uint4 c, uint2 k) {
-#pragma unroll
-  for (int r = 0; r < 10; ++r) {
-    if (r) {
-      k.x += 0x9E3779B9u;
-      k.y += 0xBB67AE85u;
-    }
-    const unsigned hi0 = __umulhi(0xD2511F53u, c.x), lo0 = 0xD2511F53u * c.x;
-    const unsigned hi1 = __umulhi(0xCD9E8D57u, c.z), lo1 = 0xCD9E8D57u * c.z;
-    c = make_uint4(hi1 ^ c.y ^ k.x, lo1, hi0 ^ c.w ^ k.y, lo0);
-  }
-  return c;
-}
-
-__device__ __forceinline__ float u_open(unsigned bits) {
-  return (float)(bits >> 8) * 0x1p-24f + 0x1p-25f;
-}
-
-__device__ __forceinline__ float2 box_muller(unsigned b1, unsigned b2) {
-  const float u1 = u_open(b1);
-  const float u2 = (float)(b2 >> 8) * 0x1p-24f;
-  const float r = sqrtf(-2.0f * logf(u1));
-  const float th = 6.28318530717958647692f * u2;
-  return make_float2(r * cosf(th), r * sinf(th));
-}
+constexpr unsigned FULL = 0xffffffffu;
+constexpr int BP_WARPS = 8;    // warps of a bandpower block (32 bins)
+constexpr int BP_CHUNK = 128;  // Gamma words (r) staged at a time
 
 __global__ void fields_kernel(unsigned seed, const int* __restrict__ sids,
                               unsigned g, float2* __restrict__ oa,
                               float2* __restrict__ ob, int n, int t,
                               int ntimes, const int* __restrict__ row_times,
-                              float half, float sa) {
+                              float sa) {
   const int b = blockIdx.z, i = blockIdx.y;
   const int j = blockIdx.x * blockDim.x + threadIdx.x;
   if (j >= t) return;
@@ -75,45 +79,113 @@ __global__ void fields_kernel(unsigned seed, const int* __restrict__ sids,
     ob[o] = make_float2(0.f, 0.f);
     return;
   }
-  const uint4 w = philox(make_uint4(g, 0u, (unsigned)i, (unsigned)j),
-                         make_uint2(seed, (unsigned)sids[b]));
-  const float2 nb = box_muller(w.x, w.y);
-  const float2 na = box_muller(w.z, w.w);
-  ob[o] = make_float2(nb.x * half, nb.y * half);
-  oa[o] = make_float2(na.x * sa, na.y * sa);
+  const uint4 w = omega_words(seed, (unsigned)sids[b], g, i, j);
+  ob[o] = omega_of(w.x, w.y, OMEGA_B_SCALE);
+  oa[o] = omega_of(w.z, w.w, sa);
 }
 
-// Q(alpha, y) by linear interpolation in log y (ops/invgamma._table_q_at)
-__device__ float q_at(const float* tlog, const float* tq, int S, float y) {
-  const float ly = logf(fmaxf(y, FLT_MIN));
-  int lo = 0, hi = S;  // count of tlog < ly
-  while (lo < hi) {
-    const int mid = (lo + hi) >> 1;
-    if (tlog[mid] < ly) lo = mid + 1; else hi = mid;
+// Two binary searches of monotone table rows by the warp, interleaved: the
+// counts of the leading indices k < S with before_a(k), resp. before_b(k),
+// true (each predicate true up to some index and false after it: the index
+// a binary search finds). A round tests 64 pivots step apart, two a lane,
+// both searches' loads sent before either ballot, so S = 4096 takes two
+// rounds (steps 64 and 1). Warp-uniform; every lane returns the counts.
+template <class A, class B>
+__device__ __forceinline__ int2 warp_search2(int S, int lane, A before_a,
+                                             B before_b) {
+  int lo_a = 0, len_a = S, lo_b = 0, len_b = S;  // count in [lo, lo + len]
+  while (len_a > 0 || len_b > 0) {
+    const int st_a = (len_a + 63) >> 6, hi_a = lo_a + len_a;
+    const int st_b = (len_b + 63) >> 6, hi_b = lo_b + len_b;
+    const int a1 = lo_a + (lane + 1) * st_a - 1, a2 = a1 + 32 * st_a;
+    const int b1 = lo_b + (lane + 1) * st_b - 1, b2 = b1 + 32 * st_b;
+    const bool pa1 = len_a > 0 && a1 < hi_a && before_a(a1);
+    const bool pa2 = len_a > 0 && a2 < hi_a && before_a(a2);
+    const bool pb1 = len_b > 0 && b1 < hi_b && before_b(b1);
+    const bool pb2 = len_b > 0 && b2 < hi_b && before_b(b2);
+    const int ca = __popc(__ballot_sync(FULL, pa1))
+                   + __popc(__ballot_sync(FULL, pa2));
+    const int cb = __popc(__ballot_sync(FULL, pb1))
+                   + __popc(__ballot_sync(FULL, pb2));
+    if (len_a > 0) {
+      lo_a += ca * st_a;
+      len_a = min(st_a - 1, hi_a - lo_a);
+    }
+    if (len_b > 0) {
+      lo_b += cb * st_b;
+      len_b = min(st_b - 1, hi_b - lo_b);
+    }
   }
+  return make_int2(lo_a, lo_b);
+}
+
+// Q(alpha, y) at log y = ly from the count of tlog < ly, by linear
+// interpolation in log y (ops/invgamma._table_q_at)
+__device__ __forceinline__ float q_interp(const float* __restrict__ tlog,
+                                          const float* __restrict__ tq,
+                                          int S, float ly, int lo) {
   const int idx = min(max(lo, 1), S - 1);
-  const float l0 = tlog[idx - 1], l1 = tlog[idx];
-  const float q0 = tq[idx - 1], q1 = tq[idx];
+  const float l0 = __ldg(tlog + idx - 1), l1 = __ldg(tlog + idx);
+  const float q0 = __ldg(tq + idx - 1), q1 = __ldg(tq + idx);
   const float tt = fminf(fmaxf((ly - l0) / fmaxf(l1 - l0, 1e-30f), 0.f), 1.f);
   return q0 + tt * (q1 - q0);
 }
 
+// (Q(alpha, ya), Q(alpha, yb)), the two searches interleaved
+__device__ float2 q_at2(const float* __restrict__ tlog,
+                        const float* __restrict__ tq, int S, float ya,
+                        float yb, int lane) {
+  const float la = logf(fmaxf(ya, FLT_MIN)), lb = logf(fmaxf(yb, FLT_MIN));
+  const int2 c = warp_search2(
+      S, lane, [&](int k) { return __ldg(tlog + k) < la; },
+      [&](int k) { return __ldg(tlog + k) < lb; });
+  return make_float2(q_interp(tlog, tq, S, la, c.x),
+                     q_interp(tlog, tq, S, lb, c.y));
+}
+
 // y with Q(alpha, y) = c (ops/invgamma._table_y_at); tq is non-increasing
-__device__ float y_at(const float* tlog, const float* tq, int S, float c) {
-  int lo = 0, hi = S;  // first index with tq < c
-  while (lo < hi) {
-    const int mid = (lo + hi) >> 1;
-    if (tq[mid] < c) hi = mid; else lo = mid + 1;
-  }
+__device__ float y_at(const float* __restrict__ tlog,
+                      const float* __restrict__ tq, int S, float c, int lane) {
+  const int lo = warp_search2(   // first index with tq < c
+      S, lane, [&](int k) { return !(__ldg(tq + k) < c); },
+      [](int) { return false; }).x;
   const int idx = min(max(S - lo, 1), S - 1);
   const int j0 = S - idx, j1 = S - 1 - idx;
-  const float q0 = tq[j0], q1 = tq[j1];
-  const float l0 = tlog[j0], l1 = tlog[j1];
+  const float q0 = __ldg(tq + j0), q1 = __ldg(tq + j1);
+  const float l0 = __ldg(tlog + j0), l1 = __ldg(tlog + j1);
   const float tt = fminf(fmaxf((c - q0) / fmaxf(q1 - q0, 1e-30f), 0.f), 1.f);
   return expf(l0 + tt * (l1 - l0));
 }
 
-__global__ void bandpower_kernel(
+// log(u_4r u_4r+1 u_4r+2 u_4r+3) of the Gamma word r of bin i, uniforms at
+// index >= alpha taken as 1
+__device__ __forceinline__ float gamma_log(uint2 key, unsigned g, int i,
+                                           int r, int alpha) {
+  const uint4 w = philox(make_uint4(g, 1u, (unsigned)i, (unsigned)r), key);
+  const unsigned ws[4] = {w.x, w.y, w.z, w.w};
+  float prod = 1.f;
+#pragma unroll
+  for (int q = 0; q < 4; ++q)
+    prod *= (4 * r + q < alpha) ? u_open(ws[q]) : 1.f;
+  return logf(prod);
+}
+
+// pooled beta of bin i: the chain's G rows summed in the order g = 0..G-1
+__device__ __forceinline__ float pooled_beta(const float* __restrict__ beta,
+                                             long long o, int n, int G) {
+  float bt = beta[o];
+  for (int r = 1; r < G; ++r) bt += beta[o + (long long)r * n];
+  return bt;
+}
+
+// block = chain c (rows c*G .. c*G + G - 1; G = 1: plain mode) x 32 bins
+// b0 .. b0 + 31, lane = bin. First the bounded bins, each by warp
+// bin % BP_WARPS with its l in order: their draw does not use the Gamma
+// draw, so the latency of their table searches overlaps the other warps'
+// Philox calls. Then the warps split the Gamma draw's Philox calls (warp w
+// takes r = w, w + BP_WARPS, ...), a chunk of BP_CHUNK words at a time,
+// and leave each log in shared memory; warp 0 sums them in r order.
+__global__ void __launch_bounds__(32 * BP_WARPS) bandpower_kernel(
     const float* __restrict__ beta, const float* __restrict__ gam_ext,
     const float* __restrict__ u_ext, int u_stride, unsigned seed,
     const int* __restrict__ sids, unsigned g, int alpha,
@@ -121,52 +193,63 @@ __global__ void bandpower_kernel(
     const int* __restrict__ pidx, const float* __restrict__ plo,
     const float* __restrict__ phi, int np, float* __restrict__ ps_out,
     float* __restrict__ gam_out, int n, int G) {
-  // block = chain c, rows c*G .. c*G + G - 1 (G = 1: one row, plain mode)
+  __shared__ float lg_s[BP_CHUNK][32];
+  __shared__ float out_s[32];
+  __shared__ int bounded_s[32];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int b0 = blockIdx.y * 32, i = b0 + lane;
+  const bool valid = i < n;
   const long long r0 = (long long)blockIdx.x * G;
   const unsigned off = G > 1 ? (1u << 30) : 0u;
   const uint2 key = make_uint2(seed, sids ? (unsigned)sids[r0] + off : 0u);
-  for (int i = threadIdx.x; i < n; i += blockDim.x) {
-    const long long o = r0 * n + i;
-    float gam;
-    if (gam_ext) {
-      gam = gam_ext[o];
+  if (warp == 0) bounded_s[lane] = 0;
+  __syncthreads();
+  for (int l = 0; l < np; ++l) {
+    const int bl = pidx[l] - b0;   // warp-uniform
+    if (bl < 0 || bl >= 32 || bl % BP_WARPS != warp) continue;
+    float u;
+    if (u_ext) {
+      u = u_ext[r0 * u_stride + l];
     } else {
-      float s = 0.f;
-      const int nr = (alpha + 3) / 4;
-      for (int r = 0; r < nr; ++r) {
-        const uint4 w = philox(make_uint4(g, 1u, (unsigned)i, (unsigned)r),
-                               key);
-        const unsigned ws[4] = {w.x, w.y, w.z, w.w};
-        float prod = 1.f;
-#pragma unroll
-        for (int q = 0; q < 4; ++q)
-          prod *= (4 * r + q < alpha) ? u_open(ws[q]) : 1.f;
-        s += logf(prod);
-      }
-      gam = -s;
+      const uint4 w = philox(make_uint4(g, 2u, 0u, (unsigned)(l >> 2)), key);
+      const unsigned ws[4] = {w.x, w.y, w.z, w.w};
+      u = u_open(ws[l & 3]);
     }
-    float bt = beta[o];
-    for (int r = 1; r < G; ++r) bt += beta[o + (long long)r * n];
-    float out = bt / gam;
-    for (int l = 0; l < np; ++l) {
-      if (pidx[l] != i) continue;
-      float u;
-      if (u_ext) {
-        u = u_ext[r0 * u_stride + l];
-      } else {
-        const uint4 w = philox(make_uint4(g, 2u, 0u, (unsigned)(l >> 2)),
-                               key);
-        const unsigned ws[4] = {w.x, w.y, w.z, w.w};
-        u = u_open(ws[l & 3]);
-      }
-      const float lo = plo[l], hi = phi[l];
-      const float p_lo = q_at(tlog, tq, S, bt / lo);
-      const float p_hi = q_at(tlog, tq, S, bt / hi);
-      const float c = p_lo + u * (p_hi - p_lo);
-      const float y = y_at(tlog, tq, S, c);
-      const float x = bt / fmaxf(y, FLT_MIN);
-      out = fminf(fmaxf(x, lo), hi);
+    const float bt = pooled_beta(beta, r0 * n + b0 + bl, n, G);
+    const float lo = plo[l], hi = phi[l];
+    const float2 p = q_at2(tlog, tq, S, bt / lo, bt / hi, lane);
+    const float c = p.x + u * (p.y - p.x);
+    const float y = y_at(tlog, tq, S, c, lane);
+    const float x = bt / fmaxf(y, FLT_MIN);
+    if (lane == 0) {
+      out_s[bl] = fminf(fmaxf(x, lo), hi);
+      bounded_s[bl] = 1;
     }
+  }
+  // warp 0: its lane's pooled beta (loaded now, used last) and the
+  // running sum of the Gamma logs
+  const long long o = r0 * n + i;
+  const float bt = warp == 0 && valid ? pooled_beta(beta, o, n, G) : 0.f;
+  float s = 0.f;
+  if (!gam_ext) {
+    const int nr = (alpha + 3) / 4;
+    for (int base = 0; base < nr; base += BP_CHUNK) {
+      const int m = min(BP_CHUNK, nr - base);
+      if (valid)
+        for (int r = warp; r < m; r += BP_WARPS)
+          lg_s[r][lane] = gamma_log(key, g, i, base + r, alpha);
+      __syncthreads();
+      if (warp == 0) {
+#pragma unroll 4
+        for (int r = 0; r < m; ++r) s += lg_s[r][lane];
+      }
+      __syncthreads();
+    }
+  }
+  __syncthreads();   // the bounded bins' results
+  if (warp == 0 && valid) {
+    const float gam = gam_ext ? gam_ext[o] : -s;
+    const float out = bounded_s[lane] ? out_s[lane] : bt / gam;
     for (int r = 0; r < G; ++r) {
       ps_out[o + (long long)r * n] = out;
       if (gam_out) gam_out[o + (long long)r * n] = gam;
@@ -186,11 +269,9 @@ HK_API int hk_rng_fields(unsigned seed, const int* sids, unsigned g,
                          float2* oa, float2* ob, int batch, int n, int t,
                          int ntimes, int nfreqs, const int* row_times,
                          cudaStream_t stream) {
-  const float half = 0.70710678118654752440f;
-  const float sa = half * sqrtf((float)nfreqs);
   dim3 grid((t + 127) / 128, n, batch);
   fields_kernel<<<grid, 128, 0, stream>>>(seed, sids, g, oa, ob, n, t, ntimes,
-                                          row_times, half, sa);
+                                          row_times, omega_a_scale(nfreqs));
   return (int)cudaGetLastError();
 }
 
@@ -201,7 +282,8 @@ HK_API int hk_bandpower(const float* beta, const float* gam_ext,
                         const int* pidx, const float* plo, const float* phi,
                         int np, float* ps_out, float* gam_out, int batch,
                         int n, int G, cudaStream_t stream) {
-  bandpower_kernel<<<batch / G, 128, 0, stream>>>(
+  dim3 grid(batch / G, (n + 31) / 32);
+  bandpower_kernel<<<grid, 32 * BP_WARPS, 0, stream>>>(
       beta, gam_ext, u_ext, u_stride, seed, sids, g, alpha, tlog, tq, S, pidx,
       plo, phi, np, ps_out, gam_out, n, G);
   return (int)cudaGetLastError();

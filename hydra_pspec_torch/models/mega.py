@@ -19,6 +19,7 @@ import numpy as np
 import torch
 
 from ..ops.invgamma import InvGammaTable
+from ..ops.kernels.draw_fused import OmegaKey
 from ..ops.kernels.impl import KERNELS, Impl
 from ..ops.kernels.megastep import gcr_megastep
 from .rgibbs import (ChainSample, RChainOperators, bandpower_args,
@@ -205,17 +206,16 @@ def gibbs_step_mega(mops: MegaOperators, dims: MegaDims, ps_pad, prior,
     external (``oa``, ``ob`` complex64 (B, n, t), ``gam`` (B, n), ``u_pb``
     (B, >= bounded bins)) or the streams ``seed``, ``sids``, ``g``: the
     omegas are then the megachain engine's words for that chain and
-    iteration (``rng_fields``), so with the exact inverse each iteration
-    the two engines draw alike. Returns ``(ps_new_pad, DrawOut)``; pad bins
+    iteration, drawn inside ``draw_rhs`` and ``draw_system``
+    (:class:`OmegaKey`), so with the exact inverse each iteration the two
+    engines draw alike. Returns ``(ps_new_pad, DrawOut)``; pad bins
     of ``ps_new_pad`` are held at exactly 0."""
-    if "oa" in rand:
-        oa, ob = rand["oa"], rand["ob"]
-    else:
-        oa, ob = impl.rng_fields(rand["seed"], rand["sids"], rand["g"],
-                                 dims.n, dims.t, dims.ntimes, dims.nfreqs)
+    oa, ob, key = rand.get("oa"), rand.get("ob"), None
+    if oa is None:
+        key = OmegaKey(rand["seed"], rand["sids"], rand["g"])
     d = gcr_megastep(mops, ps_pad, oa, ob, nfreqs=dims.nfreqs,
                      ntimes=dims.ntimes, all_unflagged=dims.all_unflagged,
-                     refine=refine, lean=not store_cr, impl=impl)
+                     refine=refine, lean=not store_cr, key=key, impl=impl)
     ps_new = impl.bandpower(d.beta, prior, tlog, q,
                             **bandpower_args(rand, dims.ntimes - 1))
     keep = (torch.arange(dims.n, device=ps_pad.device)

@@ -38,8 +38,9 @@ SIGNATURES = {
     "hk_cgemm": [P, P, P, P, I, I, I, I, I, I, F, F, P],
     "hk_herm_inv": [P, P, I, I, P],
     "hk_herm_chol_solve": [P, P, P, P, I, I, I, P],
-    "hk_draw_rhs": [P, P, P, P, I, I, I, I, P, P],
-    "hk_draw_system": [P, P, P, P, P, P, P, P, I, I, I, I, I, P, P],
+    "hk_draw_rhs": [P, P, P, U, P, U, P, I, I, I, I, P, P],
+    "hk_draw_system": [P, P, P, P, U, P, U, P, P, P, P, I, I, I, I, I, P,
+                       P],
     "hk_row_scale_sumsq": [P, P, P, P, P, I, I, P],
     "hk_draw_resid": [P, P, P, P, P, P, P, P, P, P, P, P,
                       I, I, I, I, I, P, P],

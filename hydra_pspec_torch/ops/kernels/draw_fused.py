@@ -11,15 +11,33 @@ per row, coalesced, row sums by a fixed-order block reduction.
 The time mask is ``j < ntimes``; in the grouped time-flags mode the
 optional int32 ``row_times`` (B,) gives each row its own count instead.
 
+Omegas: ``draw_rhs`` and ``draw_system`` take the stored fields ``ob`` /
+``oa`` (complex64 (B, n, t)), or an :class:`OmegaKey`: the kernels then
+draw the words of ``philox.omega_fields`` for each element in registers
+(the megachain and mega engines), and the plain versions are
+``philox.omega_fields`` followed by the stored-mode op.
+
 CPU tensors take the ``plain_*`` version beside each wrapper; it has the
 wrapper's signature and runs on any device.
 """
+from typing import NamedTuple
+
 import torch
 
-from ..philox import time_mask
+from ..philox import MASK32, omega_fields, time_mask
 from . import _build
 
 F32, C64 = torch.float32, torch.complex64
+
+
+class OmegaKey(NamedTuple):
+    """The omegas of one iteration, by their streams: the fields
+    ``philox.omega_fields(seed, sids, g, n, t, ntimes, nfreqs, row_times)``
+    of the draw's shapes and mask."""
+
+    seed: int
+    sids: torch.Tensor   # (B,) int32 row stream ids, on the draw's device
+    g: int               # global iteration
 
 
 def _check_row_times(row_times, B, dev):
@@ -27,32 +45,67 @@ def _check_row_times(row_times, B, dev):
         _build.check(row_times, "row_times", torch.int32, (B,), dev)
 
 
+def _omegas(field, key, name):
+    """Raise unless exactly one of the stored ``field`` and ``key`` is
+    given."""
+    if (field is None) == (key is None):
+        raise ValueError(f"give either {name} or key")
+
+
+def _key_args(key, B, dev):
+    """``(seed, sids pointer, g)`` of the C entry; zeros for stored mode."""
+    if key is None:
+        return 0, None, 0
+    _build.check(key.sids, "key.sids", torch.int32, (B,), dev)
+    return (int(key.seed) & MASK32, _build.ptr(key.sids),
+            int(key.g) & MASK32)
+
+
+def _plain_fields(key, shape, ntimes, nfreqs, row_times):
+    _, n, t = shape
+    return omega_fields(key.seed, key.sids, key.g, n, t, ntimes, nfreqs,
+                        row_times)
+
+
 # --- rc = ni_d + nih * omega_b * tmask -----------------------------------
 
-def plain_draw_rhs(nid, nih, ob, ntimes, row_times=None):
+def plain_draw_rhs(nid, nih, ob, ntimes, row_times=None, key=None):
+    """Keyed: ``ob`` is ``omega_fields``' second field (it does not depend
+    on ``nfreqs``)."""
+    if key is not None:
+        ob = _plain_fields(key, nid.shape, ntimes, 1, row_times)[1]
     return nid + nih[:, :, None] * (ob * time_mask(ob.shape[2], ntimes,
                                                    ob.device, row_times))
 
 
-def draw_rhs(nid, nih, ob, ntimes: int, row_times=None):
-    if _build.on_cpu(nid, nih, ob, row_times):
-        return plain_draw_rhs(nid, nih, ob, ntimes, row_times)
+def draw_rhs(nid, nih, ob, ntimes: int, row_times=None, key=None):
+    """``rc`` from the stored ``ob`` or, with ``ob=None``, the
+    :class:`OmegaKey` ``key``."""
+    _omegas(ob, key, "ob")
+    if _build.on_cpu(nid, nih, ob, row_times,
+                     None if key is None else key.sids):
+        return plain_draw_rhs(nid, nih, ob, ntimes, row_times, key)
     B, n, t = nid.shape
     dev = nid.device
     _build.check(nid, "nid", C64, (B, n, t), dev)
     _build.check(nih, "nih", F32, (B, n), dev)
-    _build.check(ob, "ob", C64, (B, n, t), dev)
+    if ob is not None:
+        _build.check(ob, "ob", C64, (B, n, t), dev)
     _check_row_times(row_times, B, dev)
+    seed, sids, g = _key_args(key, B, dev)
     rc = torch.empty_like(nid)
     _build.call("draw_rhs", "hk_draw_rhs", _build.ptr(nid), _build.ptr(nih),
-                _build.ptr(ob), _build.ptr(rc), B, n, t, ntimes,
-                _build.ptr(row_times))
+                _build.ptr(ob), seed, sids, g, _build.ptr(rc), B, n, t,
+                ntimes, _build.ptr(row_times))
     return rc
 
 
 # --- system S = (dd dd^T P~ + I) dinv dinv^T, xs = dinv (dd frc + oa) -----
 
-def plain_draw_system(pt, ps, frc, oa, ntimes, nfreqs, row_times=None):
+def plain_draw_system(pt, ps, frc, oa, ntimes, nfreqs, row_times=None,
+                      key=None):
+    if key is not None:
+        oa = _plain_fields(key, frc.shape, ntimes, nfreqs, row_times)[0]
     n = pt.shape[1]
     tiny = torch.finfo(F32).tiny
     dd = torch.sqrt(torch.clamp(ps, min=0.0) / nfreqs)
@@ -68,24 +121,31 @@ def plain_draw_system(pt, ps, frc, oa, ntimes, nfreqs, row_times=None):
     return s, xs, dd, dinv
 
 
-def draw_system(pt, ps, frc, oa, ntimes: int, nfreqs: int, row_times=None):
-    """Returns ``(S, xs, dd, dinv)``."""
-    if _build.on_cpu(pt, ps, frc, oa, row_times):
-        return plain_draw_system(pt, ps, frc, oa, ntimes, nfreqs, row_times)
+def draw_system(pt, ps, frc, oa, ntimes: int, nfreqs: int, row_times=None,
+                key=None):
+    """Returns ``(S, xs, dd, dinv)``; omegas from the stored ``oa`` or,
+    with ``oa=None``, the :class:`OmegaKey` ``key``."""
+    _omegas(oa, key, "oa")
+    if _build.on_cpu(pt, ps, frc, oa, row_times,
+                     None if key is None else key.sids):
+        return plain_draw_system(pt, ps, frc, oa, ntimes, nfreqs, row_times,
+                                 key)
     B, n, t = frc.shape
     dev = frc.device
     _build.check(pt, "pt", C64, (B, n, n), dev)
     _build.check(ps, "ps", F32, (B, n), dev)
     _build.check(frc, "frc", C64, (B, n, t), dev)
-    _build.check(oa, "oa", C64, (B, n, t), dev)
+    if oa is not None:
+        _build.check(oa, "oa", C64, (B, n, t), dev)
     _check_row_times(row_times, B, dev)
+    seed, sids, g = _key_args(key, B, dev)
     s = torch.empty_like(pt)
     xs = torch.empty_like(frc)
     dd = torch.empty_like(ps)
     dinv = torch.empty_like(ps)
     _build.call("draw_system", "hk_draw_system", _build.ptr(pt),
-                _build.ptr(ps), _build.ptr(frc), _build.ptr(oa),
-                _build.ptr(s), _build.ptr(xs), _build.ptr(dd),
+                _build.ptr(ps), _build.ptr(frc), _build.ptr(oa), seed, sids,
+                g, _build.ptr(s), _build.ptr(xs), _build.ptr(dd),
                 _build.ptr(dinv), B, n, t, ntimes, nfreqs,
                 _build.ptr(row_times))
     return s, xs, dd, dinv

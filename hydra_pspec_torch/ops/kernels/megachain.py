@@ -7,8 +7,9 @@ in VMEM for K iterations. Here each iteration is a short sequence of the
 hand-written kernels (:mod:`megastep`), with the bandpower state carried
 on the device:
 
-* the omegas from the per-chain Philox streams (:func:`rng_fields`), or
-  external randomness;
+* the omegas from the per-row Philox streams, drawn inside ``draw_rhs``
+  and ``draw_system`` (:class:`draw_fused.OmegaKey`; no ``rng_fields``
+  launch), or external randomness;
 * the drift-gated Newton-Schulz warm start of the system inverse
   (:349-397), decided per chain: NS refresh ``X <- X (2I - S X)`` unless
   this is the chunk's first iteration or the chain's relative bandpower
@@ -35,6 +36,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from .draw_fused import OmegaKey
 from .impl import KERNELS, Impl
 from .megastep import draw_body
 from .rng_bandpower import PriorBins
@@ -178,13 +180,14 @@ def gcr_megachain(mops, tlog, q, ps0, k_total: int, *, nfreqs_true: int,
     ps = ps0
     for k in range(K):
         g = iter0 + k
+        key = None
         if randomness is not None:
             oa, ob = randomness["oa"][k], randomness["ob"][k]
             rand = dict(gam=randomness["gam"][k],
                         u_pb=randomness["u_pb"][k])
         else:
-            oa, ob = impl.rng_fields(seed, sids, g, n, t, ntimes_true,
-                                     nfreqs_true, row_times)
+            oa = ob = None
+            key = OmegaKey(seed, sids, g)
             rand = dict(seed=seed, sids=sids if group == 1 else sidc, g=g,
                         alpha=alpha_int)
         build_inv = None
@@ -197,7 +200,7 @@ def gcr_megachain(mops, tlog, q, ps0, k_total: int, *, nfreqs_true: int,
             sig_out=out["sig"][k] if direct else None,
             amp_out=out["amp"][k] if direct else None,
             chi_out=out["chi"][k] if direct else None,
-            row_times=row_times, impl=impl)
+            row_times=row_times, key=key, impl=impl)
         if scatter is not None and not lean:
             out["sig"][k] = scatter.gather(d.sig, scatter.nfreqs)
             out["amp"][k] = scatter.gather(d.amp, scatter.nmodes)

@@ -24,6 +24,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from . import _build
+from .draw_fused import OmegaKey
 from .herm_inv import apply_refine
 from .impl import KERNELS, Impl
 
@@ -41,27 +42,32 @@ class DrawOut(NamedTuple):
 def draw_body(mops, ps, oa, ob, *, nfreqs: int, ntimes: int,
               all_unflagged: bool, refine: int = 1, build_inv=None,
               lean: bool = False, sig_out=None, amp_out=None,
-              chi_out=None, row_times=None,
+              chi_out=None, row_times=None, key: Optional[OmegaKey] = None,
               impl: Impl = KERNELS) -> DrawOut:
     """One draw for the batch. ``mops``: :class:`models.mega.MegaOperators`;
     ``ps`` (B, n) float32; ``oa``/``ob`` (B, n, t) complex64 omegas (the
     kernel masks them at ``ntimes``, or with the int32 ``row_times`` (B,)
     of the grouped time-flags mode at each row's own count, as
-    ``megastep.py:135-157`` does with ``tmask``). ``build_inv(S)``:
+    ``megastep.py:135-157`` does with ``tmask``), or ``None`` for both and
+    the :class:`OmegaKey` ``key``: ``draw_rhs`` and ``draw_system`` then
+    draw the omegas they consume (the same words and bits as the fields of
+    ``rng_fields``). ``build_inv(S)``:
     optional policy returning the system inverse (the megachain warm
     start); default is the exact inverse. ``*_out``: optional preallocated
     full-mode outputs. ``impl``: the kernels (default) or the plain
     versions (``impl.PLAIN``)."""
     mm = impl.cgemm
     # 1-3. right-hand side, FG Schur reduction, delay basis
-    rc = impl.draw_rhs(mops.nid, mops.nih, ob, ntimes, row_times)
+    if (oa is None) != (ob is None):
+        raise ValueError("give both oa and ob, or neither and key")
+    rc = impl.draw_rhs(mops.nid, mops.nih, ob, ntimes, row_times, key)
     ba = mm(mops.fg, rc, op="H")
     rc = mm(mops.g, ba, x=rc, alpha=-1.0, beta=1.0, out=rc)
     frc = mm(mops.f, rc)
 
     # 4. equilibrated system, inverse, apply + refinement
     s, xs, dd, dinv = impl.draw_system(mops.pt, ps, frc, oa, ntimes, nfreqs,
-                                       row_times)
+                                       row_times, key)
     inv = impl.herm_inv(s) if build_inv is None else build_inv(s)
     x = apply_refine(s, inv, xs, refine, mm=mm)
 
@@ -88,6 +94,7 @@ def draw_body(mops, ps, oa, ob, *, nfreqs: int, ntimes: int,
 
 def gcr_megastep(mops, ps, oa, ob, *, nfreqs: int, ntimes: int,
                  all_unflagged: bool, refine: int = 1, lean: bool = False,
+                 key: Optional[OmegaKey] = None,
                  impl: Impl = KERNELS) -> DrawOut:
     """One GCR draw plus its statistics for the whole batch: the port of
     the standalone TPU entry ``ops/pallas/megastep.py::gcr_megastep``
@@ -95,17 +102,18 @@ def gcr_megastep(mops, ps, oa, ob, *, nfreqs: int, ntimes: int,
 
     It is :func:`draw_body` with the exact ``herm_inv`` inverse and
     ``refine`` refinement steps, on explicit omegas ``oa``/``ob`` (B, n, t)
-    (the engine draws them with the Philox ``rng_fields`` kernel, which
-    takes the place of the TPU entry's in-kernel RNG mode: that mode's
-    streams were seeded per grid step and were not invariant to batch
-    composition). Full mode returns the JAX entry's 8 outputs in
-    :class:`DrawOut`: ``sig`` and ``amp`` complex (the ``_re``/``_im``
-    pairs), ``chi``, ``beta``, ``noise_nu`` and ``bmask``; ``lean`` returns
-    the time-reduced ``chit`` instead of ``sig``, ``amp`` and ``chi``. Each
+    or on the Philox streams of ``key`` (the engine's way: ``draw_rhs`` and
+    ``draw_system`` draw them in registers, which takes the place of the
+    TPU entry's in-kernel RNG mode: that mode's streams were seeded per
+    grid step and were not invariant to batch composition). Full mode
+    returns the JAX entry's 8 outputs in :class:`DrawOut`: ``sig`` and
+    ``amp`` complex (the ``_re``/``_im`` pairs), ``chi``, ``beta``,
+    ``noise_nu`` and ``bmask``; ``lean`` returns the time-reduced ``chit``
+    instead of ``sig``, ``amp`` and ``chi``. Each
     call on the card with the kernels counts one ``gcr_megastep``
     launch."""
     if impl is KERNELS and ps.device.type == "cuda":
         _build.count_entry("gcr_megastep")
     return draw_body(mops, ps, oa, ob, nfreqs=nfreqs, ntimes=ntimes,
                      all_unflagged=all_unflagged, refine=refine, lean=lean,
-                     impl=impl)
+                     key=key, impl=impl)

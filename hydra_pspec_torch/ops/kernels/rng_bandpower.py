@@ -6,8 +6,12 @@ in-kernel conditional ``_sample_bandpowers_body`` (:102-145). Streams are
 keyed on (run seed, global chain stream id, global iteration); see
 :mod:`hydra_pspec_torch.ops.philox`, the plain-torch twin that draws the
 same words. ``rng_fields`` is ALU bound (Philox rounds and
-transcendentals), ``bandpower`` latency bound and tiny (one block per
-chain, one thread per bin).
+transcendentals); only the real engine launches it, since the megachain
+and mega engines draw their omegas inside ``draw_rhs`` and ``draw_system``
+(:class:`draw_fused.OmegaKey`). ``bandpower`` runs a block per (chain,
+32 bins) over the whole card: its warps split the Philox calls of the
+Gamma draws, whose logs are summed in the serial order, and a bounded
+bin's table searches are warp ballots of two rounds each.
 
 Grouped time-flags mode (``ops/pallas/megachain.py:220-229, 256-263,
 409-418``): ``rng_fields`` masks each row at its own time count

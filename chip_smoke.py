@@ -17,7 +17,12 @@ Phases, one printed line each (any failure raises; exit code non-zero):
      tflags path's shapes (8 chains x G=4 rows, t=128); the Hermitian
      factor-solve (herm_chol_solve) at B=8, n=120, K=203, the herm_inv
      solve entry (hermitian_solve) and the single-step entry
-     (gcr_megastep) against their plain compositions; cgemm at every
+     (gcr_megastep) against their plain compositions; the two 32 x 32
+     tile kernels herm_inv and herm_chol_solve at ragged, padded and full
+     widths (n in HERM_NS, K in HERM_KS) within 1e-3 of plain, exactly
+     the identity on the identity (herm_inv(I) == I, herm_chol_solve(I, b)
+     == b), and an equilibrated system of condition ~1e5 under the
+     residual gates, with their launches counted; cgemm at every
      product shape of the paths (C aliasing X included); the blocked
      herm_inv at B=8, n=256 and herm_chol_solve at B=8, n=180, K=203;
   4. chain phase: run_chunk_megachain with numpy-made randomness, K=3,
@@ -59,7 +64,8 @@ Phases, one printed line each (any failure raises; exit code non-zero):
   9. times: one chain iteration and each kernel at B=100, one grouped
      chain iteration and the grouped kernels at 100 chains x G=4, one real
      iteration (dense noise, pallas and pallas2) and one mega iteration at
-     B=100, the factor-solve at B=100, n=120, K=203, kernels against the
+     B=100, the factor-solve at B=100, n=120, K=203 and K=1 (the factor
+     and one tile, with its own bound), kernels against the
      plain versions (CUDA events), with each kernel's bound and the
      iteration bounds (each cgemm launch priced at its own shape); cgemm,
      its plain version and one PyTorch call at every product shape of the
@@ -123,6 +129,11 @@ WIDE_NITER, WIDE_WRITE_NITER, WIDE_BURN = 400, 200, 200
 N_WIDE_DENSE, N_WIDE_MEGA = 20, 20
 N_WIDE_PALLAS2, WIDE_PALLAS2_NITER = 10, 50
 PROFILE_ITERS = 5             # the profiler window: plain iterations at B=100
+# the tile kernels' widths: one ragged tile, one full, ragged second,
+# third and fourth tiles, the real engine's 120, the pad of one, full 128;
+# right-hand sides: one, one over a tile, the reference's time count
+HERM_NS, HERM_KS = (1, 17, 32, 52, 96, 120, 127, 128), (1, 33, 203)
+ILL_COND = 1.0e5              # condition of the ill-conditioned case
 
 # kernel name -> (source, the TPU code it replaces)
 KERNELS = {
@@ -425,6 +436,80 @@ def cgemm_bound(B, M, K, N, shared, with_x):
     return (tb, "bytes") if tb >= to else (to, "operations")
 
 
+def equilibrated_spd(B, n, dev, gen, cond=None):
+    """B Jacobi-equilibrated Hermitian positive-definite matrices
+    (complex64, unit diagonal), made in complex128 on the card: a Wishart
+    draw plus 0.05 I, or with ``cond`` Q diag(logspace(0, -log10 cond))
+    Q^H for a random unitary Q (condition about ``cond`` after the
+    equilibration)."""
+    g = torch.randn((B, n, 2 * n), dtype=torch.complex128, generator=gen,
+                    device=dev)
+    if cond is None:
+        a = g @ g.mH / (2 * n) + 0.05 * torch.eye(n, device=dev)
+    else:
+        q, _ = torch.linalg.qr(g[:, :, :n])
+        a = (q * torch.logspace(0, -math.log10(cond), n, dtype=torch.float64,
+                                device=dev)) @ q.mH
+    d = 1 / torch.sqrt(torch.diagonal(a, dim1=-2, dim2=-1).real)
+    return (a * d[..., :, None] * d[..., None, :]).to(
+        torch.complex64).contiguous()
+
+
+def check_herm_tiles(dev, cmp):
+    """herm_inv and herm_chol_solve at every width of HERM_NS (and K of
+    HERM_KS) against their plain versions at 1e-3, exact on the identity;
+    an equilibrated system of condition ILL_COND under the residual gates
+    (max|A A^-1 - I| <= 1e-3; max|A x - b| <= 1e-4 max(|A||x| + |b|));
+    the launch counts of these checks printed and required."""
+    from hydra_pspec_torch.ops.kernels import _build
+    from hydra_pspec_torch.ops.kernels import impl as I
+
+    K, P = I.KERNELS, I.PLAIN
+    gen = torch.Generator(device=dev).manual_seed(SEED + 5)
+    _build.reset_launches()
+    for n in HERM_NS:
+        a = equilibrated_spd(8, n, dev, gen)
+        eye = torch.eye(n, dtype=a.dtype, device=dev).expand(8, n, n)
+        eye = eye.contiguous()
+        cmp("herm_inv", K.herm_inv(a), P.herm_inv(a), 1e-3, f"n={n}")
+        require(torch.equal(K.herm_inv(eye), eye),
+                f"herm_inv(I) is not exactly I at n={n}")
+        for k in HERM_KS:
+            b = torch.randn((8, n, k), dtype=torch.complex64, generator=gen,
+                            device=dev)
+            cmp("herm_chol_solve", K.herm_chol_solve(a, b),
+                P.herm_chol_solve(a, b), 1e-3, f"n={n} K={k}")
+            require(torch.equal(K.herm_chol_solve(eye, b), b),
+                    f"herm_chol_solve(I, b) is not exactly b at n={n} K={k}")
+    sync(dev)
+    got = {k: v for k, v in _build.LAUNCHES.items() if v}
+    say("kernels", f"herm tiles: n in {HERM_NS}, K in {HERM_KS}: "
+        f"herm_inv(I) == I and herm_chol_solve(I, b) == b exactly; "
+        f"launches {got}")
+    require(got == {"herm_inv": 2 * len(HERM_NS),
+                    "herm_chol_solve": 2 * len(HERM_NS) * len(HERM_KS)},
+            "herm tiles: not one launch a call")
+    for n in (NF, 128):
+        a = equilibrated_spd(8, n, dev, gen, cond=ILL_COND)
+        cond = float(torch.linalg.cond(a.to(torch.complex128)).max())
+        eye = torch.eye(n, dtype=a.dtype, device=dev)
+        res = {w: float(torch.abs(torch.matmul(a, M.herm_inv(a)) - eye).max())
+               for w, M in (("kernel", K), ("plain", P))}
+        say("kernels", f"herm_inv         cond {cond:.2e} n={n}: max|A A^-1 "
+            f"- I| {res['kernel']:.3e} (plain {res['plain']:.3e}) <= 1e-3")
+        require(res["kernel"] <= 1e-3, "ill-conditioned herm_inv residual")
+        b = torch.randn((8, n, NT), dtype=torch.complex64, generator=gen,
+                        device=dev)
+        x = K.herm_chol_solve(a, b)
+        r = float(torch.abs(torch.matmul(a, x) - b).max())
+        mag = float((torch.matmul(torch.abs(a), torch.abs(x))
+                     + torch.abs(b)).max())
+        say("kernels", f"herm_chol_solve  cond {cond:.2e} n={n} K={NT}: "
+            f"max|A x - b| {r:.3e} <= 1e-4 x max(|A||x| + |b|) {mag:.3e}")
+        require(r <= 1e-4 * mag, "ill-conditioned herm_chol_solve residual")
+    _build.reset_launches()
+
+
 def phase_kernels(dev, jobs8, jobs_w8, errs):
     from hydra_pspec_torch.models import mega, megachain
     from hydra_pspec_torch.ops.kernels import _build
@@ -703,6 +788,8 @@ def phase_kernels(dev, jobs8, jobs_w8, errs):
     cmp("hermitian_solve", hi.hermitian_solve(s_u, rhs),
         hi.hermitian_solve(s_u, rhs, inv=P.herm_inv, mm=P.cgemm), 1e-3,
         f"{what} vs plain (pallas2)")
+
+    check_herm_tiles(dev, cmp)
 
     # cgemm at every product shape of the paths, and C aliasing X
     gen = torch.Generator(device=dev).manual_seed(SEED + 11)
@@ -1911,9 +1998,15 @@ def phase_times_fallback(dev, jobs, dense_jobs, tm):
     }
     times = _time_pairs(f"B={B}", cases)
     one = rhs[:, :, :1].contiguous()
-    k1 = _time(lambda: I.KERNELS.herm_chol_solve(ms, one), 10)
-    say("times", f"herm_chol_solve  B={B} K=1 (the factor and one sweep "
-        f"tile): {k1:.4f} ms")
+    k1 = _time_pairs(f"B={B} K=1 (the factor and one sweep tile)",
+                     {"herm_chol_solve": lambda M: M.herm_chol_solve(ms, one)}
+                     )["herm_chol_solve"]
+    k1_bound = bound("herm_chol_solve", **dict(
+        B=B, n=NF, t=1, m=NM, ntimes=NT, alpha=NT - 1))
+    k1_lib = _time(lambda: torch.linalg.solve(ms, one), 10)
+    say("times", f"herm_chol_solve  B={B} K=1: bound {k1_bound[0]:.4f} ms "
+        f"({k1_bound[1]}), kernel at {100 * k1_bound[0] / k1[0]:.1f} % of "
+        f"it; library call {k1_lib:.4f} ms")
     library = {"herm_chol_solve": _time(lambda: torch.linalg.solve(ms, rhs),
                                         10),
                "hermitian_solve": _time(lambda: torch.linalg.solve(s_u, rhs),
@@ -1951,7 +2044,9 @@ def phase_times_fallback(dev, jobs, dense_jobs, tm):
     _build.reset_launches()
     return dict(real=real, mega=mega_it, times=times, library=library,
                 bounds=bounds, device=device, iter_bounds=iter_bounds,
-                chol_k1_ms=k1)
+                chol_k1={"ms": k1[0], "plain_ms": k1[1],
+                         "bound_ms": k1_bound[0], "bound_by": k1_bound[1],
+                         "library_ms": k1_lib})
 
 
 def phase_times_wide(dev, jobs_w):
@@ -2098,7 +2193,7 @@ def main():
         "iteration_bound_ms": dict(tm["iter_bounds"], **tf["iter_bounds"]),
         "iteration_batch": {"plain": N_BASELINES, "grouped": tm["gbatch"],
                             "real": N_BASELINES, "mega": N_BASELINES},
-        "herm_chol_solve_k1_ms": tf["chol_k1_ms"],
+        "herm_chol_solve_k1": tf["chol_k1"],
         "main_baseline_iters_per_s": rate,
         "tflags": dict(tf_stats, launches=tf_launches),
         "fallback": fb_stats,

@@ -16,190 +16,205 @@
 //
 // Bound on the H100: n^3/6 complex MACs for the factor and n^2 K for the
 // two sweeps, about 2.6 GFLOP at B = 100, n = 120, K = 203 (0.04 ms at the
-// FP32 rate), against ~50 MB of HBM traffic (0.015 ms): compute bound on
-// paper. Each factor step is a block-wide barrier, and each sweep a chain of
-// four dependent 32-row blocks, so latency keeps it well above that.
-// Design:
-//   1. factor_kernel: one CTA per chain holds A in shared memory (n x (n+1)
-//      complex, 115 KB at n = 120), factors it with the Cholesky shared with
-//      herm_inv.cu (herm_chol.cuh, pivot floored at FLT_MIN), and writes L
-//      (zeros above the diagonal) to a scratch buffer;
-//   2. sweep_kernel: one CTA per (chain, TILES tiles of 32 right-hand
-//      sides) holds L in shared memory as 32 x 32 blocks (the rows padded to
-//      a multiple of 32 with the identity). Each warp owns one tile's
-//      columns (a lane per column) and one 32-row block of them in
-//      registers. Block by block, the owning warp solves its diagonal block
-//      on its own registers and hands the result to the warps below (above,
-//      in the backward sweep) through shared memory, which subtract their
-//      block's product with it: every L read is a broadcast, every step
-//      four FMAs per complex multiply-add, two barriers per block.
+// FP32 rate), against ~50 MB of HBM traffic (0.015 ms): compute bound. The
+// sweeps are most of the work; the factor's chain of single-warp steps is
+// the latency. Design: one launch, one CTA of 16 warps per chain, so L
+// never leaves shared memory (it never goes to HBM):
+//   1. load the lower triangle of A and factor it with the blocked
+//      Cholesky of herm_chol.cuh; invert each diagonal tile (a warp each);
+//   2. fold the inverses into the off-diagonal blocks, a warp per product:
+//      P(a, b) = L(a, b) Dinv_b in place of L(a, b) for the forward sweep,
+//      Q(a, b) = Dinv_a L(a, b) into the free upper tile (b, a) for the
+//      backward sweep; then no sweep step waits for a triangular solve;
+//   3. the sweeps, 16 / nb tiles of 32 right-hand sides a pass: a warp per
+//      (tile, 32-row block) keeps its block in registers, 8 rows x 4
+//      columns a lane (each shared load feeds 4 or 8 complex multiply-adds,
+//      so the tile products are bound by the FMA rate, not by shared-memory
+//      bandwidth). At step I the owner of block I publishes it; the warps
+//      below (above, backward) subtract P(w, I) y_I (Q(I, w)^H y_I) while
+//      the owner forms x_I = Dinv_I y_I (Dinv_I^H y_I): two barriers a
+//      step. The nb warps of a tile sit on different SM sub-partitions, and
+//      each sub-partition holds a mix of row blocks (a Latin square).
+// One CTA per chain for all its right-hand sides: at B = 100 that fills 100
+// of the 132 SMs (one CTA an SM by its shared memory), and more CTAs per
+// chain, each factoring its own copy or copying L from a cluster peer,
+// only queue a second wave (PERF.md). Each output is a fixed-order sum over
+// its own chain's data (no atomics), the same for any batch.
 #include "herm_chol.cuh"
 
 namespace {
-constexpr int FACTOR_THREADS = 512;
-constexpr int RB = 32;       // rows per block, and right-hand sides per tile
-constexpr int MAX_BLOCKS = 4;  // n <= 32 * MAX_BLOCKS = 128
-constexpr int TILES = 2;     // tiles per sweep CTA
+using namespace hchol;
 
-__global__ void __launch_bounds__(FACTOR_THREADS)
-factor_kernel(const float2* __restrict__ A, float2* __restrict__ L, int n) {
-  extern __shared__ float2 sm[];
-  const int ld = n + 1;
-  const int tid = threadIdx.x, nt = blockDim.x;
-  const long long boff = (long long)blockIdx.x * n * n;
-  const float2* Ab = A + boff;
-  for (int e = tid; e < n * n; e += nt) sm[(e / n) * ld + e % n] = Ab[e];
-  __syncthreads();
-  chol_lower_inplace(sm, n, ld);
-  float2* Lb = L + boff;
-  for (int e = tid; e < n * n; e += nt) {
-    const int i = e / n, j = e % n;
-    Lb[e] = (j <= i) ? sm[i * ld + j] : make_float2(0.f, 0.f);
+// A warp's 32 x 32 block: lane = (rg, cg) holds rows rg + 4 i and columns
+// 4 cg + j in y[i][j] (each shared load below feeds 4 or 8 complex
+// multiply-adds; the 4 rows a load instruction reads lie in different
+// banks).
+template <int ys>
+__device__ __forceinline__ void to_block(float2* Y, const float2 (&y)[8][4],
+                                         int rg, int cg) {
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) Y[(rg + 4 * i) * ys + 4 * cg + j] = y[i][j];
+}
+
+// y = ZERO ? M X : y +- M X for the 32 x 32 blocks M and X, with
+// M[r][k] = m[r ms + k], or conj(m[k ms + r]) when H, and X[k][c] =
+// X[k xs + c] (read as float4 when xs is even).
+template <int ms, int xs, bool H, bool NEG, bool ZERO>
+__device__ __forceinline__ void block_mma(float2 (&y)[8][4],
+                                          const float2* m, const float2* X,
+                                          int rg, int cg) {
+  if (ZERO) {
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) y[i][j] = make_float2(0.f, 0.f);
+  }
+#pragma unroll 2
+  for (int k = 0; k < TB; ++k) {
+    float2 xv[4];
+    if (xs % 2 == 0) {
+      const float4* xp = reinterpret_cast<const float4*>(X + k * xs + 4 * cg);
+      const float4 a = xp[0], c = xp[1];
+      xv[0] = make_float2(a.x, a.y);
+      xv[1] = make_float2(a.z, a.w);
+      xv[2] = make_float2(c.x, c.y);
+      xv[3] = make_float2(c.z, c.w);
+    } else {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) xv[j] = X[k * xs + 4 * cg + j];
+    }
+    if (NEG) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) xv[j] = neg(xv[j]);
+    }
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int r = rg + 4 * i;
+      const float2 mv = H ? m[k * ms + r] : m[r * ms + k];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        if (H) cfma_conj(y[i][j], mv, xv[j]);
+        else cfma(y[i][j], mv, xv[j]);
+      }
+    }
   }
 }
 
-// offset of the 32 x 32 block (I, J), J <= I, of the blocked lower triangle
-__device__ __forceinline__ int block_at(int I, int J) {
-  return (I * (I + 1) / 2 + J) * RB * RB;
-}
-
-__device__ __forceinline__ float2 neg(float2 v) {
-  return make_float2(-v.x, -v.y);
-}
-
-__global__ void __launch_bounds__(TILES * MAX_BLOCKS * 32)
-sweep_kernel(const float2* __restrict__ L, const float2* __restrict__ b,
+template <int NB>
+__global__ void __launch_bounds__(THREADS)
+solve_kernel(const float2* __restrict__ A, const float2* __restrict__ b,
              float2* __restrict__ x, int n, int K) {
-  extern __shared__ float4 sm4[];   // 16-byte aligned: pairs are read as one
-  const int nb = (n + RB - 1) / RB;
-  float2* Ls = reinterpret_cast<float2*>(sm4);     // nb (nb + 1) / 2 blocks
-  float* dinv = reinterpret_cast<float*>(Ls + block_at(nb, 0));  // 32 nb
-  float2* Xs = reinterpret_cast<float2*>(dinv + nb * RB);  // TILES blocks
-  const int tid = threadIdx.x, nt = blockDim.x;
-  const int chain = blockIdx.y;
-  const float2* Lb = L + (long long)chain * n * n;
-  for (int I = 0; I < nb; ++I)
-    for (int J = 0; J <= I; ++J)
-      for (int e = tid; e < RB * RB; e += nt) {
-        const int r = RB * I + e / RB, c = RB * J + e % RB;
-        float2 v = make_float2(r == c ? 1.f : 0.f, 0.f);   // padding rows
-        if (r < n) v = (c <= r) ? Lb[(long long)r * n + c]
-                                : make_float2(0.f, 0.f);
-        Ls[block_at(I, J) + e] = v;
-      }
-  __syncthreads();
-  for (int i = tid; i < nb * RB; i += nt)
-    dinv[i] = 1.0f / Ls[block_at(i / RB, i / RB) + (i % RB) * (RB + 1)].x;
+  extern __shared__ float4 sm4[];   // 16-byte aligned: X is read as float4
+  constexpr int nb = NB, ld = ld_of<NB>(), np = TB * NB;
+  constexpr int tpp = THREADS / 32 / NB;          // tiles a pass
+  float2* L = reinterpret_cast<float2*>(sm4);     // np x ld
+  float2* Dinv = L + np * ld;      // the inverse of each diagonal tile
+  float2* Xs = Dinv + nb * TB * TB;   // a published 32 x 32 block per tile
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int rg = lane >> 3, cg = lane & 7;
+  const int chain = blockIdx.x;
 
-  const int lane = tid & 31, warp = tid >> 5;
-  const int w = warp % nb, tile = warp / nb;   // row block, tile in the CTA
-  float2* X = Xs + tile * RB * RB;
-  const int col = (blockIdx.x * TILES + tile) * RB + lane;
-  const bool live = col < K;
+  // 1.
+  load_lower<NB>(L, A + (long long)chain * n * n, n);
+  chol_tiles<NB>(L);
+  if (warp < nb) inv_tile<ld>(L + TB * warp * (ld + 1), Dinv + warp * TB * TB);
+  __syncthreads();
+
+  // 2. warps [0, NOFF) form Q, warps [NOFF, 2 NOFF) form P; both are stored
+  // once every warp has read L
+  constexpr int NOFF = nb * (nb - 1) / 2;
+  float2 y[8][4];
+  float2* fold = nullptr;
+  if (warp < 2 * NOFF) {
+    const bool q = warp < NOFF;
+    int b0 = q ? warp : warp - NOFF, a = 1;
+    while (b0 >= a) { b0 -= a; ++a; }
+    float2* Lab = L + TB * a * ld + TB * b0;
+    if (q)
+      block_mma<TB, ld, false, false, true>(y, Dinv + a * TB * TB, Lab,
+                                            rg, cg);
+    else
+      block_mma<ld, TB, false, false, true>(y, Lab, Dinv + b0 * TB * TB,
+                                            rg, cg);
+    fold = q ? L + TB * b0 * ld + TB * a : Lab;
+  }
+  __syncthreads();
+  if (fold) to_block<ld>(fold, y, rg, cg);
+
+  // 3. tile slot and row block of this warp
+  const int slot = warp / nb, w = (warp % nb + slot) % nb;
+  float2* X = Xs + slot * TB * TB;
+  const int tiles = (K + TB - 1) / TB;
   const float2* bb = b + (long long)chain * n * K;
-  float2 y[RB];
-#pragma unroll
-  for (int r = 0; r < RB; ++r) {
-    const int row = RB * w + r;
-    y[r] = (live && row < n) ? bb[(long long)row * K + col]
-                             : make_float2(0.f, 0.f);
-  }
-  __syncthreads();
-
-  // forward sweep L y = b: block I solved by warp I, then subtracted below
-  for (int I = 0; I < nb; ++I) {
-    if (w == I) {
-      const float2* D = Ls + block_at(I, I);
-#pragma unroll
-      for (int k = 0; k < RB; ++k) {
-        const float d = dinv[RB * I + k];
-        y[k].x *= d;
-        y[k].y *= d;
-        const float2 ny = neg(y[k]);
-#pragma unroll
-        for (int r = k + 1; r < RB; ++r) cfma(y[r], D[r * RB + k], ny);
-      }
-#pragma unroll
-      for (int r = 0; r < RB; ++r) X[r * RB + lane] = y[r];
-    }
-    __syncthreads();
-    if (w > I) {   // y_w -= L(w, I) x_I, two columns of L(w, I) per read
-      const float2* O = Ls + block_at(w, I);
-      for (int k = 0; k < RB; k += 2) {
-        const float2 n0 = neg(X[k * RB + lane]);
-        const float2 n1 = neg(X[(k + 1) * RB + lane]);
-#pragma unroll
-        for (int r = 0; r < RB; ++r) {
-          const float4 l = *reinterpret_cast<const float4*>(O + r * RB + k);
-          cfma(y[r], make_float2(l.x, l.y), n0);
-          cfma(y[r], make_float2(l.z, l.w), n1);
-        }
-      }
-    }
-    __syncthreads();
-  }
-  // backward sweep L^H x = y: block I solved by warp I, then subtracted above
-  for (int I = nb - 1; I >= 0; --I) {
-    if (w == I) {
-      const float2* D = Ls + block_at(I, I);
-#pragma unroll
-      for (int k = RB - 1; k >= 0; --k) {
-        const float d = dinv[RB * I + k];
-        y[k].x *= d;
-        y[k].y *= d;
-        const float2 ny = neg(y[k]);
-#pragma unroll
-        for (int r = 0; r < k; ++r) cfma_conj(y[r], D[k * RB + r], ny);
-      }
-#pragma unroll
-      for (int r = 0; r < RB; ++r) X[r * RB + lane] = y[r];
-    }
-    __syncthreads();
-    if (w < I) {   // y_w -= L(I, w)^H x_I, two rows of L(I, w)^H per read
-      const float2* O = Ls + block_at(I, w);
-      for (int k = 0; k < RB; ++k) {
-        const float2 nx = neg(X[k * RB + lane]);
-#pragma unroll
-        for (int r = 0; r < RB; r += 2) {
-          const float4 l = *reinterpret_cast<const float4*>(O + k * RB + r);
-          cfma_conj(y[r], make_float2(l.x, l.y), nx);
-          cfma_conj(y[r + 1], make_float2(l.z, l.w), nx);
-        }
-      }
-    }
-    __syncthreads();
-  }
-
   float2* xb = x + (long long)chain * n * K;
+  for (int t0 = 0; t0 < tiles; t0 += tpp) {
+    const bool active = slot < tpp && t0 + slot < tiles;
+    const int col0 = (t0 + slot) * TB + 4 * cg;
 #pragma unroll
-  for (int r = 0; r < RB; ++r) {
-    const int row = RB * w + r;
-    if (live && row < n) xb[(long long)row * K + col] = y[r];
+    for (int i = 0; i < 8; ++i) {
+      const int row = TB * w + rg + 4 * i;
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        y[i][j] = (active && row < n && col0 + j < K)
+                      ? bb[(long long)row * K + col0 + j]
+                      : make_float2(0.f, 0.f);
+    }
+    __syncthreads();   // P and Q stored; X free from the previous pass
+
+    // forward sweep L y = b
+    for (int I = 0; I < nb; ++I) {
+      if (active && w == I) to_block<TB>(X, y, rg, cg);   // y_I, final
+      __syncthreads();
+      if (active && w > I)    // y_w -= L(w, I) x_I = P(w, I) y_I
+        block_mma<ld, TB, false, true, false>(y, L + TB * w * ld + TB * I,
+                                              X, rg, cg);
+      else if (active && w == I)   // x_I = L(I, I)^-1 y_I
+        block_mma<TB, TB, false, false, true>(y, Dinv + I * TB * TB, X,
+                                              rg, cg);
+      __syncthreads();
+    }
+    // backward sweep L^H x = y
+    for (int I = nb - 1; I >= 0; --I) {
+      if (active && w == I) to_block<TB>(X, y, rg, cg);   // y_I, final
+      __syncthreads();
+      if (active && w < I)    // y_w -= L(I, w)^H x_I = Q(I, w)^H y_I
+        block_mma<ld, TB, true, true, false>(y, L + TB * w * ld + TB * I,
+                                             X, rg, cg);
+      else if (active && w == I)   // x_I = L(I, I)^-H y_I
+        block_mma<TB, TB, true, false, true>(y, Dinv + I * TB * TB, X,
+                                             rg, cg);
+      __syncthreads();
+    }
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int row = TB * w + rg + 4 * i;
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        if (active && row < n && col0 + j < K)
+          xb[(long long)row * K + col0 + j] = y[i][j];
+    }
   }
 }
 }  // namespace
 
+// L: unused (L stays in shared memory); kept in the C interface, may be null
 HK_API int hk_herm_chol_solve(const float2* A, const float2* b, float2* L,
                               float2* x, int batch, int n, int K,
                               cudaStream_t stream) {
-  if (n > RB * MAX_BLOCKS) return (int)cudaErrorInvalidValue;
-  const size_t smem_f = sizeof(float2) * (size_t)n * (n + 1);
+  (void)L;
+  if (n < 1 || n > TB * MAX_TILES || K < 1) return (int)cudaErrorInvalidValue;
+  const int nb = (n + TB - 1) / TB, np = TB * nb;
+  const int tpp = THREADS / 32 / nb;
+  const size_t smem = sizeof(float2) *
+      ((size_t)np * (np + 1) + (size_t)(nb + tpp) * TB * TB);
+  void (*kernel)(const float2*, const float2*, float2*, int, int) =
+      nb == 1 ? solve_kernel<1> : nb == 2 ? solve_kernel<2>
+    : nb == 3 ? solve_kernel<3> : solve_kernel<4>;
   cudaError_t err = cudaFuncSetAttribute(
-      factor_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem_f);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  factor_kernel<<<batch, FACTOR_THREADS, smem_f, stream>>>(A, L, n);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  const int nb = (n + RB - 1) / RB;
-  const size_t smem_s = sizeof(float2) * (nb * (nb + 1) / 2) * RB * RB +
-                        sizeof(float) * nb * RB +
-                        sizeof(float2) * TILES * RB * RB;
-  err = cudaFuncSetAttribute(
-      sweep_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_s);
-  if (err != cudaSuccess) return (int)err;
-  const int tiles = (K + RB - 1) / RB;
-  dim3 grid((tiles + TILES - 1) / TILES, batch);
-  sweep_kernel<<<grid, TILES * nb * 32, smem_s, stream>>>(L, b, x, n, K);
+  kernel<<<batch, THREADS, smem, stream>>>(A, b, x, n, K);
   return (int)cudaGetLastError();
 }

@@ -11,78 +11,148 @@
 // complex ALU. Here the n x n Hermitian matrix is factored directly: half
 // the memory and half the real FMAs of the embedding.
 //
-// Bound on the H100: one chain's work is ~n^3 complex FMAs (Cholesky n^3/6,
-// triangular inverse n^3/6, L^-H L^-1 n^3/3), a few MFLOP, on data that
-// fits in one SM's shared memory. It is bound by the sequential dependency
-// chain of the factorization (n steps, each ending in a barrier) and by
-// shared-memory latency, not by HBM. Design: one CTA per chain holds the
-// whole matrix in dynamic shared memory (n x (n+1) complex, 133 KB at
-// n = 128, row stride n+1 against bank conflicts); the 256x256 real
-// embedding (256 KiB) would not fit in the 227 KB a block may use.
-//   1. right-looking Cholesky S = L L^H in place (lower triangle), pivot
-//      floored at FLT_MIN as _chol_block does (herm_chol.cuh, shared with
-//      herm_chol_solve.cu);
-//   2. X = L^-1 by forward substitution, one thread per column; the strict
-//      lower part of X goes to the (dead) upper triangle, transposed, its
-//      diagonal to a separate vector;
-//   3. S^-1 = X^H X, written to global memory (both triangles).
+// Bound on the H100: one chain's work is n^3/2 complex multiply-adds
+// (Cholesky n^3/6, L^-1 n^3/6, L^-H L^-1 n^3/6), 4.2 M FP32 FMAs at
+// n = 128, about 33 k clocks of one SM; the 128 KB in and out per chain are
+// nothing next to it. What bounds it is latency, not HBM: the factor's
+// chain of pivots and triangular solves, each on one warp, and the
+// shared-memory bandwidth that feeds the FMAs of the tile products (a
+// broadcast load costs the crossbar as much as a per-lane one, so a strip
+// product moves about 2 bytes per FMA). Design: one CTA of 16 warps per
+// chain holds the whole matrix in shared memory (herm_chol.cuh's padded
+// layout, 132 KB at n = 128, plus 8 KB for each diagonal tile of L^-1), and
+// every phase works on 32 x 32 tiles:
+//   1. the blocked Cholesky of herm_chol.cuh (7 block barriers at
+//      n = 128);
+//   2. X = L^-1: one warp per diagonal tile inverts it (inv_tile of
+//      herm_chol.cuh), all in parallel; then the tiles below the diagonal,
+//      diagonal by diagonal, as tile products
+//      X_IJ = -(sum_{J<K<=I} X_IK L_KJ) X_JJ, a warp per 8-row strip (the
+//      strip of the sum stays in the warp: it goes through the output's own
+//      slot). X_IJ is kept in the dead upper tile (J, I);
+//   3. S^-1 = X^H X over the lower tiles only (10 at n = 128), the most
+//      expensive first, a warp per 8-row strip, into the dead lower tiles
+//      of L; the output's upper triangle is the conjugate transpose of the
+//      lower one, written coalesced.
+// FP32 fmaf products only (no tensor cores, no TF32). Each output is one
+// warp's fixed-order sum over its chain's data: no cross-chain work, no
+// atomics. The identity maps to exactly the identity.
 #include "herm_chol.cuh"
 
 namespace {
-constexpr int HI_THREADS = 512;
+using namespace hchol;
 
-__global__ void __launch_bounds__(HI_THREADS)
+template <int NB>
+__global__ void __launch_bounds__(THREADS)
 herm_inv_kernel(const float2* __restrict__ S, float2* __restrict__ out,
                 int n) {
   extern __shared__ float2 sm[];
-  const int ld = n + 1;
-  float2* A = sm;            // n x ld
-  float2* dX = sm + n * ld;  // diag of X = L^-1
-  const int tid = threadIdx.x, nt = blockDim.x;
+  constexpr int nb = NB, ld = ld_of<NB>();
+  float2* A = sm;                     // (32 nb) x ld
+  float2* Xd = sm + TB * nb * ld;     // nb diagonal tiles of X, stride TB
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5, nwarp = blockDim.x >> 5;
+  constexpr int NS = TB / STRIP;      // strips a tile
   const long long boff = (long long)blockIdx.x * n * n;
-  const float2* Sb = S + boff;
-  for (int e = tid; e < n * n; e += nt) A[(e / n) * ld + e % n] = Sb[e];
+
+  load_lower<NB>(A, S + boff, n);
+  chol_tiles<NB>(A);                  // 1.
+
+  // 2a. the diagonal tiles of X = L^-1, a warp each
+  if (warp < nb) inv_tile<ld>(A + TB * warp * (ld + 1), Xd + warp * TB * TB);
   __syncthreads();
-
-  // 1. Cholesky (herm_chol.cuh)
-  chol_lower_inplace(A, n, ld);
-
-  // 2. X = L^-1, column j by thread j: X[i][j] stored at A[j][i] (i > j)
-  for (int j = tid; j < n; j += nt) {
-    const float2 xj = make_float2(1.0f / A[j * ld + j].x, 0.f);
-    dX[j] = xj;
-    for (int i = j + 1; i < n; ++i) {
-      float2 s = make_float2(0.f, 0.f);
-      cfma(s, A[i * ld + j], xj);
-      for (int k = j + 1; k < i; ++k) cfma(s, A[i * ld + k], A[j * ld + k]);
-      const float inv_lii = 1.0f / A[i * ld + i].x;
-      A[j * ld + i] = make_float2(-s.x * inv_lii, -s.y * inv_lii);
+  // 2b. X_IJ, I = J + d, diagonal by diagonal, into upper tile (J, I)
+  for (int d = 1; d < nb; ++d) {
+    for (int it = warp; it < (nb - d) * NS; it += nwarp) {
+      const int J = it / NS, I = J + d, r0 = STRIP * (it - J * NS);
+      float2* O = A + (TB * J + r0) * ld + TB * I;   // strip of X_IJ
+      float2 acc[STRIP];
+#pragma unroll
+      for (int r = 0; r < STRIP; ++r) acc[r] = make_float2(0.f, 0.f);
+      for (int K = J + 1; K <= I; ++K) {       // acc = sum_K X_IK L_KJ
+        const float2* X = K == I ? Xd + K * TB * TB + r0 * TB
+                                 : A + (TB * K + r0) * ld + TB * I;
+        const int xs = K == I ? TB : ld;
+        const float2* L = A + TB * K * ld + TB * J;
+#pragma unroll 4
+        for (int k = 0; k < TB; ++k) {
+          const float2 l = L[k * ld + lane];
+#pragma unroll
+          for (int r = 0; r < STRIP; ++r) cfma(acc[r], X[r * xs + k], l);
+        }
+      }
+#pragma unroll
+      for (int r = 0; r < STRIP; ++r) O[r * ld + lane] = acc[r];
+      __syncwarp();
+      const float2* Xj = Xd + J * TB * TB;     // X_IJ = -acc X_JJ
+#pragma unroll
+      for (int r = 0; r < STRIP; ++r) acc[r] = make_float2(0.f, 0.f);
+#pragma unroll 4
+      for (int k = 0; k < TB; ++k) {
+        const float2 x = neg(Xj[k * TB + lane]);
+#pragma unroll
+        for (int r = 0; r < STRIP; ++r) cfma(acc[r], O[r * ld + k], x);
+      }
+      __syncwarp();
+#pragma unroll
+      for (int r = 0; r < STRIP; ++r) O[r * ld + lane] = acc[r];
     }
+    __syncthreads();
+  }
+
+  // 3. S^-1_IJ = sum_{K >= I} X_KI^H X_KJ for I >= J into lower tile (I, J)
+  // (L is dead); tile (I, J) costs nb - I tile products: I = 0 first
+  for (int it = warp; it < nb * (nb + 1) / 2 * NS; it += nwarp) {
+    int t = it / NS;
+    const int r0 = STRIP * (it - t * NS);
+    int I = 0;
+    while (t > I) { t -= I + 1; ++I; }
+    const int J = t;
+    float2 acc[STRIP];
+#pragma unroll
+    for (int r = 0; r < STRIP; ++r) acc[r] = make_float2(0.f, 0.f);
+    for (int K = I; K < nb; ++K) {
+      // X_KI[k][r0 + r] (broadcast) and X_KJ[k][lane]
+      const float2* Xi = K == I ? Xd + K * TB * TB + r0
+                                : A + TB * I * ld + TB * K + r0;
+      const int is = K == I ? TB : ld;
+      const float2* Xj = K == J ? Xd + K * TB * TB
+                                : A + TB * J * ld + TB * K;
+      const int js = K == J ? TB : ld;
+#pragma unroll 4
+      for (int k = 0; k < TB; ++k) {
+        const float2 x = Xj[k * js + lane];
+#pragma unroll
+        for (int r = 0; r < STRIP; ++r) cfma_conj(acc[r], Xi[k * is + r], x);
+      }
+    }
+    float2* O = A + (TB * I + r0) * ld + TB * J;
+#pragma unroll
+    for (int r = 0; r < STRIP; ++r) O[r * ld + lane] = acc[r];
   }
   __syncthreads();
 
-  // 3. S^-1[i][j] = sum_{k >= max(i, j)} conj(X[k][i]) X[k][j]
   float2* Ob = out + boff;
-  for (int e = tid; e < n * n; e += nt) {
-    const int i = e / n, j = e % n;
-    float2 s = make_float2(0.f, 0.f);
-    for (int k = max(i, j); k < n; ++k) {
-      const float2 xki = (k == i) ? dX[i] : A[i * ld + k];
-      const float2 xkj = (k == j) ? dX[j] : A[j * ld + k];
-      cfma_conj(s, xki, xkj);
-    }
-    Ob[e] = s;
+  for (int e = threadIdx.x; e < n * n; e += blockDim.x) {
+    const int i = e / n, j = e - i * n;
+    const float2 v = A[(j <= i) ? i * ld + j : j * ld + i];
+    Ob[e] = (j <= i) ? v : make_float2(v.x, -v.y);
   }
 }
 }  // namespace
 
 HK_API int hk_herm_inv(const float2* S, float2* out, int batch, int n,
                        cudaStream_t stream) {
-  const size_t smem = sizeof(float2) * ((size_t)n * (n + 1) + n);
+  if (n < 1 || n > TB * MAX_TILES) return (int)cudaErrorInvalidValue;
+  const int nb = (n + TB - 1) / TB;
+  void (*kernel)(const float2*, float2*, int) =
+      nb == 1 ? herm_inv_kernel<1> : nb == 2 ? herm_inv_kernel<2>
+    : nb == 3 ? herm_inv_kernel<3> : herm_inv_kernel<4>;
+  const size_t smem = sizeof(float2) * ((size_t)TB * nb * (TB * nb + 1) +
+                                        (size_t)nb * TB * TB);
   cudaError_t err = cudaFuncSetAttribute(
-      herm_inv_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  herm_inv_kernel<<<batch, HI_THREADS, smem, stream>>>(S, out, n);
+  kernel<<<batch, THREADS, smem, stream>>>(S, out, n);
   return (int)cudaGetLastError();
 }

@@ -6,9 +6,12 @@ Kernel: ``csrc/herm_inv.cu``. It replaces the recursive Schur inverse
 (``spd_solve.py::_chol_block``, ``_inv_lower_block``), which worked on the
 2n x 2n real embedding because the TPU has no complex ALU. Here the n x n
 Hermitian matrix is factored directly: one CTA per chain keeps the whole
-matrix (133 KB at n = 128) in shared memory and runs Cholesky, ``L^-1``
-and ``L^-H L^-1`` there. It is bound by the factorization's n barrier
-steps and shared-memory latency, not by HBM.
+matrix (132 KB at n = 128) in shared memory and runs, on 32 x 32 tiles,
+the blocked Cholesky of ``csrc/herm_chol.cuh``, ``L^-1`` (diagonal tiles
+inverted in parallel, the rest as tile products) and ``L^-H L^-1`` over
+the lower tiles only. It is bound by the factor's chain of single-warp
+steps and by the shared-memory bandwidth of the tile products, not by
+HBM.
 
 One launch takes n <= :data:`BASE_N`. A larger n goes through
 :func:`blocked_herm_inv`, the 2 x 2 block Schur recursion of

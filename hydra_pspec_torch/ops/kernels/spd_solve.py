@@ -7,13 +7,14 @@ Kernel: ``csrc/herm_chol_solve.cu``. The TPU factored the 2n x 2n real
 embedding in blocks of 32 with 3-pass bf16 products, because it has no
 complex ALU and Mosaic no f32 product. Here the n x n Hermitian matrix is
 factored directly in FP32 complex arithmetic (half the memory, half the
-real FMAs; no tensor cores, no TF32): one CTA per chain factors it in
-shared memory, then one CTA per (chain, 64 right-hand sides) runs the
-forward and backward sweeps over 32 x 32 blocks of L, a warp per 32 rows
-of 32 columns. One call of the kernel takes n <= :data:`BASE_N`, as for
-``herm_inv``; it launches both kernels and counts one ``herm_chol_solve``
-launch. A larger n goes through :func:`blocked_herm_chol_solve`, block
-elimination over such calls with :mod:`cgemm` products.
+real FMAs; no tensor cores, no TF32), in one launch: one CTA per chain
+factors it on 32 x 32 tiles in shared memory (``csrc/herm_chol.cuh``),
+folds the inverses of the diagonal tiles into the off-diagonal blocks, and
+runs the forward and backward sweeps over all right-hand sides from there,
+so L never goes to device memory. One call takes n <= :data:`BASE_N`, as
+for ``herm_inv``, and counts one ``herm_chol_solve`` launch. A larger n goes
+through :func:`blocked_herm_chol_solve`, block elimination over such calls
+with :mod:`cgemm` products.
 """
 import torch
 
@@ -82,12 +83,10 @@ def herm_chol_solve(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         return blocked_herm_chol_solve(a, b, base=herm_chol_solve, mm=cgemm)
     _build.check(a, "a", torch.complex64)
     _build.check(b, "b", torch.complex64, (batch, n, None), a.device)
-    k = b.shape[2]
-    l_scratch = torch.empty_like(a)
     x = torch.empty_like(b)
+    # the C interface's L scratch is unused: L stays in shared memory
     _build.call("herm_chol_solve", "hk_herm_chol_solve", _build.ptr(a),
-                _build.ptr(b), _build.ptr(l_scratch), _build.ptr(x), batch,
-                n, k)
+                _build.ptr(b), None, _build.ptr(x), batch, n, b.shape[2])
     return x
 
 

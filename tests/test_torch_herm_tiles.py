@@ -1,0 +1,176 @@
+"""The Hermitian inverse and factor-solve of the port (``herm_inv`` and
+``herm_chol_solve``, whose kernels factor on 32 x 32 tiles): their plain
+versions at ragged, padded and full tile widths against float64 numpy,
+and the wrappers' contracts (shape, dtype and device errors, the launch
+arguments, the blocked route above 128). The card-side case holds the
+kernels against their plain versions at the same widths and checks that
+the identity maps to exactly the identity; ``chip_smoke.py`` runs the same
+checks on the card. Port only, no JAX: the JAX pins of these functions are
+in tests/test_torch_spd_inv.py, test_torch_spd_solve.py and
+test_torch_wideband.py."""
+import numpy as np
+import pytest
+import torch
+
+from hydra_pspec_torch.ops.kernels import _build
+from hydra_pspec_torch.ops.kernels import herm_inv as thi
+from hydra_pspec_torch.ops.kernels import spd_solve as tss
+
+# one ragged tile, one full, ragged second, third and fourth tiles, the
+# real engine's 120, one short of full, full 128 (as chip_smoke.HERM_NS)
+NS = (1, 17, 32, 52, 96, 120, 127, 128)
+KS = (1, 33, 203)
+B = 3
+# float32 against float64 on equilibrated systems of condition <~ 1e2:
+# relative to the largest entry of the float64 result
+TOL = 1e-4
+
+
+def _spd(n, seed, batch=B):
+    """``batch`` Jacobi-equilibrated Hermitian PD matrices (float64)."""
+    rng = np.random.default_rng(seed)
+    g = rng.standard_normal((batch, n, 2 * n)) + 1j * rng.standard_normal(
+        (batch, n, 2 * n))
+    a = g @ g.conj().transpose(0, 2, 1) / (2 * n) + 0.05 * np.eye(n)
+    d = 1 / np.sqrt(np.diagonal(a, axis1=1, axis2=2).real)
+    return a * d[:, :, None] * d[:, None, :]
+
+
+def _rhs(n, k, seed):
+    rng = np.random.default_rng(seed)
+    return rng.standard_normal((B, n, k)) + 1j * rng.standard_normal((B, n, k))
+
+
+def _c64(x):
+    return torch.from_numpy(np.ascontiguousarray(x)).to(torch.complex64)
+
+
+def _rel(got, want):
+    return float(np.abs(got.numpy() - want).max() / np.abs(want).max())
+
+
+@pytest.mark.parametrize("n", NS)
+def test_plain_herm_inv_matches_float64(n):
+    a = _spd(n, n)
+    assert _rel(thi.plain_herm_inv(_c64(a)), np.linalg.inv(a)) < TOL
+
+
+@pytest.mark.parametrize("n,k", [(n, k) for n in NS for k in KS])
+def test_plain_herm_chol_solve_matches_float64(n, k):
+    a, b = _spd(n, 100 + n), _rhs(n, k, 200 + n + k)
+    got = tss.plain_herm_chol_solve(_c64(a), _c64(b))
+    assert _rel(got, np.linalg.solve(a, b)) < TOL
+
+
+class _FakeCuda(torch.Tensor):
+    """A CPU tensor that reports ``is_cuda``, to reach the wrappers' card
+    branch (with ``_build.on_cpu`` and ``_build.call`` replaced)."""
+
+    @property
+    def is_cuda(self):
+        return True
+
+
+def _fake(x):
+    return torch.Tensor._make_subclass(_FakeCuda, x)
+
+
+@pytest.fixture
+def card_branch(monkeypatch):
+    """The wrappers' card branch without a card: every operand counts as
+    a CUDA tensor and each launch is recorded instead of made."""
+    calls = []
+    monkeypatch.setattr(_build, "on_cpu", lambda *xs: False)
+    monkeypatch.setattr(_build, "call",
+                        lambda kernel, entry, *args: calls.append(
+                            (kernel, entry, args)))
+    return calls
+
+
+def test_contract_launch_arguments(card_branch):
+    """One launch a call for n <= 128 with the shapes the C entries take;
+    herm_chol_solve passes no L scratch (L stays in shared memory)."""
+    s = _fake(_c64(_spd(120, 1)))
+    b = _fake(_c64(_rhs(120, 203, 2)))
+    inv = thi.herm_inv(s)
+    x = tss.herm_chol_solve(s, b)
+    assert inv.shape == s.shape and x.shape == b.shape
+    (k1, e1, a1), (k2, e2, a2) = card_branch
+    assert (k1, e1, a1[2:]) == ("herm_inv", "hk_herm_inv", (B, 120))
+    assert (k2, e2) == ("herm_chol_solve", "hk_herm_chol_solve")
+    assert a2[2] is None and a2[4:] == (B, 120, 203)
+
+
+def test_contract_blocked_route(card_branch, monkeypatch):
+    """Above 128 both go blocked: base launches of at most 128 and cgemm
+    products (two and four for the inverse at n = 256, two and three for
+    the solve at n = 180). The operand checks are skipped here: the blocks
+    the recursions copy out are plain CPU tensors."""
+    monkeypatch.setattr(_build, "check", lambda *args, **kw: None)
+    thi.herm_inv(_c64(_spd(256, 3, batch=1)))
+    tss.herm_chol_solve(_c64(_spd(180, 4, batch=1)),
+                        _c64(_rhs(180, 5, 5)[:1]))
+    kernels = [k for k, _, _ in card_branch]
+    assert kernels[:6].count("herm_inv") == 2
+    assert kernels[:6].count("cgemm") == 4
+    assert kernels[6:].count("herm_chol_solve") == 2
+    assert kernels[6:].count("cgemm") == 3
+    base_n = [a[3] if k == "herm_inv" else a[5]
+              for k, _, a in card_branch if k != "cgemm"]
+    assert base_n == [128, 128, 128, 52]
+
+
+@pytest.mark.parametrize("what", ["not_square", "rhs_rows", "dtype"])
+def test_contract_shape_and_dtype_errors(card_branch, what):
+    s = _c64(_spd(32, 6))
+    b = _c64(_rhs(32, 4, 7))
+    if what == "not_square":
+        with pytest.raises(ValueError, match=r"\(B, n, n\)"):
+            thi.herm_inv(_fake(s[:, :, :31].contiguous()))
+        with pytest.raises(ValueError, match=r"\(B, n, n\)"):
+            tss.herm_chol_solve(_fake(s[:, :31].contiguous()), _fake(b))
+    elif what == "rhs_rows":
+        with pytest.raises(ValueError, match="shape"):
+            tss.herm_chol_solve(_fake(s), _fake(b[:, :31].contiguous()))
+    else:
+        with pytest.raises(ValueError, match="dtype"):
+            thi.herm_inv(_fake(s.to(torch.complex128)))
+        with pytest.raises(ValueError, match="dtype"):
+            tss.herm_chol_solve(_fake(s), _fake(b.to(torch.complex128)))
+    assert card_branch == []
+
+
+def test_contract_device_errors():
+    """Operands on the CPU and elsewhere, or on a device that is neither
+    the CPU nor CUDA, are refused before any launch."""
+    s = _c64(_spd(17, 8))
+    b = _c64(_rhs(17, 2, 9))
+    for args in ((s.to("meta"),), (s, b.to("meta"))):
+        fn = thi.herm_inv if len(args) == 1 else tss.herm_chol_solve
+        with pytest.raises(ValueError, match="devices"):
+            fn(*args)
+
+
+@pytest.mark.cuda
+def test_tile_kernels_on_card():
+    """The kernels against their plain versions on the card at every width
+    of NS and K of KS (1e-3 of the largest entry, as chip_smoke.py), and
+    exactly the identity on the identity."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc (run python3 chip_smoke.py "
+                    "on the card)")
+    dev = torch.device("cuda", 0)
+    for n in NS:
+        a = _c64(_spd(n, 10 + n)).to(dev)
+        eye = torch.eye(n, dtype=a.dtype, device=dev).expand(B, n, n)
+        eye = eye.contiguous()
+        want = thi.plain_herm_inv(a)
+        assert float((thi.herm_inv(a) - want).abs().max()
+                     / want.abs().max()) <= 1e-3
+        assert torch.equal(thi.herm_inv(eye), eye)
+        for k in KS:
+            b = _c64(_rhs(n, k, 20 + n + k)).to(dev)
+            want = tss.plain_herm_chol_solve(a, b)
+            assert float((tss.herm_chol_solve(a, b) - want).abs().max()
+                         / want.abs().max()) <= 1e-3
+            assert torch.equal(tss.herm_chol_solve(eye, b), b)

@@ -11,8 +11,14 @@ Phases, one printed line each (any failure raises; exit code non-zero):
      Philox bits against the twin; normal and Gamma moments (bandpower at
      alpha = 202 and, on its own table, 1099); rng_fields also at the
      real engine's layouts (n = 120 and 180 channels, t = 203 times);
-     draw_rhs and draw_system in keyed mode (the omegas drawn in the kernel) bit-identical to their
-     stored mode fed rng_fields' fields, plain and grouped; the grouped
+     draw_rhs and draw_system in keyed mode (the omegas drawn in the
+     kernel) bit-identical to their stored mode fed rng_fields' fields,
+     plain and grouped, and with the iteration read from a device counter
+     (as in a graph replay) bit-identical to it given by value, bandpower
+     too; herm_inv (also blocked at n = 256) and cgemm with an active mask
+     (flagged chains bit-identical to the unmasked launch, the others'
+     outputs untouched); the warm start's drift gate warm_gate equal to
+     its plain version, a NaN rebuilding; the grouped
      time-flags variants (per-row time counts, pooled bandpower) at the
      tflags path's shapes (8 chains x G=4 rows, t=128); the Hermitian
      factor-solve (herm_chol_solve) at B=8, n=120, K=203, the herm_inv
@@ -33,6 +39,15 @@ Phases, one printed line each (any failure raises; exit code non-zero):
      200 iterations, on data drawn from the model (chi^2 should be 1);
   6. invariance: the first 10 baselines alone give bit-identical samples,
      and so do they with all-False time flags (the grouped path, G=1);
+  graph: at B=100 a chunk of 10 iterations from global iteration 37 as a
+     CUDA graph replay (ChunkGraph) against the eager kernel path, under
+     torch.cuda.set_sync_debug_mode("error"), torch.equal on every output
+     and the same launches, for plain full (drift_max 0.6) and lean (0.3:
+     a mix of chains rebuild), the mega engine, grouped 100 chains x G=4
+     and the wide band (n = 256, the blocked masked rebuild); a second
+     replay from iteration 38 equal to the eager chunk there; warm-up,
+     capture and instantiate seconds, the graph pool's bytes and the
+     chains each iteration rebuilt;
   7. tflags: the same data with time-dependent RFI flags (two signatures,
      3 and 2 flag patterns) and RFI of amplitude 1e4 in the flagged
      entries, through run_baselines' grouped time-flags path: chi^2 on the
@@ -64,14 +79,18 @@ Phases, one printed line each (any failure raises; exit code non-zero):
   9. times: one chain iteration and each kernel at B=100, one grouped
      chain iteration and the grouped kernels at 100 chains x G=4, one real
      iteration (dense noise, pallas and pallas2) and one mega iteration at
-     B=100, the factor-solve at B=100, n=120, K=203 and K=1 (the factor
+     B=100 (megachain, grouped, mega and the wide band each eagerly and as
+     a graph replay of a 5-iteration chunk, in turns), the masked herm_inv
+     launch with no chain active (n = 128, and blocked at n = 256) and
+     warm_gate, the factor-solve at B=100, n=120, K=203 and K=1 (the factor
      and one tile, with its own bound), kernels against the
      plain versions (CUDA events), with each kernel's bound and the
      iteration bounds (each cgemm launch priced at its own shape); cgemm,
      its plain version and one PyTorch call at every product shape of the
      paths, each beside its bound; torch.profiler over 5 plain iterations
-     at B=100 (each kernel's device time per iteration, the device's busy
-     share, the longest idle gaps); the wide band's megachain iteration
+     at B=100 on the eager path and over 3 graph replays of 5 (each
+     kernel's device time per iteration, the device's busy share, the
+     longest idle gaps); the wide band's megachain iteration
      (n = 256) and the blocked herm_inv (n = 256) and herm_chol_solve
      (n = 180, K = 203) against their plain versions and library calls;
      device times (profiler) of bandpower (alpha 202 and 1099, and 100
@@ -80,7 +99,9 @@ Phases, one printed line each (any failure raises; exit code non-zero):
      bounds, and of rng_fields at the real engine's shape (n = 120,
      t = 203).
 The megachain and mega paths draw their omegas in draw_rhs and draw_system
-and must launch no rng_fields; the real paths launch it.
+and must launch no rng_fields; the real paths launch it. Through
+run_baselines those two engines run each chunk as a CUDA graph; the launch
+counts then add, for each replay, the launches recorded in its capture.
 The line before the last is a JSON object with every kernel's launches,
 error, times and bound, the cgemm shapes, the profiler window and the
 wideband runs; the last line is the device JSON object.
@@ -159,15 +180,19 @@ KERNELS = {
                         "hydra_pspec_tpu/ops/pallas/spd_inv.py:149"),
     "gcr_megastep": ("hydra_pspec_torch/ops/kernels/megastep.py",
                      "hydra_pspec_tpu/ops/pallas/megastep.py:388"),
+    "warm_gate": ("hydra_pspec_torch/csrc/draw_fused.cu",
+                  "hydra_pspec_tpu/ops/pallas/megachain.py:366"),
 }
 # the kernels each path must launch
 MAIN_KERNELS = ("cgemm", "herm_inv", "draw_rhs", "draw_system",
-                "row_scale_sumsq", "draw_resid", "bandpower")
+                "row_scale_sumsq", "draw_resid", "bandpower", "warm_gate")
 REAL_KERNELS = ("cgemm", "herm_chol_solve", "row_scale_sumsq", "rng_fields",
                 "bandpower")
 PALLAS2_KERNELS = ("cgemm", "herm_inv", "hermitian_solve", "row_scale_sumsq",
                    "rng_fields", "bandpower")
-MEGA_KERNELS = MAIN_KERNELS + ("gcr_megastep",)
+# the mega engine: the exact inverse every iteration, no warm start
+MEGA_KERNELS = tuple(k for k in MAIN_KERNELS if k != "warm_gate") + (
+    "gcr_megastep",)
 ENTRIES = ("hermitian_solve", "gcr_megastep")   # composed from kernels
 # where each kernel's "launches" of the kernels JSON line are read
 HOME_PATH = dict({k: "main" for k in MAIN_KERNELS},
@@ -626,6 +651,13 @@ def phase_kernels(dev, jobs8, jobs_w8, errs):
     cmp("draw_system", sk_,
         P.draw_system(mops.pt, ps, frc, None, nt, nf, key=key), 1e-5,
         "keyed vs plain")
+    # the iteration read from a device counter (a graph replay's): 5 + 2
+    g_dev = torch.tensor([5], dtype=torch.int32, device=dev)
+    dkey = df.OmegaKey(SEED, sids, g_dev, 2)
+    same("draw_rhs", K.draw_rhs(mops.nid, mops.nih, None, nt, key=dkey), rk,
+         "g on the device == g")
+    same("draw_system", K.draw_system(mops.pt, ps, frc, None, nt, nf,
+                                      key=dkey), sk_, "g on the device == g")
     s = sys_p[0]
     inv_k, inv_p = K.herm_inv(s), P.herm_inv(s)
     cmp("herm_inv", inv_k, inv_p, 1e-3, "vs Cholesky inverse")
@@ -635,6 +667,34 @@ def phase_kernels(dev, jobs8, jobs_w8, errs):
     say("kernels", f"herm_inv         max|A A^-1 - I| {res:.3e} (plain "
         f"{res_p:.3e}) <= 1e-3")
     require(res <= 1e-3, "herm_inv residual")
+    # the warm start's masked rebuild: flagged chains bit-identical to the
+    # unmasked launch, the others' outputs untouched
+    active = (torch.arange(B, device=dev) % 3 == 1).to(torch.int32)
+    on = active.bool()
+    sentinel = torch.full_like(inv_k, complex(7.0, -3.0))
+    got = K.herm_inv(s, out=sentinel.clone(), active=active)
+    ok_inv = (torch.equal(got[on], inv_k[on])
+              and torch.equal(got[~on], sentinel[~on]))
+    prod = K.cgemm(s, inv_k)
+    got = K.cgemm(s, inv_k, out=sentinel.clone(), active=active)
+    ok_mm = (torch.equal(got[on], prod[on])
+             and torch.equal(got[~on], sentinel[~on]))
+    say("kernels", f"herm_inv, cgemm  active mask {active.tolist()}: "
+        f"flagged chains == unmasked, others untouched: {ok_inv}, {ok_mm}")
+    require(ok_inv and ok_mm, "masked herm_inv/cgemm")
+    # the drift gate: moves under and over drift_max, a NaN
+    gen_g = torch.Generator(device=dev).manual_seed(SEED + 14)
+    ps_new = ps * torch.exp(0.6 * torch.rand(ps.shape, generator=gen_g,
+                                             device=dev) - 0.3)
+    ps_new[0] = ps[0]
+    ps_new[2, 5] = float("nan")
+    for dmax in (0.6, 0.3, 0.05):
+        flags = K.warm_gate(ps_new, ps, dmax)
+        want = P.warm_gate(ps_new, ps, dmax)
+        cmp("warm_gate", flags.float(), want.float(), 0.0,
+            f"drift_max={dmax} {flags.tolist()}", 1.0)
+        require(int(flags[0]) == 0 and int(flags[2]) == 1,
+                "warm_gate: an unmoved chain rebuilds or a NaN does not")
     ex = mm(s, inv_k, what="S X")
     mm(inv_k, ex, x=inv_k, alpha=-1.0, beta=2.0, what="NS X(2I - S X)")
     x = mm(inv_k, sys_p[1], what="S^-1 xs")
@@ -683,6 +743,13 @@ def phase_kernels(dev, jobs8, jobs_w8, errs):
                     < 1e-5, f"bandpower gamma g={g} alpha={a}")
             gams.append(kg.double().flatten())
         gamma_moments(gams, a)
+        g_dev = torch.tensor([9], dtype=torch.int32, device=dev)
+        got = K.bandpower(beta, prior, tl, tq, seed=SEED, sids=sids, g=g_dev,
+                          g_off=6, alpha=a, gam_out=True)
+        same("bandpower", got, K.bandpower(beta, prior, tl, tq, seed=SEED,
+                                           sids=sids, g=15, alpha=a,
+                                           gam_out=True),
+             f"alpha={a} g on the device == g")
     kp, kg = K.bandpower(beta, prior, tables.tlog, tables.q, seed=SEED,
                          sids=sids, g=0, alpha=nt - 1, gam_out=True)
     u = torch.rand((B, 128), generator=torch.Generator(device=dev)
@@ -828,6 +895,19 @@ def phase_kernels(dev, jobs8, jobs_w8, errs):
     say("kernels", f"herm_inv         blocked n={nw}: max|A A^-1 - I| "
         f"{res:.3e} <= 1e-3")
     require(res <= 1e-3, "blocked herm_inv residual")
+    active = (torch.arange(Bw, device=dev) % 3 == 1).to(torch.int32)
+    on = active.bool()
+    sentinel = torch.full_like(inv_k, complex(7.0, -3.0))
+    _build.reset_launches()
+    got = K.herm_inv(sw, out=sentinel.clone(), active=active)
+    sync(dev)
+    launches = {k: v for k, v in _build.LAUNCHES.items() if v}
+    ok = (torch.equal(got[on], inv_k[on])
+          and torch.equal(got[~on], sentinel[~on]))
+    say("kernels", f"herm_inv         blocked n={nw}, active mask: flagged "
+        f"chains == unmasked, others untouched: {ok}; launches {launches}")
+    require(ok and launches == {"herm_inv": 2, "cgemm": 4},
+            "masked blocked herm_inv")
     _, _, s_w, _ = real_system(jobs_w8, dev)
     ms_w, _ = ss.equilibrate(s_w)
     rhs_w = torch.randn((Bw, WIDE_NF, NT), dtype=torch.complex64,
@@ -913,6 +993,145 @@ def phase_chain(dev, jobs8):
                 f"{chi_tol}: {chi_ok}")
             require(sig_err < 2e-4 and ps_ok and chi_ok,
                     "chain phase: kernels disagree with the plain path")
+
+
+# --- graph phase -----------------------------------------------------------
+
+GRAPH_K, GRAPH_ITER0 = 10, 37   # iterations of a checked chunk; its start
+
+
+def rebuilt_chains(ps0, ps_out, drift_max):
+    """(chains rebuilt at each iteration k >= 1) of a warm-started chunk
+    from its input ``ps0`` and its per-iteration ``ps`` outputs (K, B, >=)
+    (padded or trimmed: the gate reads zero pad bins as no move), by the
+    plain gate: the rebuilds the kernels' device-side gate chose."""
+    from hydra_pspec_torch.ops.kernels import impl as I
+
+    nf = ps_out.shape[2]
+    prev = [ps0[:, :nf]] + [ps_out[k] for k in range(ps_out.shape[0] - 1)]
+    return [int(I.PLAIN.warm_gate(prev[k], prev[k - 1], drift_max).sum())
+            for k in range(1, ps_out.shape[0])]
+
+
+def graph_case(label, dev, make_body, ps, drift_max=None):
+    """One chunk of :data:`GRAPH_K` iterations from global iteration
+    :data:`GRAPH_ITER0` through a body of ``make_body()`` on the kernels,
+    eagerly and as a ChunkGraph replay, under
+    torch.cuda.set_sync_debug_mode("error") (any synchronizing torch call
+    raises): every output torch.equal, the same launches; a second replay
+    from the next iteration against the eager chunk there (the device
+    counter moves). The graph gets a body of its own and the caller keeps
+    none; freed memory is filled with junk before the replays, so a tensor
+    the graph reads but does not hold would show. Returns the graph's
+    costs."""
+    from hydra_pspec_torch.ops.kernels import _build
+    from hydra_pspec_torch.ops.kernels.graph import ChunkGraph
+    from hydra_pspec_torch.ops.kernels.megachain import ChainOut
+
+    # the bodies copy their index tensors and tables to the device: made
+    # before the sync check, which covers the chunks themselves
+    body, gbody = make_body(), make_body()
+    sync(dev)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        with _build.counted() as rec:
+            eager = body(ps, GRAPH_ITER0, GRAPH_K)
+        cg = ChunkGraph(gbody, ps, GRAPH_K)
+        del gbody
+        junk = [torch.full((1 << p,), 127, dtype=torch.uint8, device=dev)
+                for p in range(2, 22) for _ in range(4)]
+        got = cg.replay(ps, GRAPH_ITER0)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    del junk
+    sync(dev)
+    diff = [f for f in ChainOut._fields
+            if (getattr(got, f) is None) != (getattr(eager, f) is None)
+            or (getattr(got, f) is not None
+                and not torch.equal(getattr(got, f), getattr(eager, f)))]
+    compared = [f for f in ChainOut._fields if getattr(got, f) is not None]
+    say("graph", f"{label}: replay == eager kernel path, torch.equal on "
+        f"{compared}: {not diff}; launches {cg.launches} (eager "
+        f"{rec.launches})")
+    require(not diff, f"graph {label}: replay differs from the eager path "
+            f"in {diff}")
+    require(cg.launches == rec.launches,
+            f"graph {label}: the capture recorded other launches")
+    again = cg.replay(ps, GRAPH_ITER0 + 1).ps.clone()
+    eager1 = body(ps, GRAPH_ITER0 + 1, GRAPH_K).ps
+    require(torch.equal(again, eager1),
+            f"graph {label}: a replay from iteration {GRAPH_ITER0 + 1} "
+            f"differs")
+    info = {"k": GRAPH_K, "capture_s": cg.capture_s,
+            "instantiate_s": cg.instantiate_s, "warmup_s": cg.warmup_s,
+            "pool_bytes": cg.pool_bytes, "output_bytes": cg.output_bytes,
+            "launches_per_iteration": {k: v / GRAPH_K
+                                       for k, v in cg.launches.items()}}
+    if drift_max is not None:
+        info["rebuilt_chains"] = rebuilt_chains(ps, eager.ps, drift_max)
+    say("graph", f"{label}: warm-up {cg.warmup_s:.3f} s, capture "
+        f"{cg.capture_s:.3f} s, instantiate {cg.instantiate_s:.3f} s, pool "
+        f"{cg.pool_bytes / 2**20:.1f} MiB (outputs "
+        f"{cg.output_bytes / 2**20:.1f} MiB); a replay from iteration "
+        f"{GRAPH_ITER0 + 1} == eager"
+        + (f"; chains rebuilt at k = 1..{GRAPH_K - 1}: "
+           f"{info['rebuilt_chains']}" if drift_max is not None else ""))
+    del cg, got, eager
+    return info
+
+
+def phase_graph(dev, jobs, jobs_w):
+    """The chunk graph at B = 100 against the eager kernel path: plain
+    full and lean, grouped 100 x G=4, the wide band (n = 256) and the mega
+    engine."""
+    from hydra_pspec_torch.models import mega, megachain
+    from hydra_pspec_torch.ops.kernels import rng_bandpower as rb
+
+    out = {}
+    mops, dims = build_ops(jobs, dev)
+    B = mops.nid.shape[0]
+    sids = torch.arange(B, dtype=torch.int32, device=dev)
+    ps = mega.pad_ps(np.tile(ps_truth(), (B, 1)), dims, dev)
+    tables = megachain.make_chain_tables(mops, dev)
+    static = megachain.prior_static_from(make_prior(), dims)
+
+    def chain(m, d, nf=NF, ids=sids, **kw):
+        return lambda: megachain.chunk_body(
+            m, megachain.make_chain_tables(m, dev), d,
+            megachain.prior_static_from(make_prior(nf=nf), d), seed=SEED,
+            sids=ids, warm_ns=3, **kw)
+
+    # production drift_max 0.6; lean at 0.3, where some chains rebuild
+    out["plain"] = graph_case(
+        f"plain full B={B}", dev,
+        chain(mops, dims, drift_max=0.6), ps, 0.6)
+    out["plain_lean"] = graph_case(
+        f"plain lean B={B} drift_max=0.3", dev,
+        chain(mops, dims, drift_max=0.3, lean=True), ps, 0.3)
+    bins = rb.prior_bins(static, dev)
+    out["mega"] = graph_case(
+        f"mega B={B}", dev, lambda: mega.mega_chunk_body(
+            mops, dims, bins, tables.tlog, tables.q, seed=SEED, sids=sids),
+        ps)
+    del mops
+
+    gs = grouped_setup(jobs[:1], tflag_signatures()[0], B, dev)
+    G = len(gs.group_times)
+    Bg = gs.mops.nid.shape[0]
+    _, sids_r, sidc_r = grouped_ids(gs, Bg // G, dev)
+    psg = mega.pad_ps(np.tile(ps_truth(), (Bg, 1)), gs.dims, dev)
+    out["grouped"] = graph_case(
+        f"grouped {Bg // G} chains x G={G} full", dev, chain(
+            gs.mops, gs.dims, ids=sids_r, sidc=sidc_r, drift_max=0.6,
+            group_times=gs.group_times, group_idx=gs.group_idx), psg)
+    del gs
+
+    wm, wdims = build_ops(jobs_w, dev)
+    psw = mega.pad_ps(np.tile(ps_truth(WIDE_NF), (B, 1)), wdims, dev)
+    out["wide"] = graph_case(
+        f"wide n={wm.nid.shape[1]} full B={B} drift_max=0.3", dev,
+        chain(wm, wdims, nf=WIDE_NF, drift_max=0.3), psw, 0.3)
+    return out
 
 
 # --- 5. main path -----------------------------------------------------------
@@ -1510,6 +1729,8 @@ def work(name, B, n, t, m, ntimes, valid=None, chains=None, alpha=None):
                 + vec), 10 * B * n * t + 2 * B * m * t
     if name == "rng_fields":   # a Philox call, two Box-Muller pairs a lane
         return 2 * cfield, draw + n * lanes * BOX_MULLER_OPS
+    if name == "warm_gate":    # two (B, n) rows read, a flag a chain out
+        return 2 * vec + 4 * B, 10 * B * n
     if name == "bandpower":    # ceil(alpha/4) Philox calls + logs per bin
         draws = B if chains is None else chains
         return 2 * vec + 8 * 4096, draws * n * (-(-alpha // 4)) * 120
@@ -1594,20 +1815,26 @@ def _time_pairs(label, cases, reps=10):
 
 
 class _CgemmShapes:
-    """Counts the (batch, M, K, N, op, A shared, X) of every cgemm launch
-    while it is active, read at the launch wrapper ``_build.call``."""
+    """Counts the (batch, M, K, N, op, A shared, X, masked) of every cgemm
+    launch while it is active, and the herm_inv launches with an ``active``
+    mask (the warm start's rebuilds), read at the launch wrapper
+    ``_build.call``."""
 
     def __enter__(self):
         from hydra_pspec_torch.ops.kernels import _build
 
         self._build, self._call = _build, _build.call
         self.shapes = collections.Counter()
+        self.masked = collections.Counter()
 
         def spy(kernel, entry, *args):
             if kernel == "cgemm":
                 batch, M, N, K, op, a_batched = args[4:10]
+                masked = args[12] is not None
                 self.shapes[(batch, M, K, N, "NTH"[op], not a_batched,
-                             args[2] is not None)] += 1
+                             args[2] is not None, masked)] += 1
+            elif kernel == "herm_inv" and args[4] is not None:
+                self.masked[kernel] += 1
             return self._call(kernel, entry, *args)
 
         _build.call = spy
@@ -1618,9 +1845,9 @@ class _CgemmShapes:
 
 
 def _time_chain(label, run, kit):
-    """One iteration's time on the kernel path and the plain path, in turns
-    (kit iterations a run), the kernels' launches per iteration and the
-    shapes of its cgemm launches."""
+    """One iteration's time on the eager kernel path and the plain path, in
+    turns (kit iterations a run), the kernels' launches per iteration, the
+    masked ones among them and the shapes of its cgemm launches."""
     from hydra_pspec_torch.ops.kernels import _build
     from hydra_pspec_torch.ops.kernels import impl as I
 
@@ -1629,7 +1856,8 @@ def _time_chain(label, run, kit):
         run(I.KERNELS)
         torch.cuda.synchronize()
     per_iter = {k: v / kit for k, v in _build.LAUNCHES.items() if v}
-    chain = {}
+    chain = {"masked_per_iteration": {k: v / kit
+                                      for k, v in rec.masked.items()}}
     for name, impl in (("kernels", I.KERNELS), ("plain", I.PLAIN),
                        ("kernels", I.KERNELS), ("plain", I.PLAIN)):
         ms = _time(lambda: run(impl), 2) / kit
@@ -1643,17 +1871,55 @@ def _time_chain(label, run, kit):
     return chain
 
 
-def iteration_bound(chain, bounds):
+def iteration_bound(chain, bounds, share=1.0):
     """Sum over the kernels of launches per iteration x bound, each cgemm
-    launch priced at its own shape (:func:`cgemm_bound`)."""
-    per = {k: v for k, v in chain["launches_per_iteration"].items()
+    launch priced at its own shape (:func:`cgemm_bound`). A launch with an
+    ``active`` mask (the warm start's rebuild) does the work of the chains
+    it flags: ``share`` of them, measured on the run's data."""
+    masked = chain.get("masked_per_iteration", {})
+    per = {k: v - (1.0 - share) * masked.get(k, 0.0)
+           for k, v in chain["launches_per_iteration"].items()
            if k not in ENTRIES and k != "cgemm"}   # entries: their kernels
     missing = [k for k in per if k not in bounds]
     require(not missing, f"no bound for {missing}")
-    products = sum(c * cgemm_bound(B, M, K, N, shared, with_x)[0]
-                   for B, M, K, N, _, shared, with_x, c
+    products = sum(c * (share if is_masked else 1.0)
+                   * cgemm_bound(B, M, K, N, shared, with_x)[0]
+                   for B, M, K, N, _, shared, with_x, is_masked, c
                    in chain["cgemm_shapes"])
     return sum(v * bounds[k][0] for k, v in per.items()) + products
+
+
+def _time_graph(label, chain, body, ps, kit, drift_max=None):
+    """One iteration's time as a ChunkGraph replay of ``kit`` iterations
+    beside the eager kernel path through the same ``body``, in turns
+    (eager, graph, graph, eager), into ``chain``; with ``drift_max`` (a
+    warm start) also the share of masked rebuild work the run's data
+    needs. Returns the graph."""
+    from hydra_pspec_torch.ops.kernels.graph import ChunkGraph
+
+    cg = ChunkGraph(body, ps, kit)
+    turns = {"eager": [], "graph": []}
+    for name in ("eager", "graph", "graph", "eager"):
+        fn = ((lambda: body(ps, 0, kit)) if name == "eager"
+              else (lambda: cg.replay(ps, 0)))
+        turns[name].append(_time(fn, 3) / kit)
+    chain.update(graph=turns["graph"], eager_beside_graph=turns["eager"],
+                 graph_capture={"capture_s": cg.capture_s,
+                                "instantiate_s": cg.instantiate_s,
+                                "warmup_s": cg.warmup_s,
+                                "pool_bytes": cg.pool_bytes})
+    if drift_max is not None:
+        outs = body(ps, 0, kit)
+        rebuilt = rebuilt_chains(ps, outs.ps, drift_max)
+        chain["rebuilt_chains"] = rebuilt
+        chain["rebuild_share"] = sum(rebuilt) / ((kit - 1) * ps.shape[0])
+    say("times", f"one chain iteration, {label}: graph replay "
+        f"{turns['graph']} ms, eager kernel path {turns['eager']} ms "
+        f"(eager, graph, graph, eager); capture {cg.capture_s:.3f} s, "
+        f"instantiate {cg.instantiate_s:.4f} s"
+        + (f"; chains rebuilt at k = 1..{kit - 1}: "
+           f"{chain['rebuilt_chains']}" if drift_max is not None else ""))
+    return cg
 
 
 def _device_ms_pairs(pairs, reps=10):
@@ -1735,7 +2001,10 @@ def time_cgemm_shapes(dev, B=N_BASELINES):
     return rows
 
 
-def device_profile(run, iters):
+GRAPH_REPLAYS = 3   # graph replays in the profiler window
+
+
+def device_profile(run, iters, what="eager kernel path"):
     """torch.profiler over one ``run`` of ``iters`` iterations: the
     device's busy share of the window from its first to its last device
     activity, the longest idle gaps, and each kernel's summed device time
@@ -1768,7 +2037,8 @@ def device_profile(run, iters):
            "kernel_ms_per_iteration": {k: v / iters for k, v in
                                        per_kernel.most_common()},
            "launches_per_iteration": {k: count[k] / iters for k in count}}
-    say("times", f"profiler, {iters} plain iterations at B={N_BASELINES}: "
+    say("times", f"profiler, {iters} plain iterations at B={N_BASELINES} "
+        f"({what}): "
         f"wall {wall:.2f} ms, device window {window / 1e3:.3f} ms, busy "
         f"{busy / 1e3:.3f} ms ({100 * busy / window:.1f} %), {len(ev)} "
         f"device activities; longest idle gaps (us) "
@@ -1799,15 +2069,29 @@ def phase_times(dev, jobs):
     kit = 5
     chain = _time_chain(f"B={B}", lambda impl: megachain.run_chunk_megachain(
         mops, tables, dims, ps, kit, static, seed=SEED, sids=sids,
-        warm_ns=3, drift_max=0.6, impl=impl), kit)
+        warm_ns=3, drift_max=0.6, impl=impl, graph=False), kit)
+    body = megachain.chunk_body(mops, tables, dims, static, seed=SEED,
+                                sids=sids, warm_ns=3, drift_max=0.6)
+    cg = _time_graph(f"B={B}", chain, body, ps, kit, drift_max=0.6)
     profile = device_profile(lambda: megachain.run_chunk_megachain(
         mops, tables, dims, ps, PROFILE_ITERS, static, seed=SEED, sids=sids,
-        warm_ns=3, drift_max=0.6), PROFILE_ITERS)
+        warm_ns=3, drift_max=0.6, graph=False), PROFILE_ITERS,
+        "eager kernel path")
     busy = profile["device_busy_ms"] / PROFILE_ITERS
     profile["busy_share_of_timed_iteration"] = busy / min(chain["kernels"])
     say("times", f"device busy {busy:.4f} ms an iteration under the "
         f"profiler = {100 * profile['busy_share_of_timed_iteration']:.1f} % "
-        f"of the iteration timed without it")
+        f"of the eager iteration timed without it")
+    # the graph path: GRAPH_REPLAYS replays of the kit-iteration chunk
+    gprofile = device_profile(
+        lambda: [cg.replay(ps, 0) for _ in range(GRAPH_REPLAYS)],
+        GRAPH_REPLAYS * kit, f"graph, {GRAPH_REPLAYS} replays of {kit}")
+    busy = gprofile["device_busy_ms"] / (GRAPH_REPLAYS * kit)
+    gprofile["busy_share_of_timed_iteration"] = busy / min(chain["graph"])
+    say("times", f"graph path: device busy {busy:.4f} ms an iteration = "
+        f"{100 * gprofile['busy_share_of_timed_iteration']:.1f} % of the "
+        f"graph iteration timed without the profiler")
+    del cg
     per = profile["kernel_ms_per_iteration"]
     profile["omega_passes_ms"] = sum(per.get(k, 0.0) for k in (
         "fields_kernel", "rhs_kernel", "system_kernel"))
@@ -1825,6 +2109,8 @@ def phase_times(dev, jobs):
     beta = P.row_scale_sumsq(x, dinv, dd)[1]
     da = torch.zeros_like(mops.a0)
     key = df.OmegaKey(SEED, sids, 0)
+    ps_moved = P.bandpower(beta, prior, tables.tlog, tables.q, seed=SEED,
+                           sids=sids, g=1, alpha=nt - 1)
     cases = {   # draw_rhs and draw_system in the main path's keyed mode
         "cgemm": lambda M: M.cgemm(mops.f, rc),
         "herm_inv": lambda M: M.herm_inv(s),
@@ -1839,6 +2125,7 @@ def phase_times(dev, jobs):
         "bandpower": lambda M: M.bandpower(
             beta, prior, tables.tlog, tables.q, seed=SEED, sids=sids, g=0,
             alpha=nt - 1),
+        "warm_gate": lambda M: M.warm_gate(ps_moved, ps, 0.6),
     }
     times = _time_pairs(f"B={B}", cases)
     # one PyTorch call computing the same function, where there is one
@@ -1872,6 +2159,13 @@ def phase_times(dev, jobs):
                                lambda M: M.draw_system(mops.pt, ps, frc, oa,
                                                        nt, nf)),
     }
+    # what the warm start's masked rebuild costs when no chain rebuilds
+    none = torch.zeros((B,), dtype=torch.int32, device=dev)
+    inv_buf = K.herm_inv(s)
+    dcases["herm_inv masked, none active"] = (
+        "herm_inv", dict(shape, B=0),
+        lambda M: M.herm_inv(s, out=inv_buf, active=none))
+    dcases["warm_gate"] = ("warm_gate", shape, cases["warm_gate"])
     device = {}
     for k, (wk, sh, fn) in dcases.items():
         ms = _device_ms(lambda: fn(K))
@@ -1902,7 +2196,11 @@ def phase_times(dev, jobs):
         f"{Bg // G} chains x G={G} (B={Bg}, t={tg})",
         lambda impl: megachain.run_chunk_megachain(
             gm, gtab, gs.dims, psg, kit, gstatic, seed=SEED, sids=sids_r,
-            sidc=sidc_r, warm_ns=3, drift_max=0.6, impl=impl, **gkw), kit)
+            sidc=sidc_r, warm_ns=3, drift_max=0.6, impl=impl, graph=False,
+            **gkw), kit)
+    _time_graph(f"{Bg // G} chains x G={G}", gchain, megachain.chunk_body(
+        gm, gtab, gs.dims, gstatic, seed=SEED, sids=sids_r, sidc=sidc_r,
+        warm_ns=3, drift_max=0.6, **gkw), psg, kit, drift_max=0.6)
     oa, ob = P.rng_fields(SEED, sids_r, 0, n, tg, ntot, nf, rt)
     rc = P.draw_rhs(gm.nid, gm.nih, ob, ntot, rt)
     frc = P.cgemm(gm.f, rc)
@@ -1943,9 +2241,11 @@ def phase_times(dev, jobs):
                 gchain=gchain, gtimes=gtimes, gbounds=gbounds,
                 gbatch=(Bg // G, G), profile=profile, cgemm_rows=cgemm_rows,
                 device=device, omega_layouts=layouts,
-                iter_bounds={
-                    "plain": iteration_bound(chain, bounds),
-                    "grouped": iteration_bound(gchain, gbounds)})
+                graph_profile=gprofile, iter_bounds={
+                    "plain": iteration_bound(chain, bounds,
+                                             chain["rebuild_share"]),
+                    "grouped": iteration_bound(gchain, gbounds,
+                                               gchain["rebuild_share"])})
 
 
 def phase_times_fallback(dev, jobs, dense_jobs, tm):
@@ -1979,7 +2279,10 @@ def phase_times_fallback(dev, jobs, dense_jobs, tm):
                           mega.run_chain_mega(mops, dims, ps, bins, kit,
                                               tables.tlog, tables.q,
                                               seed=SEED, sids=sids,
-                                              impl=impl), kit)
+                                              impl=impl, graph=False), kit)
+    _time_graph(f"mega engine, B={B}", mega_it, mega.mega_chunk_body(
+        mops, dims, bins, tables.tlog, tables.q, seed=SEED, sids=sids), ps,
+        kit)
 
     gen = torch.Generator(device=dev).manual_seed(SEED + 9)
     rhs = torch.randn((B, NF, NT), dtype=torch.complex64, generator=gen,
@@ -2038,9 +2341,12 @@ def phase_times_fallback(dev, jobs, dense_jobs, tm):
                  "real_pallas": real["pallas"],
                  "real_pallas2": real["pallas2"], "mega": mega_it}[k]
         best = min(it_ms["kernels"])
+        graph = (f"; graph iteration {min(it_ms['graph']):.4f} ms, "
+                 f"{100 * v / min(it_ms['graph']):.1f} % of it"
+                 if "graph" in it_ms else "")
         say("times", f"iteration bound {k}: {v:.4f} ms = sum of launches "
-            f"per iteration x bound; iteration {best:.4f} ms, "
-            f"{100 * v / best:.1f} % of it")
+            f"per iteration x bound; eager iteration {best:.4f} ms, "
+            f"{100 * v / best:.1f} % of it{graph}")
     _build.reset_launches()
     return dict(real=real, mega=mega_it, times=times, library=library,
                 bounds=bounds, device=device, iter_bounds=iter_bounds,
@@ -2074,16 +2380,20 @@ def phase_times_wide(dev, jobs_w):
         f"wide band n={n} ({nf} channels) B={B}",
         lambda impl: megachain.run_chunk_megachain(
             mops, tables, dims, ps, kit, static, seed=SEED, sids=sids,
-            warm_ns=3, drift_max=0.6, impl=impl), kit)
+            warm_ns=3, drift_max=0.6, impl=impl, graph=False), kit)
+    _time_graph(f"wide band n={n} B={B}", chain, megachain.chunk_body(
+        mops, tables, dims, static, seed=SEED, sids=sids, warm_ns=3,
+        drift_max=0.6), ps, kit, drift_max=0.6)
     shape = dict(B=B, n=n, t=t, m=m, ntimes=nt, alpha=nt - 1)
     bounds = {k: bound(k, **shape) for k in MAIN_KERNELS if k != "cgemm"}
     # each herm_inv launch of the blocked inverse is one base block (its
     # products are priced by their own shapes)
     bounds["herm_inv"] = bound("herm_inv", **dict(shape, n=hi.BASE_N))
-    it_bound = iteration_bound(chain, bounds)
-    best = min(chain["kernels"])
-    say("times", f"iteration bound wide: {it_bound:.4f} ms; iteration "
-        f"{best:.4f} ms, {100 * it_bound / best:.1f} % of it")
+    it_bound = iteration_bound(chain, bounds, chain["rebuild_share"])
+    best, gbest = min(chain["kernels"]), min(chain["graph"])
+    say("times", f"iteration bound wide: {it_bound:.4f} ms; eager "
+        f"iteration {best:.4f} ms, {100 * it_bound / best:.1f} % of it; graph "
+        f"iteration {gbest:.4f} ms, {100 * it_bound / gbest:.1f} % of it")
 
     oa, ob = P.rng_fields(SEED, sids, 0, n, t, nt, nf)
     rc = P.draw_rhs(mops.nid, mops.nih, ob, nt)
@@ -2096,6 +2406,15 @@ def phase_times_wide(dev, jobs_w):
     cases = {"herm_inv": lambda M: M.herm_inv(s),
              "herm_chol_solve": lambda M: M.herm_chol_solve(ms, rhs)}
     times = _time_pairs(f"blocked B={B}", cases)
+    # the warm start's masked blocked rebuild when no chain rebuilds: two
+    # base launches and four products that return at once, the blocks'
+    # copies and the select
+    none = torch.zeros((B,), dtype=torch.int32, device=dev)
+    inv_buf = I.KERNELS.herm_inv(s)
+    masked_ms = _device_ms(
+        lambda: I.KERNELS.herm_inv(s, out=inv_buf, active=none))
+    say("times", f"device time blocked herm_inv n={n} B={B}, masked, none "
+        f"active: {masked_ms:.5f} ms")
     library = {"herm_inv": _time(lambda: torch.linalg.inv(s), 10),
                "herm_chol_solve": _time(lambda: torch.linalg.solve(ms, rhs),
                                         10)}
@@ -2115,7 +2434,8 @@ def phase_times_wide(dev, jobs_w):
             f"ms ({by}), kernel at {100 * b_ms / times[k][0]:.1f} % of it; "
             f"library call {library[k]:.4f} ms; launches a call {per_call}")
     _build.reset_launches()
-    return dict(chain=chain, iter_bound=it_bound, blocked=blocked)
+    return dict(chain=chain, iter_bound=it_bound, blocked=blocked,
+                masked_none_active_ms=masked_ms)
 
 
 def main():
@@ -2142,11 +2462,14 @@ def main():
     errs = {}
     phase_kernels(dev, jobs8, jobs_w8, errs)
     phase_chain(dev, jobs8)
+    jobs_w = make_jobs(N_BASELINES, runner.BaselineJob, legendre_fgmodes,
+                       nf=WIDE_NF, seed=SEED + 20)
     out_root = Path(tempfile.mkdtemp(prefix="chip_smoke_"))
     try:
         jobs, results, launches, rate = phase_main(dev, out_root)
         phase_invariance(dev, jobs, results)
         del results
+        graphs = phase_graph(dev, jobs, jobs_w)
         tf_launches, tf_stats = phase_tflags(dev, jobs, out_root / "tflags")
         fb_launches, fb_stats, dense = phase_fallback(
             dev, jobs, out_root / "fallback")
@@ -2155,9 +2478,7 @@ def main():
         wb_launches, wb_stats = phase_wideband(dev, out_root / "wideband")
         tm = phase_times(dev, jobs)
         tf = phase_times_fallback(dev, jobs, dense, tm)
-        tw = phase_times_wide(dev, make_jobs(
-            N_BASELINES, runner.BaselineJob, legendre_fgmodes, nf=WIDE_NF,
-            seed=SEED + 20))
+        tw = phase_times_wide(dev, jobs_w)
     finally:
         shutil.rmtree(out_root, ignore_errors=True)
 
@@ -2188,8 +2509,23 @@ def main():
                real_pallas2=tf["real"]["pallas2"], mega=tf["mega"])
     print(json.dumps({
         "kernels": rows,
-        "iteration_ms": {k: {"kernels": v["kernels"], "plain": v["plain"]}
+        "iteration_ms": {k: {"kernels": v["kernels"], "plain": v["plain"],
+                             "graph": v.get("graph"),
+                             "eager_beside_graph": v.get(
+                                 "eager_beside_graph")}
                          for k, v in its.items()},
+        "graph": {"checked": graphs,
+                  "timed": {k: v["graph_capture"] for k, v in its.items()
+                            if "graph_capture" in v},
+                  "rebuilt_chains": {k: v.get("rebuilt_chains")
+                                     for k, v in its.items()
+                                     if "rebuilt_chains" in v},
+                  "device_profile": tm["graph_profile"],
+                  "wide": {"ms": tw["chain"]["graph"],
+                           "eager_ms": tw["chain"]["eager_beside_graph"],
+                           "capture": tw["chain"]["graph_capture"],
+                           "masked_none_active_ms":
+                               tw["masked_none_active_ms"]}},
         "iteration_bound_ms": dict(tm["iter_bounds"], **tf["iter_bounds"]),
         "iteration_batch": {"plain": N_BASELINES, "grouped": tm["gbatch"],
                             "real": N_BASELINES, "mega": N_BASELINES},

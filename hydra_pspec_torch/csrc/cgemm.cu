@@ -10,7 +10,10 @@
 // op(A) is A (opA 0), A^T (1) or A^H (2); A is per batch element or shared
 // (a_batched 0: one A for the whole batch, e.g. the DFT matrix F). X may be
 // null (then beta is ignored); C may alias X (each element of X is read only
-// by the thread that writes that element of C) but not A or B.
+// by the thread that writes that element of C) but not A or B. active
+// (optional, int32 per batch element): the blocks of an element whose flag
+// is 0 return before their first load and leave its C as it was (the
+// warm start's masked rebuild above 128 channels, ops/kernels/herm_inv.py).
 //
 // Bound on the H100: at the main path's large products (128 x 128 x 256 per
 // chain, B = 100) 8 real flops per complex multiply-add make 3.4 GFLOP, so
@@ -140,6 +143,7 @@ struct Args {
   long long a_bstride;
   float alpha, beta;
   bool vec_a, vec_b, vec_c;  // 16-byte paths of A, B and of X and C
+  const int* active;         // null, or a flag per batch element
 };
 
 // OPA 0: A stored (M, K), staged as As[BM][BK]; 1/2: A stored (K, M),
@@ -148,6 +152,7 @@ struct Args {
 // neighbours, conflict-free along tx and a broadcast along ty.
 template <class T, int OPA>
 __global__ void __launch_bounds__(T::THREADS, T::MINB) cgemm_kernel(Args p) {
+  if (p.active && !p.active[blockIdx.z]) return;
   constexpr int BM = T::BM, BN = T::BN, TM = T::TM, TN = T::TN;
   constexpr int THREADS = T::THREADS;
   constexpr bool PREX = T::PREX;
@@ -350,7 +355,7 @@ bool aligned16(const void* ptr) {
 HK_API int hk_cgemm(const float2* A, const float2* B, const float2* X,
                     float2* C, int batch, int M, int N, int K, int opA,
                     int a_batched, float alpha, float beta,
-                    cudaStream_t stream) {
+                    const int* active, cudaStream_t stream) {
   if (opA < 0 || opA > 2 || batch <= 0 || M <= 0 || N <= 0 || K <= 0)
     return (int)cudaErrorInvalidValue;
   Args a;
@@ -364,6 +369,7 @@ HK_API int hk_cgemm(const float2* A, const float2* B, const float2* X,
   a.a_bstride = a_batched ? (long long)M * K : 0;
   a.alpha = alpha;
   a.beta = beta;
+  a.active = active;
   // 16-byte copies need the base aligned and an even row length (then every
   // row and every batch element starts 16-byte aligned too)
   a.vec_a = aligned16(A) && (opA == 0 ? K : M) % 2 == 0;

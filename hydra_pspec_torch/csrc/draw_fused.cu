@@ -48,8 +48,15 @@ constexpr int ROW_THREADS = 256;
 struct OmegaKey {
   unsigned seed;
   const int* sids;
-  unsigned g;
+  unsigned g;              // the iteration, or with g_dev its offset
+  const unsigned* g_dev;   // null, or the device word of the first one
 };
+
+// the key's iteration (fields by value: no local copy of the parameter)
+__device__ __forceinline__ unsigned iteration_of(unsigned g,
+                                                 const unsigned* g_dev) {
+  return g_dev ? *g_dev + g : g;
+}
 
 // rc = d + h (w mk) and xs = dinv (dd f + w mk) with their roundings
 // written out (one fma each, as the compiler formed them before the keyed
@@ -74,6 +81,7 @@ rhs_kernel(const float2* __restrict__ nid, const float* __restrict__ nih,
   const float h = nih[row];
   const int ntb = row_times ? row_times[b] : ntimes;
   const unsigned sid = KEYED ? (unsigned)key.sids[b] : 0u;
+  const unsigned g = KEYED ? iteration_of(key.g, key.g_dev) : 0u;
   for (int j = threadIdx.x; j < t; j += blockDim.x) {
     const long long o = row * t + j;
     const float mk = j < ntb ? 1.f : 0.f;
@@ -81,7 +89,7 @@ rhs_kernel(const float2* __restrict__ nid, const float* __restrict__ nih,
     if constexpr (KEYED) {
       w = make_float2(0.f, 0.f);
       if (j < ntb) {
-        const uint4 q = omega_words(key.seed, sid, key.g, i, j);
+        const uint4 q = omega_words(key.seed, sid, g, i, j);
         w = omega_of(q.x, q.y, OMEGA_B_SCALE);
       }
     } else {
@@ -129,6 +137,7 @@ system_kernel(const float2* __restrict__ pt, const float* __restrict__ ps,
                                  (outer * p.y) * dscale);
   }
   const unsigned sid = KEYED ? (unsigned)key.sids[b] : 0u;
+  const unsigned g = KEYED ? iteration_of(key.g, key.g_dev) : 0u;
   for (int j = threadIdx.x; j < t; j += blockDim.x) {
     const long long o = row * t + j;
     const float mk = j < ntb ? 1.f : 0.f;
@@ -136,7 +145,7 @@ system_kernel(const float2* __restrict__ pt, const float* __restrict__ ps,
     if constexpr (KEYED) {
       w = make_float2(0.f, 0.f);
       if (j < ntb) {
-        const uint4 q = omega_words(key.seed, sid, key.g, i, j);
+        const uint4 q = omega_words(key.seed, sid, g, i, j);
         w = omega_of(q.z, q.w, sa);
       }
     } else {
@@ -211,14 +220,57 @@ resid_kernel(const float2* __restrict__ dw, const float2* __restrict__ sig,
     if (chit) chit[row] = acc_chit;
   }
 }
+// max that keeps a NaN: a NaN v replaces m, a NaN m stays (torch.amax)
+__device__ __forceinline__ float nan_max(float m, float v) {
+  return (m != m || m >= v) ? m : v;
+}
+
+// the NaN-keeping max over the block (blockDim.x a multiple of 32); every
+// thread gets it. `red` is 32 floats of shared memory.
+__device__ __forceinline__ float block_nan_max(float v, float* red) {
+  for (int o = 16; o > 0; o >>= 1)
+    v = nan_max(v, __shfl_xor_sync(0xffffffffu, v, o));
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  __syncthreads();  // red may still be read by a previous call
+  if (lane == 0) red[warp] = v;
+  __syncthreads();
+  float m = red[0];
+  for (int w = 1; w < (int)(blockDim.x >> 5); ++w) m = nan_max(m, red[w]);
+  return m;
+}
+
+constexpr int GATE_THREADS = 128;
+
+__global__ void __launch_bounds__(GATE_THREADS)
+warm_gate_kernel(const float* __restrict__ ps, const float* __restrict__ psx,
+                 float drift_max, int* __restrict__ rebuild, int n) {
+  __shared__ float red[32];
+  const long long o = (long long)blockIdx.x * n;
+  float top = -INFINITY;
+  for (int j = threadIdx.x; j < n; j += blockDim.x)
+    top = nan_max(top, psx[o + j]);
+  const float lift = __fmul_rn(1e-6f, block_nan_max(top, red));
+  float drift = -INFINITY;
+  for (int j = threadIdx.x; j < n; j += blockDim.x) {
+    const float p = ps[o + j], x = psx[o + j];
+    const float den = __fadd_rn(
+        __fadd_rn(__fmul_rn(0.5f, __fadd_rn(fabsf(p), fabsf(x))), lift),
+        FLT_MIN);
+    drift = nan_max(drift, __fdiv_rn(fabsf(__fsub_rn(p, x)), den));
+  }
+  drift = block_nan_max(drift, red);
+  if (threadIdx.x == 0) rebuild[blockIdx.x] = drift <= drift_max ? 0 : 1;
+}
 }  // namespace
 
-// ob == nullptr: keyed mode on (seed, sids, g)
+// ob == nullptr: keyed mode on (seed, sids, g), g read as *g_dev + g when
+// g_dev is given
 HK_API int hk_draw_rhs(const float2* nid, const float* nih, const float2* ob,
-                       unsigned seed, const int* sids, unsigned g, float2* rc,
-                       int batch, int n, int t, int ntimes,
-                       const int* row_times, cudaStream_t stream) {
-  const OmegaKey key{seed, sids, g};
+                       unsigned seed, const int* sids, unsigned g,
+                       const unsigned* g_dev, float2* rc, int batch, int n,
+                       int t, int ntimes, const int* row_times,
+                       cudaStream_t stream) {
+  const OmegaKey key{seed, sids, g, g_dev};
   if (ob)
     rhs_kernel<false><<<batch * n, ROW_THREADS, 0, stream>>>(
         nid, nih, ob, key, rc, n, t, ntimes, row_times);
@@ -228,14 +280,14 @@ HK_API int hk_draw_rhs(const float2* nid, const float* nih, const float2* ob,
   return (int)cudaGetLastError();
 }
 
-// oa == nullptr: keyed mode on (seed, sids, g)
+// oa == nullptr: keyed mode on (seed, sids, g), as hk_draw_rhs
 HK_API int hk_draw_system(const float2* pt, const float* ps, const float2* frc,
                           const float2* oa, unsigned seed, const int* sids,
-                          unsigned g, float2* S, float2* xs, float* dd,
-                          float* dinv, int batch, int n, int t, int ntimes,
-                          int nfreqs, const int* row_times,
+                          unsigned g, const unsigned* g_dev, float2* S,
+                          float2* xs, float* dd, float* dinv, int batch, int n,
+                          int t, int ntimes, int nfreqs, const int* row_times,
                           cudaStream_t stream) {
-  const OmegaKey key{seed, sids, g};
+  const OmegaKey key{seed, sids, g, g_dev};
   const float sa = omega_a_scale(nfreqs);
   dim3 grid(n, batch);
   if (oa)
@@ -266,5 +318,12 @@ HK_API int hk_draw_resid(const float2* dw, const float2* sig, const float2* fa,
   resid_kernel<<<grid, ROW_THREADS, 0, stream>>>(
       dw, sig, fa, ninvf, w, da, a0, chi, noise, chit, amp, ws, n, m, t,
       ntimes, row_times);
+  return (int)cudaGetLastError();
+}
+
+HK_API int hk_warm_gate(const float* ps, const float* psx, float drift_max,
+                        int* rebuild, int batch, int n, cudaStream_t stream) {
+  warm_gate_kernel<<<batch, GATE_THREADS, 0, stream>>>(ps, psx, drift_max,
+                                                       rebuild, n);
   return (int)cudaGetLastError();
 }

@@ -37,6 +37,12 @@
 // FP32 fmaf products only (no tensor cores, no TF32). Each output is one
 // warp's fixed-order sum over its chain's data: no cross-chain work, no
 // atomics. The identity maps to exactly the identity.
+//
+// active (optional, int32 per chain): the CTA of a chain whose flag is 0
+// returns before its first load and leaves that chain's output as it was.
+// The megachain warm start (ops/kernels/megachain.py) so rebuilds, in a
+// launch captured into a CUDA graph, only the chains its device-side drift
+// gate selects, writing them straight into the carried inverse.
 #include "herm_chol.cuh"
 
 namespace {
@@ -45,7 +51,8 @@ using namespace hchol;
 template <int NB>
 __global__ void __launch_bounds__(THREADS)
 herm_inv_kernel(const float2* __restrict__ S, float2* __restrict__ out,
-                int n) {
+                int n, const int* __restrict__ active) {
+  if (active && !active[blockIdx.x]) return;
   extern __shared__ float2 sm[];
   constexpr int nb = NB, ld = ld_of<NB>();
   float2* A = sm;                     // (32 nb) x ld
@@ -139,20 +146,39 @@ herm_inv_kernel(const float2* __restrict__ S, float2* __restrict__ out,
     Ob[e] = (j <= i) ? v : make_float2(v.x, -v.y);
   }
 }
+
+// A in the padded layout and the nb diagonal tiles of X
+template <int NB>
+constexpr size_t smem_of() {
+  return sizeof(float2) *
+         ((size_t)TB * NB * ld_of<NB>() + (size_t)NB * TB * TB);
+}
+
+template <int NB>
+int launch(const float2* S, float2* out, int batch, int n, const int* active,
+           cudaStream_t stream) {
+  // the shared-memory opt-in is no stream operation: it is set by the
+  // launches outside a capture (a chunk graph's eager warm-up runs every
+  // launch of the chunk before it is captured)
+  cudaStreamCaptureStatus capture;
+  cudaError_t err = cudaStreamIsCapturing(stream, &capture);
+  if (err == cudaSuccess && capture == cudaStreamCaptureStatusNone)
+    err = cudaFuncSetAttribute(herm_inv_kernel<NB>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)smem_of<NB>());
+  if (err != cudaSuccess) return (int)err;
+  herm_inv_kernel<NB><<<batch, THREADS, smem_of<NB>(), stream>>>(S, out, n,
+                                                                  active);
+  return (int)cudaGetLastError();
+}
 }  // namespace
 
 HK_API int hk_herm_inv(const float2* S, float2* out, int batch, int n,
-                       cudaStream_t stream) {
+                       const int* active, cudaStream_t stream) {
   if (n < 1 || n > TB * MAX_TILES) return (int)cudaErrorInvalidValue;
   const int nb = (n + TB - 1) / TB;
-  void (*kernel)(const float2*, float2*, int) =
-      nb == 1 ? herm_inv_kernel<1> : nb == 2 ? herm_inv_kernel<2>
-    : nb == 3 ? herm_inv_kernel<3> : herm_inv_kernel<4>;
-  const size_t smem = sizeof(float2) * ((size_t)TB * nb * (TB * nb + 1) +
-                                        (size_t)nb * TB * TB);
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  kernel<<<batch, THREADS, smem, stream>>>(S, out, n);
-  return (int)cudaGetLastError();
+  return nb == 1 ? launch<1>(S, out, batch, n, active, stream)
+       : nb == 2 ? launch<2>(S, out, batch, n, active, stream)
+       : nb == 3 ? launch<3>(S, out, batch, n, active, stream)
+                 : launch<4>(S, out, batch, n, active, stream);
 }

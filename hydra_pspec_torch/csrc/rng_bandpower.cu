@@ -188,7 +188,8 @@ __device__ __forceinline__ float pooled_beta(const float* __restrict__ beta,
 __global__ void __launch_bounds__(32 * BP_WARPS) bandpower_kernel(
     const float* __restrict__ beta, const float* __restrict__ gam_ext,
     const float* __restrict__ u_ext, int u_stride, unsigned seed,
-    const int* __restrict__ sids, unsigned g, int alpha,
+    const int* __restrict__ sids, unsigned g_arg,
+    const unsigned* __restrict__ g_dev, int alpha,
     const float* __restrict__ tlog, const float* __restrict__ tq, int S,
     const int* __restrict__ pidx, const float* __restrict__ plo,
     const float* __restrict__ phi, int np, float* __restrict__ ps_out,
@@ -202,6 +203,7 @@ __global__ void __launch_bounds__(32 * BP_WARPS) bandpower_kernel(
   const long long r0 = (long long)blockIdx.x * G;
   const unsigned off = G > 1 ? (1u << 30) : 0u;
   const uint2 key = make_uint2(seed, sids ? (unsigned)sids[r0] + off : 0u);
+  const unsigned g = g_dev ? *g_dev + g_arg : g_arg;
   if (warp == 0) bounded_s[lane] = 0;
   __syncthreads();
   for (int l = 0; l < np; ++l) {
@@ -275,17 +277,18 @@ HK_API int hk_rng_fields(unsigned seed, const int* sids, unsigned g,
   return (int)cudaGetLastError();
 }
 
+// the iteration is g, or with g_dev given *g_dev + g (as hk_draw_rhs)
 HK_API int hk_bandpower(const float* beta, const float* gam_ext,
                         const float* u_ext, int u_stride, unsigned seed,
-                        const int* sids, unsigned g, int alpha,
-                        const float* tlog, const float* tq, int S,
+                        const int* sids, unsigned g, const unsigned* g_dev,
+                        int alpha, const float* tlog, const float* tq, int S,
                         const int* pidx, const float* plo, const float* phi,
                         int np, float* ps_out, float* gam_out, int batch,
                         int n, int G, cudaStream_t stream) {
   dim3 grid(batch / G, (n + 31) / 32);
   bandpower_kernel<<<grid, 32 * BP_WARPS, 0, stream>>>(
-      beta, gam_ext, u_ext, u_stride, seed, sids, g, alpha, tlog, tq, S, pidx,
-      plo, phi, np, ps_out, gam_out, n, G);
+      beta, gam_ext, u_ext, u_stride, seed, sids, g, g_dev, alpha, tlog, tq, S,
+      pidx, plo, phi, np, ps_out, gam_out, n, G);
   return (int)cudaGetLastError();
 }
 

@@ -11,7 +11,10 @@ complex64 tensor. :meth:`MegaOperators.to_numpy` and
 The mega engine (:func:`gibbs_step_mega`, :func:`run_chain_mega`) takes one
 iteration per call of the ``gcr_megastep`` entry: it serves more than 8
 bounded prior bins and ``Ntimes > 1025``, which the megachain engine does
-not take. Sample outputs leave the step trimmed, in the reference layout.
+not take. A call's iterations are one chunk: on the card with Philox
+streams one CUDA graph (:class:`ops.kernels.graph.ChunkGraph`), as the
+megachain engine runs, with the exact inverse every iteration. Sample
+outputs are trimmed to the reference layout after the chunk.
 """
 from typing import NamedTuple, Optional
 
@@ -20,10 +23,11 @@ import torch
 
 from ..ops.invgamma import InvGammaTable
 from ..ops.kernels.draw_fused import OmegaKey
+from ..ops.kernels.graph import replay_chunk
 from ..ops.kernels.impl import KERNELS, Impl
+from ..ops.kernels.megachain import ChainOut, chain_outputs
 from ..ops.kernels.megastep import gcr_megastep
-from .rgibbs import (ChainSample, RChainOperators, bandpower_args,
-                     iteration_randomness, row_sum)
+from .rgibbs import ChainSample, RChainOperators, bandpower_args, row_sum
 
 # complex fields, each the JAX package's (<name>_re, <name>_im) pair
 _COMPLEX = ("pt", "nid", "dw", "fg", "g", "mi", "a0", "f")
@@ -197,25 +201,57 @@ def chi_mean(chit, dims: MegaDims, chi_mask):
     return torch.sum(chit[:, :, :nf] * cm, dim=2) / (torch.sum(cm) * nt)
 
 
+def chain_sample(outs: ChainOut, dims: MegaDims, store_cr: bool,
+                 chi_mask) -> ChainSample:
+    """A chunk's padded outputs -> the sample in the reference layout (the
+    per-time fields as views, trimmed and time-major)."""
+    nf, nt, nm = dims.nfreqs, dims.ntimes, dims.nmodes
+    lnp = ln_post(outs.noise_nu, outs.bmask, outs.ps)
+    if store_cr:
+        return ChainSample(
+            signal_cr=outs.sig[:, :, :nf, :nt].transpose(2, 3),
+            ps=outs.ps[:, :, :nf],
+            fg_amps=outs.amp[:, :, :nm, :nt].transpose(2, 3),
+            chisq=outs.chi[:, :, :nf, :nt].transpose(2, 3),
+            ln_post=lnp)
+    return ChainSample(signal_cr=None, ps=outs.ps[:, :, :nf], fg_amps=None,
+                       chisq=chi_mean(outs.chit, dims, chi_mask),
+                       ln_post=lnp)
+
+
+def use_graph(graph: bool, randomness, impl: Impl, ps) -> bool:
+    """A chunk runs as a :class:`ChunkGraph` when asked (``graph``) and it
+    is the kernels' chunk on the card with Philox streams: external
+    randomness is test input and the plain versions are the reference, so
+    both run eagerly, as CPU tensors do."""
+    return (graph and randomness is None and impl is KERNELS
+            and ps.device.type == "cuda")
+
+
 def gibbs_step_mega(mops: MegaOperators, dims: MegaDims, ps_pad, prior,
                     tlog, q, rand: dict, *, refine: int = 1,
-                    store_cr: bool = True, impl: Impl = KERNELS):
+                    store_cr: bool = True, impl: Impl = KERNELS,
+                    sig_out=None, amp_out=None, chi_out=None):
     """One Gibbs alternation through the ``gcr_megastep`` entry
     (``mega.py:169-278``). ``ps_pad`` (B, n) padded bandpowers; ``prior``
     the bounded bins (any count); ``tlog``/``q`` the table rows. ``rand``:
     external (``oa``, ``ob`` complex64 (B, n, t), ``gam`` (B, n), ``u_pb``
-    (B, >= bounded bins)) or the streams ``seed``, ``sids``, ``g``: the
-    omegas are then the megachain engine's words for that chain and
-    iteration, drawn inside ``draw_rhs`` and ``draw_system``
+    (B, >= bounded bins)) or the streams ``seed``, ``sids``, ``g`` (and
+    optionally ``g_off``, added to ``g``; ``g`` may be a graph's device
+    counter): the omegas are then the megachain engine's words for that
+    chain and iteration, drawn inside ``draw_rhs`` and ``draw_system``
     (:class:`OmegaKey`), so with the exact inverse each iteration the two
-    engines draw alike. Returns ``(ps_new_pad, DrawOut)``; pad bins
-    of ``ps_new_pad`` are held at exactly 0."""
+    engines draw alike. ``*_out``: optional preallocated full-mode
+    outputs. Returns ``(ps_new_pad, DrawOut)``; pad bins of
+    ``ps_new_pad`` are held at exactly 0."""
     oa, ob, key = rand.get("oa"), rand.get("ob"), None
     if oa is None:
-        key = OmegaKey(rand["seed"], rand["sids"], rand["g"])
+        key = OmegaKey(rand["seed"], rand["sids"], rand["g"],
+                       rand.get("g_off", 0))
     d = gcr_megastep(mops, ps_pad, oa, ob, nfreqs=dims.nfreqs,
                      ntimes=dims.ntimes, all_unflagged=dims.all_unflagged,
-                     refine=refine, lean=not store_cr, key=key, impl=impl)
+                     refine=refine, lean=not store_cr, key=key, impl=impl,
+                     sig_out=sig_out, amp_out=amp_out, chi_out=chi_out)
     ps_new = impl.bandpower(d.beta, prior, tlog, q,
                             **bandpower_args(rand, dims.ntimes - 1))
     keep = (torch.arange(dims.n, device=ps_pad.device)
@@ -223,34 +259,62 @@ def gibbs_step_mega(mops: MegaOperators, dims: MegaDims, ps_pad, prior,
     return ps_new * keep, d
 
 
+def mega_chunk_body(mops: MegaOperators, dims: MegaDims, prior, tlog, q, *,
+                    seed=None, sids=None, randomness: Optional[dict] = None,
+                    refine: int = 1, store_cr: bool = True,
+                    impl: Impl = KERNELS):
+    """``body(ps_pad, iter0, k_total) -> ChainOut``: ``k_total`` mega steps
+    into preallocated (K, ...) padded outputs (a :class:`ChunkGraph`
+    captures it; ``iter0`` an int or the graph's device counter).
+    ``randomness``: external per-iteration arrays with a leading K axis, or
+    None for the streams of ``seed``/``sids``."""
+    def body(ps_pad, iter0, k_total):
+        B, n = ps_pad.shape
+        t, m = mops.nid.shape[2], mops.fg.shape[2]
+        out = chain_outputs(k_total, B, n, t, m, not store_cr, ps_pad.device)
+        ps = ps_pad
+        for k in range(k_total):
+            rand = (dict(seed=seed, sids=sids, g=iter0, g_off=k)
+                    if randomness is None
+                    else {name: v[k] for name, v in randomness.items()})
+            slot = {f"{name}_out": out[name][k] for name in ("sig", "amp",
+                                                             "chi")
+                    if store_cr}
+            ps, d = gibbs_step_mega(mops, dims, ps, prior, tlog, q, rand,
+                                    refine=refine, store_cr=store_cr,
+                                    impl=impl, **slot)
+            out["ps"][k] = ps
+            out["noise_nu"][k] = d.noise_nu
+            out["bmask"][k] = d.bmask
+            if not store_cr:
+                out["chit"][k] = d.chit
+        return ChainOut(ps_final=ps, **out)
+
+    return body
+
+
 def run_chain_mega(mops: MegaOperators, dims: MegaDims, ps0_pad, prior,
                    niter: int, tlog, q, *, seed=None, sids=None,
                    iter0: int = 0, randomness: Optional[dict] = None,
                    refine: int = 1, store_cr: bool = True, chi_mask=None,
-                   impl: Impl = KERNELS):
-    """``niter`` mega steps from ``ps0_pad`` (``mega.py:281-297``, a Python
-    loop). Randomness as :func:`rgibbs.run_chain`, with the omegas in the
-    padded ``(B, n, t)`` layout. ``chi_mask`` (optional (nfreqs,) 0/1, lean
-    runs): the chi^2 mean over the masked channels. Returns
-    ``(ps_pad_final, ChainSample)`` trimmed to the true widths."""
-    nf, nt, nm = dims.nfreqs, dims.ntimes, dims.nmodes
-    ps = ps0_pad
-    parts = {name: [] for name in ("ps", "ln_post", "sig", "amp", "chi")}
-    for k in range(niter):
-        rand = iteration_randomness(randomness, k, seed, sids, iter0 + k)
-        ps, d = gibbs_step_mega(mops, dims, ps, prior, tlog, q, rand,
-                                refine=refine, store_cr=store_cr, impl=impl)
-        parts["ps"].append(ps[:, :nf])
-        parts["ln_post"].append(ln_post(d.noise_nu, d.bmask, ps))
-        if store_cr:   # trimmed copies: the padded fields die here
-            trim = lambda x, w: x[:, :w, :nt].transpose(1, 2).contiguous()
-            parts["sig"].append(trim(d.sig, nf))
-            parts["amp"].append(trim(d.amp, nm))
-            parts["chi"].append(trim(d.chi, nf))
-        else:
-            parts["chi"].append(d.chit)
-    st = lambda name: torch.stack(parts[name]) if parts[name] else None
-    chisq = st("chi") if store_cr else chi_mean(st("chi"), dims, chi_mask)
-    return ps, ChainSample(signal_cr=st("sig"), ps=st("ps"),
-                           fg_amps=st("amp"), chisq=chisq,
-                           ln_post=st("ln_post"))
+                   impl: Impl = KERNELS, graph: bool = True,
+                   graphs: Optional[dict] = None):
+    """``niter`` mega steps from ``ps0_pad`` as one chunk (``mega.py:281-297``
+    runs them as a Python loop). Randomness as :func:`rgibbs.run_chain`,
+    with the omegas in the padded ``(B, n, t)`` layout. ``chi_mask``
+    (optional (nfreqs,) 0/1, lean runs): the chi^2 mean over the masked
+    channels. ``graph``/``graphs``: as ``megachain.run_chunk_megachain``
+    (on the card with the streams the chunk is a :class:`ChunkGraph`,
+    and the sample holds views of its outputs until its next replay).
+    Returns ``(ps_pad_final, ChainSample)`` trimmed to the true widths."""
+    body = lambda: mega_chunk_body(mops, dims, prior, tlog, q, seed=seed,
+                                   sids=sids, randomness=randomness,
+                                   refine=refine, store_cr=store_cr,
+                                   impl=impl)
+    if use_graph(graph, randomness, impl, ps0_pad):
+        key = ("mega", niter, store_cr, refine)
+        outs = replay_chunk({} if graphs is None else graphs, key, body,
+                            ps0_pad, niter, iter0)
+    else:
+        outs = body()(ps0_pad, iter0, niter)
+    return outs.ps_final, chain_sample(outs, dims, store_cr, chi_mask)

@@ -15,6 +15,12 @@ The grouped time-flags mode (``group_times``, ``sidc``, ``group_idx``;
 ``:88-197, 410-475``) runs a flag signature's chains as chain-major
 (chain, time group) rows: see :class:`TflagsMegaSetup`.
 
+On the card with Philox streams a chunk runs as one CUDA graph
+(:class:`ops.kernels.graph.ChunkGraph`, ``graph=True``, the default),
+captured at first use and replayed; ``graph=False`` runs the same kernels
+from Python, launch by launch (the eager path the graph is checked
+against). External randomness and CPU tensors always run eagerly.
+
 Not ported (they raise): the TPU scheduling knobs ``prefetch_rng`` and
 ``batch_tile``, bf16 pass counts other than 3, a mesh, and the raw
 position-seeded seed mode of the JAX package.
@@ -25,12 +31,14 @@ import numpy as np
 import torch
 
 from ..ops.invgamma import make_invgamma_table
+from ..ops.kernels.graph import replay_chunk
 from ..ops.kernels.impl import KERNELS, Impl
 from ..ops.kernels.megachain import TimeScatter, gcr_megachain
 from ..ops.kernels.rng_bandpower import (MAX_PRIOR_BINS, bounded_bins,
                                          prior_bins)
-from .mega import (MegaDims, MegaOperators, chi_mean, from_chain_operators,
-                   from_jax_arrays, ln_post)
+from .mega import (MegaDims, MegaOperators, chain_sample, chi_mean,
+                   from_chain_operators, from_jax_arrays, ln_post,
+                   use_graph)
 from .rgibbs import ChainSample
 
 MAX_TIME_GROUPS = 8
@@ -173,6 +181,54 @@ def randomness_on(randomness: dict, device) -> dict:
     return out
 
 
+def chunk_body(mops: MegaOperators, tables: MegaChainTables, dims: MegaDims,
+               prior_static=(), *, seed: Optional[int] = None, sids=None,
+               randomness: Optional[dict] = None, refine: int = 1,
+               lean: bool = False, warm_ns: int = 0, drift_max: float = 0.25,
+               group_times=(), sidc=None, group_idx=(),
+               impl: Impl = KERNELS):
+    """``body(ps_pad, iter0, k_total) -> ChainOut``: a chunk of
+    :func:`gcr_megachain` with every tensor it needs (stream ids, prior
+    bins, per-row time counts, the time scatter) made now, on the device of
+    ``mops``, so that the body copies nothing from the host (a
+    :class:`ChunkGraph` captures it). ``iter0`` is an int, or the graph's
+    device counter. Arguments as :func:`run_chunk_megachain` (``randomness``
+    already on the device, as :func:`randomness_on` gives it)."""
+    G = len(group_times) if len(group_times) > 1 else 1
+    device = mops.nid.device
+    if randomness is not None:
+        seed = sids = None
+    else:
+        if seed is None or sids is None or (G > 1 and sidc is None):
+            raise ValueError(
+                "give seed and sids, and sidc in grouped mode (the raw "
+                "position-seeded mode of the JAX package is not "
+                "composition-invariant and is not ported)")
+        sids = _ids_on(sids, device)
+        sidc = None if G == 1 else _ids_on(sidc, device)
+    grouped = {}
+    if G > 1:
+        bc = mops.nid.shape[0] // G
+        grouped = dict(
+            group=G, sidc=sidc,
+            row_times=torch.tensor(list(group_times) * bc, dtype=torch.int32,
+                                   device=device),
+            scatter=(None if lean else
+                     time_scatter(group_times, group_idx, dims, device)))
+    prior = prior_bins(prior_static, device)
+
+    def body(ps_pad, iter0, k_total):
+        return gcr_megachain(
+            mops, tables.tlog, tables.q, ps_pad, k_total,
+            nfreqs_true=dims.nfreqs, ntimes_true=dims.ntimes,
+            alpha_int=dims.ntimes - 1, all_unflagged=dims.all_unflagged,
+            prior=prior, refine=refine, warm_ns=warm_ns,
+            drift_max=drift_max, lean=lean, randomness=randomness,
+            seed=seed, sids=sids, iter0=iter0, impl=impl, **grouped)
+
+    return body
+
+
 def run_chunk_megachain(
     mops: MegaOperators,
     tables: MegaChainTables,
@@ -197,6 +253,8 @@ def run_chunk_megachain(
     sidc=None,
     group_idx=(),
     impl: Impl = KERNELS,
+    graph: bool = True,
+    graphs: Optional[dict] = None,
 ):
     """One chunk of ``k_total`` iterations on ``ps_pad``'s device.
 
@@ -207,6 +265,14 @@ def run_chunk_megachain(
     under ``drift_max``. ``impl``: the kernels (default) or the plain torch
     versions (``ops.kernels.impl.PLAIN``). Returns ``(ps_pad_final,
     ChainSample)``.
+
+    ``graph`` (default True): with the kernels on the card and Philox
+    streams the chunk runs as a :class:`ChunkGraph`; the sample then holds
+    views of the graph's outputs, valid until its next replay. ``graphs``:
+    optional dict of the caller's graphs for this run's operators, streams
+    and prior, keyed by chunk size and mode; a graph is captured at the
+    first chunk of each key and replayed after (default: one graph for
+    this call).
 
     ``group_times`` with more than one entry selects the grouped
     time-flags mode (:class:`TflagsMegaSetup`): ``mops``, ``ps_pad`` and
@@ -223,55 +289,24 @@ def run_chunk_megachain(
             "inv_passes/apply_passes count bf16 passes of the TPU matmul; "
             "the port computes in full float32 (only the default 3 is "
             "accepted)")
-    device = ps_pad.device
-    if randomness is not None:
-        rnd = randomness_on(randomness, device)
-        seed = sids = None
-    else:
-        rnd = None
-        if seed is None or sids is None or (G > 1 and sidc is None):
-            raise ValueError(
-                "give seed and sids, and sidc in grouped mode (the raw "
-                "position-seeded mode of the JAX package is not "
-                "composition-invariant and is not ported)")
-        sids = _ids_on(sids, device)
-        sidc = None if G == 1 else _ids_on(sidc, device)
     lean = not store_cr
-    grouped = {}
-    if G > 1:
-        bc = ps_pad.shape[0] // G
-        grouped = dict(
-            group=G, sidc=sidc,
-            row_times=torch.tensor(list(group_times) * bc, dtype=torch.int32,
-                                   device=device),
-            scatter=(None if lean else
-                     time_scatter(group_times, group_idx, dims, device)))
-    outs = gcr_megachain(
-        mops, tables.tlog, tables.q, ps_pad, k_total,
-        nfreqs_true=dims.nfreqs, ntimes_true=dims.ntimes,
-        alpha_int=dims.ntimes - 1, all_unflagged=dims.all_unflagged,
-        prior=prior_bins(prior_static, device), refine=refine,
-        warm_ns=warm_ns, drift_max=drift_max, lean=lean, randomness=rnd,
-        seed=seed, sids=sids, iter0=iter0, impl=impl, **grouped)
+    rnd = (None if randomness is None
+           else randomness_on(randomness, ps_pad.device))
+    make_body = lambda: chunk_body(
+        mops, tables, dims, prior_static, seed=seed, sids=sids,
+        randomness=rnd, refine=refine, lean=lean, warm_ns=warm_ns,
+        drift_max=drift_max, group_times=group_times, sidc=sidc,
+        group_idx=group_idx, impl=impl)
+    if use_graph(graph, rnd, impl, ps_pad):
+        key = ("megachain", k_total, lean, G, warm_ns, drift_max, refine)
+        outs = replay_chunk({} if graphs is None else graphs, key, make_body,
+                            ps_pad, k_total, iter0)
+    else:
+        outs = make_body()(ps_pad, iter0, k_total)
     if G > 1:
         return outs.ps_final, _assemble_grouped(outs, dims, G, store_cr,
                                                 chi_mask)
-
-    nf, nt, nm = dims.nfreqs, dims.ntimes, dims.nmodes
-    lnp = ln_post(outs.noise_nu, outs.bmask, outs.ps)
-    if store_cr:
-        sample = ChainSample(
-            signal_cr=outs.sig[:, :, :nf, :nt].transpose(2, 3),
-            ps=outs.ps[:, :, :nf],
-            fg_amps=outs.amp[:, :, :nm, :nt].transpose(2, 3),
-            chisq=outs.chi[:, :, :nf, :nt].transpose(2, 3),
-            ln_post=lnp)
-    else:
-        sample = ChainSample(signal_cr=None, ps=outs.ps[:, :, :nf],
-                             fg_amps=None,
-                             chisq=chi_mean(outs.chit, dims, chi_mask),
-                             ln_post=lnp)
-    return outs.ps_final, sample
+    return outs.ps_final, chain_sample(outs, dims, store_cr, chi_mask)
 
 
 def _ids_on(ids, device):
@@ -319,6 +354,10 @@ def auto_chunk(niter: int, batch: int, dims: MegaDims,
     return max(100, (k // 100) * 100)
 
 
+def _clone(sample: ChainSample) -> ChainSample:
+    return ChainSample(*(None if x is None else x.clone() for x in sample))
+
+
 def _cat(pieces):
     if len(pieces) == 1:
         return pieces[0]
@@ -350,20 +389,26 @@ def run_chain_megachain(
     group_times=(),
     sidc=None,
     group_idx=(),
+    graph: bool = True,
+    graphs: Optional[dict] = None,
 ):
     """A whole chain of ``niter`` iterations in chunks (default
     :func:`auto_chunk`), on ``ps0_pad``'s device. The streams continue at
     global iteration ``iter0``. ``randomness``: optional callable
     ``(iteration, k_total) -> dict`` of external randomness per chunk.
     ``group_times``/``sidc``/``group_idx``: the grouped time-flags mode of
-    :func:`run_chunk_megachain`. Returns ``(ps_pad_final, ChainSample over
-    niter)``."""
+    :func:`run_chunk_megachain`. ``graph``/``graphs``: as there; without
+    ``graphs`` the chunks of this call share their graphs (at most one per
+    chunk size: the chunk and a shorter tail). Returns ``(ps_pad_final,
+    ChainSample over niter)``; with a graph the last chunk's part holds
+    views of its outputs, valid until its next replay."""
     if tables is None:
         tables = make_chain_tables(mops, ps0_pad.device)
     prior_static = prior_static_from(prior, dims)
     if chunk is None:
         chunk = auto_chunk(niter, ps0_pad.shape[0], dims, store_cr)
     chunk = min(niter, chunk)
+    graphs = {} if graphs is None else graphs
     ps = ps0_pad
     pieces = []
     it = 0
@@ -376,7 +421,8 @@ def run_chain_megachain(
                         else randomness(iter0 + it, k_total)),
             refine=refine, store_cr=store_cr, chi_mask=chi_mask,
             warm_ns=warm_ns, drift_max=drift_max, group_times=group_times,
-            sidc=sidc, group_idx=group_idx)
-        pieces.append(sample)
+            sidc=sidc, group_idx=group_idx, graph=graph, graphs=graphs)
         it += k_total
+        # a graph's next replay overwrites this chunk's outputs
+        pieces.append(sample if it >= niter else _clone(sample))
     return ps, _cat(pieces)

@@ -316,11 +316,12 @@ def omegas_t(rand: dict, ntimes: int, nfreqs: int, impl: Impl):
 
 def bandpower_args(rand: dict, alpha: int) -> dict:
     """Keyword arguments of ``impl.bandpower`` from one iteration's
-    randomness: external ``gam``/``u_pb``, or ``seed``/``sids``/``g``."""
+    randomness: external ``gam``/``u_pb``, or ``seed``/``sids``/``g`` (and
+    an optional ``g_off``)."""
     if "gam" in rand:
         return dict(gam=rand["gam"], u_pb=rand["u_pb"])
     return dict(seed=rand["seed"], sids=rand["sids"], g=rand["g"],
-                alpha=alpha)
+                g_off=rand.get("g_off", 0), alpha=alpha)
 
 
 class Residual(NamedTuple):

@@ -12,6 +12,9 @@ Every C entry point returns ``cudaGetLastError()`` after its launch;
 :func:`call` raises if that is not 0. Each launch adds one to its kernel's
 count in :data:`LAUNCHES`; each call on the card of an entry composed from
 the kernels adds one to the entry's count there (:func:`count_entry`).
+Inside a CUDA graph capture (:mod:`graph`) a launch is recorded, not made:
+the capture's counts are taken back, and each replay of the graph adds
+them (:func:`counted`, :func:`add_launches`).
 """
 import ctypes
 import hashlib
@@ -35,18 +38,19 @@ U = ctypes.c_uint
 
 # argument types of every C entry point (all return int: cudaError_t)
 SIGNATURES = {
-    "hk_cgemm": [P, P, P, P, I, I, I, I, I, I, F, F, P],
-    "hk_herm_inv": [P, P, I, I, P],
+    "hk_cgemm": [P, P, P, P, I, I, I, I, I, I, F, F, P, P],
+    "hk_herm_inv": [P, P, I, I, P, P],
     "hk_herm_chol_solve": [P, P, P, P, I, I, I, P],
-    "hk_draw_rhs": [P, P, P, U, P, U, P, I, I, I, I, P, P],
-    "hk_draw_system": [P, P, P, P, U, P, U, P, P, P, P, I, I, I, I, I, P,
-                       P],
+    "hk_draw_rhs": [P, P, P, U, P, U, P, P, I, I, I, I, P, P],
+    "hk_draw_system": [P, P, P, P, U, P, U, P, P, P, P, P, I, I, I, I, I,
+                       P, P],
     "hk_row_scale_sumsq": [P, P, P, P, P, I, I, P],
     "hk_draw_resid": [P, P, P, P, P, P, P, P, P, P, P, P,
                       I, I, I, I, I, P, P],
     "hk_rng_fields": [U, P, U, P, P, I, I, I, I, I, P, P],
-    "hk_bandpower": [P, P, P, I, U, P, U, I, P, P, I, P, P, P, I,
+    "hk_bandpower": [P, P, P, I, U, P, U, P, I, P, P, I, P, P, P, I,
                      P, P, I, I, I, P],
+    "hk_warm_gate": [P, P, F, P, I, I, P],
     "hk_philox_raw": [P, P, P, I, P],
 }
 
@@ -56,7 +60,7 @@ SIGNATURES = {
 LAUNCHES = {"cgemm": 0, "herm_inv": 0, "herm_chol_solve": 0, "draw_rhs": 0,
             "draw_system": 0, "row_scale_sumsq": 0, "draw_resid": 0,
             "rng_fields": 0, "bandpower": 0, "philox_raw": 0,
-            "hermitian_solve": 0, "gcr_megastep": 0}
+            "warm_gate": 0, "hermitian_solve": 0, "gcr_megastep": 0}
 
 
 class _Library:
@@ -74,6 +78,30 @@ _LIB = _Library()
 def reset_launches():
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+
+
+class counted:
+    """``with counted() as rec:`` -- ``rec`` holds the launches counted in
+    the block (by kernel, zeros left out), and the block leaves
+    :data:`LAUNCHES` as it found it: a graph capture's launches are
+    recorded, not made, and its warm-up is set-up work."""
+
+    def __enter__(self):
+        self._before = dict(LAUNCHES)
+        self.launches = {}
+        return self
+
+    def __exit__(self, *exc):
+        self.launches = {k: v - self._before[k] for k, v in LAUNCHES.items()
+                         if v != self._before[k]}
+        LAUNCHES.update(self._before)
+
+
+def add_launches(launches: dict):
+    """Count the launches of one graph replay (recorded by :class:`counted`
+    around its capture)."""
+    for k, v in launches.items():
+        LAUNCHES[k] += v
 
 
 def _sources():
@@ -173,6 +201,17 @@ def count_entry(entry: str):
 def ptr(x):
     """Device pointer of a tensor, or None for an absent optional operand."""
     return None if x is None else x.data_ptr()
+
+
+def iteration_args(g, g_off, device):
+    """``(g, g_dev)`` of a keyed C entry for the iteration ``g + g_off``:
+    ``g`` an int gives ``(g + g_off, None)``; ``g`` a (1,) int32 tensor on
+    ``device`` gives ``(g_off, its pointer)``, and the kernel reads the
+    iteration as ``*g_dev + g_off`` at run time (graph replays)."""
+    if torch.is_tensor(g):
+        check(g, "g", torch.int32, (1,), device)
+        return int(g_off) & 0xFFFFFFFF, ptr(g)
+    return (int(g) + int(g_off)) & 0xFFFFFFFF, None
 
 
 def check(x, name, dtype, shape=None, device=None):

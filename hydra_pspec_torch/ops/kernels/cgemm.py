@@ -29,7 +29,8 @@ def _op(a, op):
     return at.conj() if op == "H" else at
 
 
-def plain_cgemm(a, b, *, op="N", x=None, alpha=1.0, beta=1.0, out=None):
+def plain_cgemm(a, b, *, op="N", x=None, alpha=1.0, beta=1.0, out=None,
+                active=None):
     """The same function with ordinary torch ops, on any device."""
     c = torch.matmul(_op(a, op), b)
     if alpha != 1.0:
@@ -38,18 +39,23 @@ def plain_cgemm(a, b, *, op="N", x=None, alpha=1.0, beta=1.0, out=None):
         c = c + (x if beta == 1.0 else beta * x)
     if out is None:
         return c
+    if active is not None:
+        c = torch.where(active[:, None, None] != 0, c, out)
     out.copy_(c)
     return out
 
 
-def cgemm(a, b, *, op="N", x=None, alpha=1.0, beta=1.0, out=None):
+def cgemm(a, b, *, op="N", x=None, alpha=1.0, beta=1.0, out=None,
+          active=None):
     """``alpha * op(a) @ b + beta * x`` for complex64 ``a`` (B, ., .) or
     shared (., .), ``b`` (B, K, N) and optional ``x`` (B, M, N). ``out``
-    may be ``x`` itself, never ``a`` or ``b``."""
+    may be ``x`` itself, never ``a`` or ``b``. ``active`` (optional int32
+    (B,)): batch elements flagged 0 are skipped and keep their ``out``."""
     if op not in OPS:
         raise ValueError(f"op must be one of {sorted(OPS)}")
-    if _build.on_cpu(a, b, x, out):
-        return plain_cgemm(a, b, op=op, x=x, alpha=alpha, beta=beta, out=out)
+    if _build.on_cpu(a, b, x, out, active):
+        return plain_cgemm(a, b, op=op, x=x, alpha=alpha, beta=beta, out=out,
+                           active=active)
     batch, K, N = b.shape
     if a.dim() == 2:
         a_batched = 0
@@ -72,7 +78,9 @@ def cgemm(a, b, *, op="N", x=None, alpha=1.0, beta=1.0, out=None):
         _build.check(out, "out", torch.complex64, (batch, M, N), dev)
         if out.data_ptr() in (a.data_ptr(), b.data_ptr()):
             raise ValueError("out may not alias a or b")
+    if active is not None:
+        _build.check(active, "active", torch.int32, (batch,), dev)
     _build.call("cgemm", "hk_cgemm", _build.ptr(a), _build.ptr(b),
                 _build.ptr(x), _build.ptr(out), batch, M, N, K, OPS[op],
-                a_batched, float(alpha), float(beta))
+                a_batched, float(alpha), float(beta), _build.ptr(active))
     return out

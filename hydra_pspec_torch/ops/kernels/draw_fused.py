@@ -15,16 +15,21 @@ Omegas: ``draw_rhs`` and ``draw_system`` take the stored fields ``ob`` /
 ``oa`` (complex64 (B, n, t)), or an :class:`OmegaKey`: the kernels then
 draw the words of ``philox.omega_fields`` for each element in registers
 (the megachain and mega engines), and the plain versions are
-``philox.omega_fields`` followed by the stored-mode op.
+``philox.omega_fields`` followed by the stored-mode op. A key's iteration
+may live on the device (a graph replay's counter, :mod:`graph`).
+
+``warm_gate`` is the megachain warm start's drift gate
+(``ops/pallas/megachain.py:366-381``): which chains rebuild their inverse,
+decided on the device.
 
 CPU tensors take the ``plain_*`` version beside each wrapper; it has the
 wrapper's signature and runs on any device.
 """
-from typing import NamedTuple
+from typing import NamedTuple, Union
 
 import torch
 
-from ..philox import MASK32, omega_fields, time_mask
+from ..philox import MASK32, iteration, omega_fields, time_mask
 from . import _build
 
 F32, C64 = torch.float32, torch.complex64
@@ -32,12 +37,20 @@ F32, C64 = torch.float32, torch.complex64
 
 class OmegaKey(NamedTuple):
     """The omegas of one iteration, by their streams: the fields
-    ``philox.omega_fields(seed, sids, g, n, t, ntimes, nfreqs, row_times)``
-    of the draw's shapes and mask."""
+    ``philox.omega_fields(seed, sids, g + g_off, n, t, ntimes, nfreqs,
+    row_times)`` of the draw's shapes and mask. ``g`` is an int, or a (1,)
+    int32 tensor on the draw's device that the kernels read when they run
+    (the first iteration of a chunk replayed as a CUDA graph)."""
 
     seed: int
     sids: torch.Tensor   # (B,) int32 row stream ids, on the draw's device
-    g: int               # global iteration
+    g: Union[int, torch.Tensor]   # global iteration, or its device counter
+    g_off: int = 0                # added to g
+
+
+def _g_tensor(key):
+    """The key's device counter, or None (for the device checks)."""
+    return key.g if key is not None and torch.is_tensor(key.g) else None
 
 
 def _check_row_times(row_times, B, dev):
@@ -53,18 +66,19 @@ def _omegas(field, key, name):
 
 
 def _key_args(key, B, dev):
-    """``(seed, sids pointer, g)`` of the C entry; zeros for stored mode."""
+    """``(seed, sids pointer, g, g_dev pointer)`` of the C entry; zeros for
+    stored mode."""
     if key is None:
-        return 0, None, 0
+        return 0, None, 0, None
     _build.check(key.sids, "key.sids", torch.int32, (B,), dev)
     return (int(key.seed) & MASK32, _build.ptr(key.sids),
-            int(key.g) & MASK32)
+            *_build.iteration_args(key.g, key.g_off, dev))
 
 
 def _plain_fields(key, shape, ntimes, nfreqs, row_times):
     _, n, t = shape
-    return omega_fields(key.seed, key.sids, key.g, n, t, ntimes, nfreqs,
-                        row_times)
+    return omega_fields(key.seed, key.sids, iteration(key.g, key.g_off), n,
+                        t, ntimes, nfreqs, row_times)
 
 
 # --- rc = ni_d + nih * omega_b * tmask -----------------------------------
@@ -83,7 +97,7 @@ def draw_rhs(nid, nih, ob, ntimes: int, row_times=None, key=None):
     :class:`OmegaKey` ``key``."""
     _omegas(ob, key, "ob")
     if _build.on_cpu(nid, nih, ob, row_times,
-                     None if key is None else key.sids):
+                     None if key is None else key.sids, _g_tensor(key)):
         return plain_draw_rhs(nid, nih, ob, ntimes, row_times, key)
     B, n, t = nid.shape
     dev = nid.device
@@ -92,11 +106,11 @@ def draw_rhs(nid, nih, ob, ntimes: int, row_times=None, key=None):
     if ob is not None:
         _build.check(ob, "ob", C64, (B, n, t), dev)
     _check_row_times(row_times, B, dev)
-    seed, sids, g = _key_args(key, B, dev)
+    seed, sids, g, g_dev = _key_args(key, B, dev)
     rc = torch.empty_like(nid)
     _build.call("draw_rhs", "hk_draw_rhs", _build.ptr(nid), _build.ptr(nih),
-                _build.ptr(ob), seed, sids, g, _build.ptr(rc), B, n, t,
-                ntimes, _build.ptr(row_times))
+                _build.ptr(ob), seed, sids, g, g_dev, _build.ptr(rc), B, n,
+                t, ntimes, _build.ptr(row_times))
     return rc
 
 
@@ -127,7 +141,7 @@ def draw_system(pt, ps, frc, oa, ntimes: int, nfreqs: int, row_times=None,
     with ``oa=None``, the :class:`OmegaKey` ``key``."""
     _omegas(oa, key, "oa")
     if _build.on_cpu(pt, ps, frc, oa, row_times,
-                     None if key is None else key.sids):
+                     None if key is None else key.sids, _g_tensor(key)):
         return plain_draw_system(pt, ps, frc, oa, ntimes, nfreqs, row_times,
                                  key)
     B, n, t = frc.shape
@@ -138,14 +152,14 @@ def draw_system(pt, ps, frc, oa, ntimes: int, nfreqs: int, row_times=None,
     if oa is not None:
         _build.check(oa, "oa", C64, (B, n, t), dev)
     _check_row_times(row_times, B, dev)
-    seed, sids, g = _key_args(key, B, dev)
+    seed, sids, g, g_dev = _key_args(key, B, dev)
     s = torch.empty_like(pt)
     xs = torch.empty_like(frc)
     dd = torch.empty_like(ps)
     dinv = torch.empty_like(ps)
     _build.call("draw_system", "hk_draw_system", _build.ptr(pt),
                 _build.ptr(ps), _build.ptr(frc), _build.ptr(oa), seed, sids,
-                g, _build.ptr(s), _build.ptr(xs), _build.ptr(dd),
+                g, g_dev, _build.ptr(s), _build.ptr(xs), _build.ptr(dd),
                 _build.ptr(dinv), B, n, t, ntimes, nfreqs,
                 _build.ptr(row_times))
     return s, xs, dd, dinv
@@ -242,3 +256,32 @@ def draw_resid(dw, sig, fa, ninvf, w, da, a0, ntimes: int, *,
                 _build.ptr(amp), _build.ptr(ws), B, n, m, t, ntimes,
                 _build.ptr(row_times))
     return chi, noise, chit, amp, ws
+
+
+# --- the warm start's drift gate ---------------------------------------------
+
+def plain_warm_gate(ps, psx, drift_max: float):
+    """int32 (B,): 1 where chain b rebuilds its inverse, unless its largest
+    relative bandpower move from ``psx`` to ``ps`` is provably at most
+    ``drift_max`` (a NaN rebuilds: ``NaN <= x`` is False)."""
+    tiny = torch.finfo(F32).tiny
+    rel = torch.abs(ps - psx) / (
+        0.5 * (torch.abs(ps) + torch.abs(psx))
+        + 1e-6 * torch.amax(psx, dim=1, keepdim=True) + tiny)
+    drift = torch.amax(rel, dim=1)
+    return torch.logical_not(drift <= drift_max).to(torch.int32)
+
+
+def warm_gate(ps, psx, drift_max: float):
+    """The rebuild flags of the warm start from the bandpowers ``ps`` and
+    ``psx`` (B, n) float32 of this and the previous iteration."""
+    if _build.on_cpu(ps, psx):
+        return plain_warm_gate(ps, psx, drift_max)
+    B, n = ps.shape
+    dev = ps.device
+    _build.check(ps, "ps", F32, (B, n), dev)
+    _build.check(psx, "psx", F32, (B, n), dev)
+    rebuild = torch.empty((B,), dtype=torch.int32, device=dev)
+    _build.call("warm_gate", "hk_warm_gate", _build.ptr(ps), _build.ptr(psx),
+                float(drift_max), _build.ptr(rebuild), B, n)
+    return rebuild

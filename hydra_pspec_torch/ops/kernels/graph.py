@@ -1,0 +1,108 @@
+"""A chunk of K Gibbs iterations as one CUDA graph: the H100's form of the
+TPU kernel ``ops/pallas/megachain.py::gcr_megachain``, which runs a chunk
+as one program (:1-10, 469-694).
+
+On the card an iteration is a fixed sequence of some 38 launches of the
+hand-written kernels plus a few torch ops. Launched from Python one at a
+time, each pays for its wrapper and a ``ctypes`` call, and the device
+idles between the short ones. :class:`ChunkGraph` captures the whole
+chunk once with ``torch.cuda.graph`` and replays it: the host then issues
+one launch a chunk. What makes a chunk capturable:
+
+* nothing in it reads back to the host: the megachain warm start decides
+  its rebuilds on the device (``draw_fused.warm_gate``, ``herm_inv`` with
+  an ``active`` mask);
+* no host-to-device copy: the caller makes every index and table tensor
+  before (the chunk bodies of ``models/megachain.py`` and
+  ``models/mega.py`` do);
+* the keyed launches (``draw_rhs``, ``draw_system``, ``bandpower``) read
+  the chunk's first iteration from the device counter :attr:`ChunkGraph.g0`
+  plus their static offset k, so a replay draws the words of its own
+  iterations, bit for bit the words of the eager run.
+
+The graph owns its static inputs (``ps_in``, ``g0``), its outputs, in its
+own memory pool, and the body, whose closure holds the chain's operators,
+tables, prior bins, stream ids and index tensors: every address the graph
+reads stays allocated while the graph lives. The caller owns the graph
+(the runner per run, ``run_chain_megachain`` per call): graphs are never
+looked up by a tensor's address, so a freed and reused address is never
+replayed.
+"""
+import time
+from typing import Callable
+
+import torch
+
+from . import _build
+
+WARMUP_ITERS = 2   # the eager warm-up: k == 0 and one k > 0 iteration
+
+
+class ChunkGraph:
+    """``body(ps, g0, k_total)`` -- a chunk of ``k_total`` iterations from
+    the bandpowers ``ps`` at the global iteration held in ``g0`` ((1,)
+    int32 on the device), returning its outputs -- captured once for
+    ``k_total`` iterations and replayed.
+
+    Construction runs one eager warm-up of ``min(k_total, 2)`` iterations
+    (every kernel and every code path of the chunk, loaded before the
+    capture), then captures ``body`` into a graph with its own memory pool
+    and instantiates it. A failure raises: there is no fallback to the
+    eager loop. The warm-up's launches and the capture's recorded ones are
+    not counted in ``_build.LAUNCHES``; each replay adds the capture's.
+
+    :meth:`replay` returns the outputs captured, views of the graph's
+    static tensors: valid until the next replay. A caller that keeps a
+    chunk's outputs past the next one copies them first (overlapping two
+    chunks needs two graphs or double-buffered outputs)."""
+
+    def __init__(self, body: Callable, ps: torch.Tensor, k_total: int):
+        if ps.device.type != "cuda":
+            raise ValueError("a chunk graph runs on a CUDA device")
+        dev = ps.device
+        self.body = body   # its closure holds the tensors the graph reads
+        self.ps_in = ps.clone()
+        self.g0 = torch.zeros((1,), dtype=torch.int32, device=dev)
+        side = torch.cuda.Stream(device=dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        t0 = time.perf_counter()
+        with _build.counted(), torch.cuda.stream(side):
+            body(self.ps_in, self.g0, min(k_total, WARMUP_ITERS))
+        torch.cuda.current_stream(dev).wait_stream(side)
+        torch.cuda.synchronize(dev)
+        self.warmup_s = time.perf_counter() - t0
+        self.graph = torch.cuda.CUDAGraph(keep_graph=True)
+        t0 = time.perf_counter()
+        with _build.counted() as rec:
+            with torch.cuda.graph(self.graph):
+                reserved0 = torch.cuda.memory_reserved(dev)
+                allocated0 = torch.cuda.memory_allocated(dev)
+                self.out = body(self.ps_in, self.g0, k_total)
+                self.pool_bytes = torch.cuda.memory_reserved(dev) - reserved0
+                self.output_bytes = (torch.cuda.memory_allocated(dev)
+                                     - allocated0)
+        self.capture_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        self.graph.instantiate()
+        self.instantiate_s = time.perf_counter() - t0
+        self.launches = rec.launches
+
+    def replay(self, ps: torch.Tensor, iter0):
+        """The chunk from bandpowers ``ps`` at global iteration ``iter0``
+        (an int): both are copied into the static inputs on the current
+        stream, then the graph is launched."""
+        self.ps_in.copy_(ps)
+        self.g0.fill_(int(iter0))
+        self.graph.replay()
+        _build.add_launches(self.launches)
+        return self.out
+
+
+def replay_chunk(graphs: dict, key, make_body: Callable, ps: torch.Tensor,
+                 k_total: int, iter0):
+    """The chunk of ``k_total`` iterations from ``ps`` at ``iter0`` through
+    the caller's graph of ``key`` in ``graphs``, captured from
+    ``make_body()`` at its first use and replayed after."""
+    if key not in graphs:
+        graphs[key] = ChunkGraph(make_body(), ps, k_total)
+    return graphs[key].replay(ps, iter0)

@@ -20,7 +20,15 @@ that kernel on blocks of at most 128 and whose products are :mod:`cgemm`.
 
 The apply step ``x = A^-1 b`` and the refinement ``x += A^-1 (b - E x)``
 (``megastep.py:176-196``) run through :mod:`cgemm`.
+
+``active`` (int32 per chain) restricts the inverse to the flagged chains:
+the megachain warm start's rebuilds, chosen on the device. Up to 128 the
+other chains' CTAs return at once and their ``out`` is left as it was;
+above, the blocked inverse runs its launches on the flagged chains and
+per-chain selects write its quadrants into ``out``.
 """
+import functools
+
 import torch
 
 from . import _build
@@ -30,7 +38,12 @@ from .spd_solve import equilibrate, split_at
 BASE_N = 128  # one launch holds the whole matrix in a block's shared memory
 
 
-def plain_herm_inv(s: torch.Tensor, out=None) -> torch.Tensor:
+def _select(active, inv, out):
+    """``out`` with the chains flagged in ``active`` replaced by ``inv``."""
+    return out.copy_(torch.where(active[:, None, None] != 0, inv, out))
+
+
+def plain_herm_inv(s: torch.Tensor, out=None, active=None) -> torch.Tensor:
     """The same function with ordinary torch ops, on any device: Cholesky,
     triangular inverse, ``L^-H L^-1``."""
     l, _ = torch.linalg.cholesky_ex(s)
@@ -39,11 +52,14 @@ def plain_herm_inv(s: torch.Tensor, out=None) -> torch.Tensor:
     inv = torch.matmul(x.transpose(-2, -1).conj(), x)
     if out is None:
         return inv
+    if active is not None:
+        return _select(active, inv, out)
     out.copy_(inv)
     return out
 
 
-def blocked_herm_inv(s: torch.Tensor, *, base, mm, base_n: int = BASE_N):
+def blocked_herm_inv(s: torch.Tensor, *, base, mm, base_n: int = BASE_N,
+                     out=None, active=None):
     """Inverse of each (n, n) Hermitian PD matrix of ``s`` (B, n, n) by the
     2 x 2 block Schur recursion of ``ops/pallas/spd_inv.py::_spd_inv_into``
     (:57-99) in complex Hermitian form, split at :func:`split_at`:
@@ -55,10 +71,15 @@ def blocked_herm_inv(s: torch.Tensor, *, base, mm, base_n: int = BASE_N):
     :func:`cgemm` contract. The blocks are copied contiguous, and ``T^H``
     too (``mm`` has no op on B). Both bases read only the lower triangle
     of the Schur complement (their Cholesky), so its rounding away from
-    Hermitian symmetry is never seen."""
+    Hermitian symmetry is never seen. ``out``/``active``: as
+    :func:`herm_inv`, each quadrant written into ``out`` by a per-chain
+    select (``base`` and ``mm`` may themselves skip the other chains)."""
     n = s.shape[-1]
     if n <= base_n:
-        return base(s)
+        inv = base(s)
+        if out is None:
+            return inv
+        return out.copy_(inv) if active is None else _select(active, inv, out)
     n1 = split_at(n, base_n)
     rec = lambda m: blocked_herm_inv(m, base=base, mm=mm, base_n=base_n)
     a12 = s[:, :n1, n1:].contiguous()
@@ -67,35 +88,49 @@ def blocked_herm_inv(s: torch.Tensor, *, base, mm, base_n: int = BASE_N):
     sinv = rec(mm(a12, t, op="H", x=s[:, n1:, n1:].contiguous(),
                   alpha=-1.0))
     ts = mm(t, sinv)
-    out = torch.empty_like(s)
-    out[:, :n1, :n1] = mm(ts, t.transpose(-2, -1).conj().contiguous(),
-                          x=inv11, out=inv11)
-    out[:, :n1, n1:] = -ts
-    out[:, n1:, :n1] = -ts.transpose(-2, -1).conj()
-    out[:, n1:, n1:] = sinv
+    mm(ts, t.transpose(-2, -1).conj().contiguous(), x=inv11, out=inv11)
+    if out is None:
+        out = torch.empty_like(s)
+    keep = None if active is None else active[:, None, None] == 0
+    top, bottom = slice(None, n1), slice(n1, None)
+    for rows, cols, block in ((top, top, inv11), (top, bottom, -ts),
+                              (bottom, top, -ts.transpose(-2, -1).conj()),
+                              (bottom, bottom, sinv)):
+        quad = out[:, rows, cols]
+        if keep is None:
+            quad.copy_(block)
+        else:
+            torch.where(keep, quad, block, out=quad)
     return out
 
 
-def herm_inv(s: torch.Tensor, out=None) -> torch.Tensor:
+def herm_inv(s: torch.Tensor, out=None, active=None) -> torch.Tensor:
     """Inverse of each (n, n) Hermitian PD matrix of ``s`` (B, n, n), any
     n: one kernel launch for n <= :data:`BASE_N`, else
     :func:`blocked_herm_inv` over such launches and :func:`cgemm` products
-    (each counted as its own launch)."""
-    if _build.on_cpu(s, out):
-        return plain_herm_inv(s, out)
+    (each counted as its own launch). ``active`` (optional int32 (B,)):
+    only the flagged chains are inverted into ``out``; the others keep
+    their ``out``."""
+    if _build.on_cpu(s, out, active):
+        return plain_herm_inv(s, out, active)
     if s.dim() != 3 or s.shape[1] != s.shape[2]:
         raise ValueError(f"herm_inv takes (B, n, n); got {tuple(s.shape)}")
     if out is not None:
         _build.check(out, "out", torch.complex64, tuple(s.shape), s.device)
     batch, n, _ = s.shape
+    if active is not None:
+        _build.check(active, "active", torch.int32, (batch,), s.device)
     if n > BASE_N:
-        inv = blocked_herm_inv(s, base=herm_inv, mm=cgemm)
-        return inv if out is None else out.copy_(inv)
+        base, mm = herm_inv, cgemm
+        if active is not None:   # the launches skip the other chains
+            base = functools.partial(herm_inv, active=active)
+            mm = functools.partial(cgemm, active=active)
+        return blocked_herm_inv(s, base=base, mm=mm, out=out, active=active)
     _build.check(s, "s", torch.complex64)
     if out is None:
         out = torch.empty_like(s)
     _build.call("herm_inv", "hk_herm_inv", _build.ptr(s), _build.ptr(out),
-                batch, n)
+                batch, n, _build.ptr(active))
     return out
 
 

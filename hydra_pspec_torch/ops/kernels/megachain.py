@@ -11,11 +11,12 @@ on the device:
   and ``draw_system`` (:class:`draw_fused.OmegaKey`; no ``rng_fields``
   launch), or external randomness;
 * the drift-gated Newton-Schulz warm start of the system inverse
-  (:349-397), decided per chain: NS refresh ``X <- X (2I - S X)`` unless
-  this is the chunk's first iteration or the chain's relative bandpower
-  move is not provably small (NaN-safe), in which case the exact inverse is
-  selected. The gate and the select are torch glue; the products and the
-  inverse are kernels;
+  (:349-397), decided per chain on the device, as the TPU kernel decides
+  it with ``pl.when``: NS refresh ``X <- X (2I - S X)`` on every chain,
+  then the exact inverse over it for the chains whose relative bandpower
+  move is not provably small (NaN-safe; the ``warm_gate`` kernel), and
+  for all at the chunk's first iteration. Nothing reads back to the host,
+  so a chunk can be captured as one CUDA graph (:mod:`graph`);
 * :func:`megastep.draw_body`;
 * the bandpower conditional (:func:`sample_bandpowers`).
 
@@ -73,6 +74,29 @@ class ChainOut(NamedTuple):
     ps_final: torch.Tensor          # (B, n)
 
 
+def chain_outputs(K: int, B: int, n: int, t: int, m: int, lean: bool, dev,
+                  scatter: Optional[TimeScatter] = None) -> dict:
+    """The K-slot outputs of a chunk (:class:`ChainOut` but ``ps_final``),
+    allocated once: the kernels write each iteration into its slot."""
+    f32, c64 = torch.float32, torch.complex64
+    out = {name: torch.empty((K, B, n), dtype=f32, device=dev)
+           for name in ("ps", "noise_nu", "bmask")}
+    out.update(sig=None, amp=None, chi=None, chit=None)
+    if lean:
+        out["chit"] = torch.empty((K, B, n), dtype=f32, device=dev)
+    elif scatter is not None:
+        bc, nt = B // scatter.group, scatter.row.shape[0]
+        nf, nm = scatter.nfreqs, scatter.nmodes
+        out["sig"] = torch.empty((K, bc, nt, nf), dtype=c64, device=dev)
+        out["amp"] = torch.empty((K, bc, nt, nm), dtype=c64, device=dev)
+        out["chi"] = torch.empty((K, bc, nt, nf), dtype=f32, device=dev)
+    else:
+        out["sig"] = torch.empty((K, B, n, t), dtype=c64, device=dev)
+        out["amp"] = torch.empty((K, B, m, t), dtype=c64, device=dev)
+        out["chi"] = torch.empty((K, B, n, t), dtype=f32, device=dev)
+    return out
+
+
 def sample_bandpowers(beta, prior: PriorBins, tlog, q, impl=KERNELS,
                       **rand):
     """The bandpower conditional of ``megachain.py:102-145``: free bins
@@ -84,7 +108,14 @@ def sample_bandpowers(beta, prior: PriorBins, tlog, q, impl=KERNELS,
 
 class _WarmStart:
     """Per-chain drift-gated Newton-Schulz warm start of the inverse,
-    carried across the iterations of one chunk."""
+    carried across the iterations of one chunk, with no host sync.
+
+    The NS products run on every chain; a chain's products depend on that
+    chain alone, so refreshing one that then rebuilds changes no kept bit.
+    ``warm_gate`` flags the chains to rebuild, and ``herm_inv`` with that
+    mask writes their exact inverse over the refreshed one (the other
+    chains' blocks return at once). The chunk's first iteration (k == 0,
+    static in a graph) rebuilds every chain."""
 
     def __init__(self, warm_ns: int, drift_max: float, impl: Impl):
         self.impl = impl
@@ -98,25 +129,12 @@ class _WarmStart:
         if k == 0:
             inv = herm_inv(s)
         else:
-            psx = self.psx
-            tiny = torch.finfo(torch.float32).tiny
-            rel = torch.abs(ps - psx) / (
-                0.5 * (torch.abs(ps) + torch.abs(psx))
-                + 1e-6 * torch.amax(psx, dim=1, keepdim=True) + tiny)
-            drift = torch.amax(rel, dim=1)
-            # rebuild unless drift is provably small: NaN <= x is False
-            rebuild = torch.logical_not(drift <= self.drift_max)
-            any_rebuild, any_ns = torch.stack(
-                [rebuild.any(), torch.logical_not(rebuild).any()]).tolist()
             inv = self.inv
-            if any_ns:
-                for _ in range(self.warm_ns):
-                    ex = mm(s, inv)
-                    inv = mm(inv, ex, x=inv, alpha=-1.0, beta=2.0)
-            if any_rebuild:
-                exact = herm_inv(s)
-                inv = exact if not any_ns else torch.where(
-                    rebuild[:, None, None], exact, inv)
+            for _ in range(self.warm_ns):
+                ex = mm(s, inv)
+                inv = mm(inv, ex, x=inv, alpha=-1.0, beta=2.0)
+            rebuild = self.impl.warm_gate(ps, self.psx, self.drift_max)
+            inv = herm_inv(s, out=inv, active=rebuild)
         self.inv = inv
         self.psx = ps
         return inv
@@ -136,7 +154,9 @@ def gcr_megachain(mops, tlog, q, ps0, k_total: int, *, nfreqs_true: int,
     Randomness: ``randomness`` (external, per-iteration arrays with a
     leading K axis: complex64 ``oa``/``ob`` (K, B, n, t), ``gam`` (K, B, n),
     ``u_pb`` (K, B, >=8)), or the Philox streams of ``seed`` and the int32
-    global chain ids ``sids`` at global iterations ``iter0 .. iter0+K-1``.
+    global chain ids ``sids`` at global iterations ``iter0 .. iter0+K-1``
+    (``iter0`` an int, or a (1,) int32 tensor on the device that the keyed
+    kernels read when they run: a graph replay's counter).
     Grouped mode (``group`` G > 1): ``sids`` are the row streams, ``sidc``
     (B,) each row's chain id, ``row_times`` (B,) int32 each row's time
     count; ``scatter`` (optional, full mode) gathers the per-time fields
@@ -153,33 +173,11 @@ def gcr_megachain(mops, tlog, q, ps0, k_total: int, *, nfreqs_true: int,
     if group > 1 and (row_times is None
                       or (randomness is None and sidc is None)):
         raise ValueError("grouped mode needs row_times, and sidc with seed")
-    out = dict(
-        ps=torch.empty((K, B, n), dtype=torch.float32, device=dev),
-        noise_nu=torch.empty((K, B, n), dtype=torch.float32, device=dev),
-        bmask=torch.empty((K, B, n), dtype=torch.float32, device=dev))
-    if lean:
-        out["chit"] = torch.empty((K, B, n), dtype=torch.float32, device=dev)
-    elif scatter is not None:
-        bc, nt = B // scatter.group, scatter.row.shape[0]
-        nf, nm = scatter.nfreqs, scatter.nmodes
-        out["sig"] = torch.empty((K, bc, nt, nf), dtype=torch.complex64,
-                                 device=dev)
-        out["amp"] = torch.empty((K, bc, nt, nm), dtype=torch.complex64,
-                                 device=dev)
-        out["chi"] = torch.empty((K, bc, nt, nf), dtype=torch.float32,
-                                 device=dev)
-    else:
-        out["sig"] = torch.empty((K, B, n, t), dtype=torch.complex64,
-                                 device=dev)
-        out["amp"] = torch.empty((K, B, m, t), dtype=torch.complex64,
-                                 device=dev)
-        out["chi"] = torch.empty((K, B, n, t), dtype=torch.float32,
-                                 device=dev)
+    out = chain_outputs(K, B, n, t, m, lean, dev, scatter)
     direct = not lean and scatter is None   # kernels write into out[...][k]
     warm = _WarmStart(warm_ns, drift_max, impl) if warm_ns > 0 else None
     ps = ps0
     for k in range(K):
-        g = iter0 + k
         key = None
         if randomness is not None:
             oa, ob = randomness["oa"][k], randomness["ob"][k]
@@ -187,9 +185,9 @@ def gcr_megachain(mops, tlog, q, ps0, k_total: int, *, nfreqs_true: int,
                         u_pb=randomness["u_pb"][k])
         else:
             oa = ob = None
-            key = OmegaKey(seed, sids, g)
-            rand = dict(seed=seed, sids=sids if group == 1 else sidc, g=g,
-                        alpha=alpha_int)
+            key = OmegaKey(seed, sids, iter0, k)
+            rand = dict(seed=seed, sids=sids if group == 1 else sidc,
+                        g=iter0, g_off=k, alpha=alpha_int)
         build_inv = None
         if warm is not None:
             build_inv = (lambda s, _ps=ps, _k=k: warm(s, _ps, _k))
@@ -212,7 +210,4 @@ def gcr_megachain(mops, tlog, q, ps0, k_total: int, *, nfreqs_true: int,
         out["bmask"][k] = d.bmask
         if lean:
             out["chit"][k] = d.chit
-    return ChainOut(sig=out.get("sig"), amp=out.get("amp"),
-                    chi=out.get("chi"), chit=out.get("chit"), ps=out["ps"],
-                    noise_nu=out["noise_nu"], bmask=out["bmask"],
-                    ps_final=ps)
+    return ChainOut(ps_final=ps, **out)

@@ -94,8 +94,8 @@ def draw_body(mops, ps, oa, ob, *, nfreqs: int, ntimes: int,
 
 def gcr_megastep(mops, ps, oa, ob, *, nfreqs: int, ntimes: int,
                  all_unflagged: bool, refine: int = 1, lean: bool = False,
-                 key: Optional[OmegaKey] = None,
-                 impl: Impl = KERNELS) -> DrawOut:
+                 key: Optional[OmegaKey] = None, impl: Impl = KERNELS,
+                 sig_out=None, amp_out=None, chi_out=None) -> DrawOut:
     """One GCR draw plus its statistics for the whole batch: the port of
     the standalone TPU entry ``ops/pallas/megastep.py::gcr_megastep``
     (:303-409, ``_mega_kernel``), the mega engine's step.
@@ -109,11 +109,12 @@ def gcr_megastep(mops, ps, oa, ob, *, nfreqs: int, ntimes: int,
     returns the JAX entry's 8 outputs in :class:`DrawOut`: ``sig`` and
     ``amp`` complex (the ``_re``/``_im`` pairs), ``chi``, ``beta``,
     ``noise_nu`` and ``bmask``; ``lean`` returns the time-reduced ``chit``
-    instead of ``sig``, ``amp`` and ``chi``. Each
-    call on the card with the kernels counts one ``gcr_megastep``
-    launch."""
+    instead of ``sig``, ``amp`` and ``chi``; ``*_out``: optional
+    preallocated full-mode outputs. Each call on the card with the kernels
+    counts one ``gcr_megastep`` launch."""
     if impl is KERNELS and ps.device.type == "cuda":
         _build.count_entry("gcr_megastep")
     return draw_body(mops, ps, oa, ob, nfreqs=nfreqs, ntimes=ntimes,
                      all_unflagged=all_unflagged, refine=refine, lean=lean,
+                     sig_out=sig_out, amp_out=amp_out, chi_out=chi_out,
                      key=key, impl=impl)

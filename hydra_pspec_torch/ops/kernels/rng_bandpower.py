@@ -108,10 +108,11 @@ def _pool_rows(x, group: int):
 
 
 def plain_bandpower(beta, prior: PriorBins, tlog, q, *, gam=None, u_pb=None,
-                    seed=None, sids=None, g=0, alpha=None, gam_out=False,
-                    group: int = 1):
+                    seed=None, sids=None, g=0, g_off: int = 0, alpha=None,
+                    gam_out=False, group: int = 1):
     """The same function with ordinary torch ops and the Philox twin, on
     any device."""
+    g = philox.iteration(g, g_off)
     if group > 1:
         beta = _pool_rows(beta, group)
         if gam is not None:
@@ -129,24 +130,27 @@ def plain_bandpower(beta, prior: PriorBins, tlog, q, *, gam=None, u_pb=None,
 
 
 def bandpower(beta, prior: PriorBins, tlog, q, *, gam=None, u_pb=None,
-              seed=None, sids=None, g=0, alpha=None, gam_out=False,
-              group: int = 1):
+              seed=None, sids=None, g=0, g_off: int = 0, alpha=None,
+              gam_out=False, group: int = 1):
     """Draw the new bandpowers (B, n) from ``beta`` (B, n).
 
     Randomness: external ``gam`` (B, n) and ``u_pb`` (B, >= bounded bins),
-    or the streams of ``seed``/``sids`` at global iteration ``g`` with
-    Gamma shape ``alpha`` (any bin count: bounded bin l takes UNIFORM
-    counter l // 4, lane l % 4). ``gam_out``: also return the Gamma draws.
+    or the streams of ``seed``/``sids`` at global iteration ``g + g_off``
+    with Gamma shape ``alpha`` (any bin count: bounded bin l takes UNIFORM
+    counter l // 4, lane l % 4); ``g`` is an int or a (1,) int32 tensor on
+    the device, read when the kernel runs (a graph replay's counter).
+    ``gam_out``: also return the Gamma draws.
 
     ``group = G > 1`` (grouped time-flags mode): rows come in chain-major
     blocks of G; ``beta`` is pooled over each block, ``sids`` holds each
     row's chain id and the draws are keyed on ``sids[c*G] + 2^30`` (or read
     from row ``c*G`` of ``gam``/``u_pb``); all G rows get the chain's
     ``ps`` and Gamma draws."""
-    if _build.on_cpu(beta, gam, u_pb, sids, tlog, q):
+    if _build.on_cpu(beta, gam, u_pb, sids, tlog, q,
+                     g if torch.is_tensor(g) else None):
         return plain_bandpower(beta, prior, tlog, q, gam=gam, u_pb=u_pb,
-                               seed=seed, sids=sids, g=g, alpha=alpha,
-                               gam_out=gam_out, group=group)
+                               seed=seed, sids=sids, g=g, g_off=g_off,
+                               alpha=alpha, gam_out=gam_out, group=group)
     external = _check_rand(gam, u_pb, sids)
     B, n = beta.shape
     if group < 1 or B % group:
@@ -166,11 +170,12 @@ def bandpower(beta, prior: PriorBins, tlog, q, *, gam=None, u_pb=None,
     npb = prior.idx.shape[0]
     for name, v in zip(("idx", "lo", "hi"), prior):
         _build.check(v, f"prior.{name}", v.dtype, (npb,), dev)
+    g_val, g_dev = _build.iteration_args(g, g_off, dev)
     ps = torch.empty_like(beta)
     g_out = torch.empty_like(beta) if gam_out else None
     _build.call("bandpower", "hk_bandpower", _build.ptr(beta),
                 _build.ptr(gam), _build.ptr(u_pb), u_stride,
-                _u32(seed or 0), _build.ptr(sids), _u32(g),
+                _u32(seed or 0), _build.ptr(sids), g_val, g_dev,
                 int(alpha or 0), _build.ptr(tlog), _build.ptr(q),
                 tlog.shape[0], _build.ptr(prior.idx), _build.ptr(prior.lo),
                 _build.ptr(prior.hi), npb, _build.ptr(ps), _build.ptr(g_out),

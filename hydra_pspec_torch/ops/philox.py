@@ -92,6 +92,20 @@ def bits_to_normals(bits1, bits2):
     return r * torch.cos(th), r * torch.sin(th)
 
 
+def iteration(g, g_off: int = 0):
+    """The iteration ``g + g_off``: an int for an int ``g``; for ``g`` a
+    one-element integer tensor (the device counter of a graph replay), a
+    0-dim int64 tensor on its device, read without a host sync."""
+    if torch.is_tensor(g):
+        return g.reshape(()).to(torch.int64) + int(g_off)
+    return int(g) + int(g_off)
+
+
+def _word(g):
+    """The uint32 counter word of iteration ``g`` (see :func:`iteration`)."""
+    return iteration(g) & MASK32
+
+
 def _keys(seed: int, sids: torch.Tensor):
     k0 = int(seed) & MASK32
     k1 = sids.to(torch.int64) & MASK32
@@ -122,9 +136,10 @@ def time_mask(t: int, ntimes: int, device, row_times=None) -> torch.Tensor:
     return (j[None, None, :] < row_times[:, None, None]).to(torch.float32)
 
 
-def omega_fields(seed: int, sids: torch.Tensor, g: int, n: int, t: int,
+def omega_fields(seed: int, sids: torch.Tensor, g, n: int, t: int,
                  ntimes: int, nfreqs: int, row_times=None):
-    """The two omega fields of one iteration, complex64 ``(B, n, t)``:
+    """The two omega fields of iteration ``g`` (see :func:`iteration`),
+    complex64 ``(B, n, t)``:
     ``oa`` (delay basis, scaled sqrt(1/2) sqrt(nfreqs)) and ``ob``
     (frequency basis, scaled sqrt(1/2)). Zero on time lanes >= ntimes, or
     with ``row_times`` (B,) on lanes >= row b's count."""
@@ -132,7 +147,7 @@ def omega_fields(seed: int, sids: torch.Tensor, g: int, n: int, t: int,
     k0, k1 = _keys(seed, sids)
     i = torch.arange(n, dtype=torch.int64, device=dev)[None, :, None]
     j = torch.arange(t, dtype=torch.int64, device=dev)[None, None, :]
-    w0, w1, w2, w3 = philox4x32(int(g) & MASK32, OMEGA, i, j,
+    w0, w1, w2, w3 = philox4x32(_word(g), OMEGA, i, j,
                                 k0, k1[:, None, None])
     half = torch.tensor(math.sqrt(0.5), dtype=torch.float32)
     sa = half * torch.sqrt(torch.tensor(float(nfreqs), dtype=torch.float32))
@@ -161,7 +176,7 @@ def gamma_draws(seed: int, sids: torch.Tensor, g: int, n: int,
     for r0 in range(0, nr, GAMMA_CHUNK):
         r = torch.arange(r0, min(nr, r0 + GAMMA_CHUNK), dtype=torch.int64,
                          device=dev)[None, None, :]
-        words = philox4x32(int(g) & MASK32, GAMMA, i, r, k0,
+        words = philox4x32(_word(g), GAMMA, i, r, k0,
                            k1[:, None, None])
         prod = None
         for q, wq in enumerate(words):
@@ -180,6 +195,6 @@ def prior_uniforms(seed: int, sids: torch.Tensor, g: int,
     k0, k1 = _keys(seed, sids)
     nr = max(2, -(-int(count) // 4))
     r = torch.arange(nr, dtype=torch.int64, device=sids.device)[None, :]
-    words = philox4x32(int(g) & MASK32, UNIFORM, 0, r, k0, k1[:, None])
+    words = philox4x32(_word(g), UNIFORM, 0, r, k0, k1[:, None])
     # (B, nr, 4): lane 4r + q
     return uniform_open(torch.stack(words, dim=2)).reshape(-1, 4 * nr)

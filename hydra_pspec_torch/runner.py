@@ -179,7 +179,10 @@ def run_baselines(
     card by default; ``device="cpu"`` runs the plain versions of the
     kernels); returns ``(results, timings)`` with one :class:`RunResult`
     per pair. ``timings["engine"]`` names the engine that ran
-    (:func:`route_engine`).
+    (:func:`route_engine`). On the card the megachain and mega engines run
+    each chunk of ``write_niter`` iterations as one CUDA graph, captured at
+    the run's first chunk (and first shorter tail) and replayed
+    (``ops/kernels/graph.py``), unless ``randomness`` is given.
 
     ``map_estimate``: the MAP estimate (no fluctuation draws), one
     iteration on the real engine (``niter`` and ``write_niter`` become 1).
@@ -257,18 +260,21 @@ def run_baselines(
         torch.cuda.synchronize(device)
     t_scatter = time.perf_counter() - t_scatter0
 
+    graphs = {}   # this run's chunk graphs (the card, Philox streams)
+
     def run_chunk(ps, n, done):
         if engine == "megachain":
             return megachain.run_chain_megachain(
                 mops, dims, ps, prior_host, n, seed=seed, sids=sid_b,
                 iter0=done, randomness=randomness, tables=tables,
                 store_cr=store_cr, chunk=n, warm_ns=warm_ns,
-                drift_max=drift_max)
+                drift_max=drift_max, graphs=graphs)
         rnd = _chunk_randomness(randomness, done, n, device)
         if engine == "mega":
             return mega.run_chain_mega(
                 mops, dims, ps, bins, n, tables.tlog, tables.q, seed=seed,
-                sids=sid_b, iter0=done, randomness=rnd, store_cr=store_cr)
+                sids=sid_b, iter0=done, randomness=rnd, store_cr=store_cr,
+                graphs=graphs)
         return rgibbs.run_chain(
             rops, ps, bins, n, seed=seed, sids=sid_b, iter0=done,
             randomness=rnd, map_estimate=map_estimate, jitter=jitter,
@@ -493,6 +499,7 @@ def _tflags_megachain(groups, sid_host, device, seed, store_cr, randomness,
     if randomness is not None:
         rnd = (lambda it, k: randomness(it, k, sids=sids_row, sidc=sidc_rows,
                                         group=G))
+    graphs = {}   # this signature's chunk graphs
 
     def run(ps, n, done):
         return megachain.run_chain_megachain(
@@ -500,7 +507,7 @@ def _tflags_megachain(groups, sid_host, device, seed, store_cr, randomness,
             sids=sids_t, iter0=done, randomness=rnd, tables=tables,
             store_cr=store_cr, chunk=n, warm_ns=warm_ns,
             drift_max=drift_max, group_times=setup.group_times,
-            sidc=sidc_t, group_idx=setup.group_idx)
+            sidc=sidc_t, group_idx=setup.group_idx, graphs=graphs)
 
     return (run, lambda ps: _per_row(mega.pad_ps(ps, setup.dims, device), G),
             lambda ps: ps[::G])

@@ -88,15 +88,16 @@ def card_branch(monkeypatch):
 
 
 def test_contract_launch_arguments(card_branch):
-    """One launch a call for n <= 128 with the shapes the C entries take;
-    herm_chol_solve passes no L scratch (L stays in shared memory)."""
+    """One launch a call for n <= 128 with the shapes the C entries take
+    (and no ``active`` mask unless one is given); herm_chol_solve passes no
+    L scratch (L stays in shared memory)."""
     s = _fake(_c64(_spd(120, 1)))
     b = _fake(_c64(_rhs(120, 203, 2)))
     inv = thi.herm_inv(s)
     x = tss.herm_chol_solve(s, b)
     assert inv.shape == s.shape and x.shape == b.shape
     (k1, e1, a1), (k2, e2, a2) = card_branch
-    assert (k1, e1, a1[2:]) == ("herm_inv", "hk_herm_inv", (B, 120))
+    assert (k1, e1, a1[2:]) == ("herm_inv", "hk_herm_inv", (B, 120, None))
     assert (k2, e2) == ("herm_chol_solve", "hk_herm_chol_solve")
     assert a2[2] is None and a2[4:] == (B, 120, 203)
 

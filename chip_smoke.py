@@ -37,6 +37,12 @@ Phases, one printed line each (any failure raises; exit code non-zero):
   5. main path: runner.run_baselines, 100 baselines x 1 chain at
      203 times x 120 channels, 12 Legendre foreground modes, 7-bin prior,
      200 iterations, on data drawn from the model (chi^2 should be 1);
+     the host side's split from the runner's timings (process, write,
+     flush, pool wait and the pool threads' write seconds, fetch wait,
+     staging copy, pinned bytes, the two graph slots' pools; the native
+     writer required) and from the runner's own profile_dir trace of its
+     steady-state chunk (device kernel busy seconds, DtoH bytes, seconds
+     and GB/s, pinned required; host seconds by span);
   6. invariance: the first 10 baselines alone give bit-identical samples,
      and so do they with all-False time flags (the grouped path, G=1);
   graph: at B=100 a chunk of 10 iterations from global iteration 37 as a
@@ -65,6 +71,16 @@ Phases, one printed line each (any failure raises; exit code non-zero):
      the mega engine with a 21-bin prior (100 baselines x 100) and with
      1100 times (10 x 50): chi^2 within 2 %; with 7 bins mega is
      bit-identical to megachain without the warm start;
+  cli: the production entry point after the load, cli.run.run_jobs, on
+     the main path's 100 jobs with a RunConfig made from flags (200
+     iterations in chunks of 50, so each graph slot replays twice,
+     store_cr, the main seed, profile_dir): git.json, args.json,
+     timings.json and resources.json with the JAX CLI's keys, the native
+     writer, pinned copies in the trace, chi^2 within 2 %, every main
+     kernel launched, the checkpoint at 200; every baseline's six files
+     bit-identical to the same chunks run eagerly with synchronous copies
+     (run_baselines overlap=False) and to a run stopped at 100 and
+     resumed; as information, whether chunks of 100 give the same files;
   wideband: the same model-drawn data at 203 times x 180 channels (HERA
      Phase I sub-bands), where the blocked herm_inv and herm_chol_solve
      run, from S_initial = I as everywhere, 400 iterations with the gates
@@ -76,7 +92,10 @@ Phases, one printed line each (any failure raises; exit code non-zero):
      factor-solve calls a solve); solver="pallas2", 10 x 50; the mega
      engine with 21 prior bins, 20 baselines (chi^2 within 2 %, two
      herm_inv launches an iteration);
-  9. times: one chain iteration and each kernel at B=100, one grouped
+  9. times, in a process of its own (python3 chip_smoke.py --times OUT,
+     started by this one: a profiler session earlier in a process and the
+     large runs after it make later windows lose device activities): one
+     chain iteration and each kernel at B=100, one grouped
      chain iteration and the grouped kernels at 100 chains x G=4, one real
      iteration (dense noise, pallas and pallas2) and one mega iteration at
      B=100 (megachain, grouped, mega and the wide band each eagerly and as
@@ -108,6 +127,7 @@ wideband runs; the last line is the device JSON object.
 """
 import collections
 import dataclasses
+import filecmp
 import json
 import math
 import shutil
@@ -150,6 +170,12 @@ WIDE_NITER, WIDE_WRITE_NITER, WIDE_BURN = 400, 200, 200
 N_WIDE_DENSE, N_WIDE_MEGA = 20, 20
 N_WIDE_PALLAS2, WIDE_PALLAS2_NITER = 10, 50
 PROFILE_ITERS = 5             # the profiler window: plain iterations at B=100
+# the cli phase: the main phase's jobs through cli.run.run_jobs, 4 chunks
+# (each of the two graph slots replayed twice), the resume split at 100
+CLI_NITER, CLI_WRITE_NITER, CLI_RESUME_AT = 200, 50, 100
+# the runner's profiler spans of the host side (runner.py)
+HOST_SPANS = ("hydra:chunk", "hydra:fetch_wait", "hydra:staging",
+              "hydra:flush", "hydra:pool_wait")
 # the tile kernels' widths: one ragged tile, one full, ragged second,
 # third and fourth tiles, the real engine's 120, the pad of one, full 128;
 # right-hand sides: one, one over a tile, the reference's time count
@@ -1139,7 +1165,8 @@ def phase_graph(dev, jobs, jobs_w):
 class _DeviceAudit(TorchDispatchMode):
     """Counts the ops that produce tensors on each device; host transfers
     (the flush of samples) are the only ops allowed to produce CPU
-    tensors."""
+    tensors, and tensors in pinned memory (the runner's staging of those
+    transfers)."""
 
     HOST_OK = {"_to_copy", "copy_", "lift_fresh", "lift_fresh_copy",
                "_local_scalar_dense", "detach", "alias", "view"}
@@ -1156,21 +1183,88 @@ class _DeviceAudit(TorchDispatchMode):
             if isinstance(o, torch.Tensor):
                 if o.device.type == "cuda":
                     self.cuda_ops += 1
-                else:
+                elif not o.is_pinned():
                     name = func.__name__.split(".")[0]
                     if name not in self.HOST_OK:
                         self.cpu_ops[name] += 1
         return out
 
 
+def trace_split(label, profile_dir):
+    """The runner's profiled turn of its chunk loop, from the Chrome trace
+    it wrote into ``profile_dir``: the device's kernel busy seconds (union
+    of kernel spans), the device-to-host copies (bytes, seconds, GB/s,
+    pinned or pageable) and the host seconds in each of the runner's
+    spans. Fails unless the chunk's samples left by a pinned copy."""
+    files = sorted(Path(profile_dir).glob("chunk-*.trace.json"))
+    require(len(files) == 1, f"{label}: no single runner trace in "
+            f"{profile_dir}: {files}")
+    ev = json.loads(files[0].read_text())["traceEvents"]
+    spans = sorted((e["ts"], e["ts"] + e["dur"]) for e in ev
+                   if e.get("cat") == "kernel")
+    busy, hi = 0.0, -math.inf
+    for t0, t1 in spans:
+        busy += max(0.0, t1 - max(t0, hi))
+        hi = max(hi, t1)
+    d2h = [e for e in ev if e.get("cat") == "gpu_memcpy"
+           and "DtoH" in e.get("name", "")]
+    pinned = [e for e in d2h if "Pinned" in e["name"]]
+    nbytes = sum(int(e.get("args", {}).get("bytes", 0)) for e in d2h)
+    d2h_s = sum(e["dur"] for e in d2h) / 1e6
+    timed = [e for e in ev if "dur" in e and e.get("ph") == "X"]
+    window = (max(e["ts"] + e["dur"] for e in timed)
+              - min(e["ts"] for e in timed)) / 1e6
+    host = {k: sum(e["dur"] for e in ev if e.get("cat") == "user_annotation"
+                   and e.get("name") == k) / 1e6 for k in HOST_SPANS}
+    out = {"trace": files[0].name, "window_s": window,
+           "device_busy_s": busy / 1e6, "kernels": len(spans),
+           "d2h_copies": len(d2h), "d2h_pinned_copies": len(pinned),
+           "d2h_bytes": nbytes, "d2h_s": d2h_s,
+           "d2h_GB_s": nbytes / d2h_s / 1e9 if d2h_s else None,
+           "host_s": host}
+    say(label, f"runner trace {files[0].name}: window {window:.4f} s; "
+        f"device kernels busy {busy / 1e6:.4f} s ({len(spans)} kernels); "
+        f"DtoH {len(d2h)} copies, {nbytes} bytes in {d2h_s:.4f} s = "
+        f"{out['d2h_GB_s'] or 0:.2f} GB/s, to pinned memory: "
+        f"{len(pinned)} of {len(d2h)}; host s {host}")
+    require(d2h and len(pinned) == len(d2h),
+            f"{label}: the chunk's samples did not leave by pinned copies")
+    return out
+
+
+def host_side(label, tim, nbl, niter):
+    """The runner's host-side split (its ``timings``) as a line and a
+    dict."""
+    sampling = tim["process"] - tim["write"]
+    keys = ("process", "write", "flush", "pool_wait", "pool", "fetch_wait",
+            "staging", "pin_alloc", "pinned_bytes", "is_native",
+            "graph_pool_bytes")
+    out = dict({k: tim[k] for k in keys},
+               sampling_baseline_iters_per_s=nbl * niter / sampling)
+    say(label, f"host side: process {tim['process']:.3f} s, write "
+        f"{tim['write']:.3f} s (flush submit {tim['flush']:.3f}, pool wait "
+        f"{tim['pool_wait']:.3f}), sampling only "
+        f"{out['sampling_baseline_iters_per_s']:.1f} baseline-iterations/s; "
+        f"fetch wait {tim['fetch_wait']:.3f} s, staging copy "
+        f"{tim['staging']:.3f} s, pinned allocation {tim['pin_alloc']:.3f} "
+        f"s; pool threads' write seconds "
+        f"{tim['pool']:.3f}, native writer {tim['is_native']}; pinned "
+        f"staging {tim['pinned_bytes'] / 2**20:.1f} MiB; graph slots' pools "
+        f"{[round(b / 2**20, 1) for b in tim['graph_pool_bytes']]} MiB")
+    require(tim["is_native"], f"{label}: the native writer did not load")
+    return out
+
+
 def run_megachain_path(label, dev, jobs, nf, niter=NITER,
-                       write_niter=WRITE_NITER, burn=50):
+                       write_niter=WRITE_NITER, burn=50, profile_dir=None):
     """run_baselines on ``jobs`` (megachain, files and checkpoint) for
     ``niter`` iterations under the device audit, with the launch counts
     set to 0 just before and read just after: the six reference files, the
     checkpoint, the chi^2 gate over the iterations after ``burn`` and
-    every main kernel launched. Returns (results, launches, the sampling
-    rate in baseline-iterations/s, stats)."""
+    every main kernel launched; the host-side split, and with
+    ``profile_dir`` the runner's trace of its steady-state chunk (pinned
+    copies required). Returns (results, launches, the sampling rate in
+    baseline-iterations/s, stats)."""
     from hydra_pspec_torch import runner
     from hydra_pspec_torch.ops.kernels import _build
     from hydra_pspec_torch.utils import io as hio
@@ -1182,7 +1276,7 @@ def run_megachain_path(label, dev, jobs, nf, niter=NITER,
         results, tim = runner.run_baselines(
             jobs, make_prior(nf=nf), niter, device=dev, seed=SEED,
             write_niter=write_niter, store_cr=True, warm_ns=3,
-            drift_max=0.6)
+            drift_max=0.6, profile_dir=profile_dir)
     sync(dev)
     wall = time.perf_counter() - t0
     launches = dict(_build.LAUNCHES)
@@ -1195,6 +1289,9 @@ def run_megachain_path(label, dev, jobs, nf, niter=NITER,
     say(label, f"iterations/s {niter / sampling:.2f} sampling only "
         f"({niter / tim['process']:.2f} with flushes); baseline-iterations/s "
         f"{rate:.1f}")
+    host = host_side(label, tim, len(jobs), niter)
+    if profile_dir is not None:
+        host.update(trace=trace_split(label, profile_dir))
     require(tim["device"].startswith("cuda"), "runner did not run on cuda")
     require(tim["engine"] == "megachain", f"{label}: ran {tim['engine']}")
     say(label, f"device audit: {audit.cuda_ops} cuda tensor ops, CPU "
@@ -1240,7 +1337,8 @@ def run_megachain_path(label, dev, jobs, nf, niter=NITER,
              "wall_s": wall, "build_s": tim["scatter"],
              "process_s": tim["process"], "flush_s": tim["write"],
              "baseline_iters_per_s": rate, "chi2": chi2,
-             "chi2_burn": burn, "chi2_windows_50": windows}
+             "chi2_burn": burn, "chi2_windows_50": windows,
+             "host_side": host}
     return results, launches, rate, stats
 
 
@@ -1250,8 +1348,155 @@ def phase_main(dev, out_root):
 
     jobs = make_jobs(N_BASELINES, runner.BaselineJob, legendre_fgmodes,
                      out_root)
-    results, launches, rate, _ = run_megachain_path("main", dev, jobs, NF)
-    return jobs, results, launches, rate
+    results, launches, rate, stats = run_megachain_path(
+        "main", dev, jobs, NF, profile_dir=out_root / "main-trace")
+    return jobs, results, launches, rate, stats["host_side"]
+
+
+# --- cli ---------------------------------------------------------------------
+
+# the JAX CLI's artifact keys (hydra_pspec_tpu/utils/provenance.py)
+CLI_JSON_KEYS = {
+    "git.json": {"git_origin", "git_hash", "git_description", "git_branch"},
+    "timings.json": {"num_ranks", "num_baselines", "rank_0_timers",
+                     "write_data"},
+    "resources.json": {"ru_maxrss", "ru_utime", "ru_stime"},
+}
+RANK0_TIMERS = {"load_data", "scatter", "process", "barrier", "total"}
+
+
+def differing_files(dir_a, dir_b, jobs):
+    """The sample files of ``jobs`` that differ, byte for byte, between
+    two results directories."""
+    from hydra_pspec_torch.utils.io import SAMPLE_FILENAMES
+
+    bad = []
+    for j in jobs:
+        bl = f"{j.antpair[0]}-{j.antpair[1]}"
+        for name in SAMPLE_FILENAMES.values():
+            if not filecmp.cmp(Path(dir_a) / bl / name,
+                               Path(dir_b) / bl / name, shallow=False):
+                bad.append(f"{bl}/{name}")
+    return bad
+
+
+def phase_cli(dev, jobs_main, out_root):
+    """The production entry point after the load: ``cli.run.run_jobs`` on
+    the main phase's jobs with a RunConfig made from flags (no yaml, no
+    h5py), CLI_NITER iterations in chunks of CLI_WRITE_NITER (each of the
+    two graph slots replayed twice), with the runner's trace. Gates: the
+    JAX CLI's artifacts and keys, the native writer, the pinned copies in
+    the trace, chi^2 within 2 %, every main kernel launched, the
+    checkpoint at CLI_NITER, every file bit-identical to the same chunks
+    run eagerly with synchronous copies (``overlap=False``), and to a run
+    stopped at CLI_RESUME_AT and resumed. As information: whether chunks
+    of CLI_WRITE_NITER and of 2 x CLI_WRITE_NITER give the same bits."""
+    from hydra_pspec_torch import runner
+    from hydra_pspec_torch.cli import run as cli
+    from hydra_pspec_torch.ops.kernels import _build
+    from hydra_pspec_torch.utils import io as hio
+    from hydra_pspec_torch.utils.config import RunConfig
+
+    prior = make_prior()
+    lo, hi = prior[1][prior[1] > 0].min(), prior[0].max()
+    flags = dict(Niter=CLI_NITER, write_Niter=CLI_WRITE_NITER, store_cr=True,
+                 seed=SEED, out_dir=str(out_root), dirname="cli",
+                 n_ps_prior_bins=PRIOR_HALF, ps_prior_lo=float(lo),
+                 ps_prior_hi=float(hi), warm_ns=3, drift_max=0.6,
+                 profile_dir=str(out_root / "cli-trace"))
+    cfg = RunConfig.from_dict(flags)
+
+    def run(cfg):
+        out = cli.output_dir(cfg)
+        jobs = [dataclasses.replace(j, out_dir=out / f"{a}-{b}")
+                for j in jobs_main for a, b in [j.antpair]]
+        t0 = time.perf_counter()
+        results, tim = cli.run_jobs(cfg, jobs, NF, len(jobs), 0.0, out,
+                                    device=dev)
+        sync(dev)
+        return out, jobs, results, tim, time.perf_counter() - t0
+
+    _build.reset_launches()
+    out, jobs, results, tim, wall = run(cfg)
+    launches = dict(_build.LAUNCHES)
+    say("cli", f"run_jobs: {len(jobs)} baselines x {CLI_NITER} iterations "
+        f"in chunks of {CLI_WRITE_NITER}: wall {wall:.2f} s, engine "
+        f"{tim['engine']}, into {out.name}/")
+    host = host_side("cli", tim, len(jobs), CLI_NITER)
+    host.update(trace=trace_split("cli", cfg.profile_dir), wall_s=wall)
+    for name, keys in CLI_JSON_KEYS.items():
+        got = json.loads((out / name).read_text())
+        require(set(got) == keys, f"cli: {name} keys {sorted(got)}")
+    tj = json.loads((out / "timings.json").read_text())
+    require(set(tj["rank_0_timers"]) == RANK0_TIMERS
+            and len(tj["write_data"][0]["ant_pairs"]) == len(jobs),
+            "cli: timings.json does not follow the reference schema")
+    args = json.loads((out / "args.json").read_text())
+    require(set(args) == {f.name for f in dataclasses.fields(RunConfig)},
+            "cli: args.json keys are not RunConfig's")
+    ck = hio.load_checkpoint(out)
+    require(ck is not None and ck["iteration"] == CLI_NITER,
+            "cli: no checkpoint at the last iteration")
+    missing = [k for k in MAIN_KERNELS if launches[k] == 0]
+    require(tim["engine"] == "megachain" and not missing,
+            f"cli: engine {tim['engine']}, kernels never launched {missing}")
+    chi2 = float(np.mean([r.chisq[50:].mean() for r in results]))
+    del results
+    say("cli", f"git.json, args.json, timings.json, resources.json with "
+        f"the JAX CLI's keys; checkpoint at {CLI_NITER}; launches "
+        f"{launches}; mean chi^2 over iterations 51-{CLI_NITER}: "
+        f"{chi2:.5f} (gate |chi^2 - 1| <= {CHI2_GATE})")
+    require(abs(chi2 - 1.0) <= CHI2_GATE, "cli chi^2 gate")
+
+    # the same chunks, eagerly, with synchronous copies and a serial loop
+    eager = out_root / "eager"
+    ejobs = [dataclasses.replace(j, out_dir=eager / j.out_dir.name)
+             for j in jobs]
+    t0 = time.perf_counter()
+    _, etim = runner.run_baselines(
+        ejobs, cli.build_prior(cfg, NF), CLI_NITER, device=dev, seed=SEED,
+        write_niter=CLI_WRITE_NITER, store_cr=True, warm_ns=3,
+        drift_max=0.6, overlap=False)
+    sync(dev)
+    ewall = time.perf_counter() - t0
+    eager_host = host_side("cli eager", etim, len(jobs), CLI_NITER)
+    eager_host.update(wall_s=ewall)
+    bad = differing_files(out, eager, jobs)
+    say("cli", f"eager serial run (overlap=False): wall {ewall:.2f} s; "
+        f"files differing from the overlapped graph run: {len(bad)} of "
+        f"{6 * len(jobs)}")
+    require(not bad, f"cli: files differ from the eager run: {bad[:5]}")
+    shutil.rmtree(eager)
+
+    # stopped at CLI_RESUME_AT, resumed to CLI_NITER
+    part = dataclasses.replace(cfg, dirname="cli-resume",
+                               Niter=CLI_RESUME_AT, profile_dir=None)
+    run(part)
+    res_out, _, _, rtim, _ = run(dataclasses.replace(part, Niter=CLI_NITER,
+                                                     resume=True))
+    bad = differing_files(out, res_out, jobs)
+    say("cli", f"stopped at {CLI_RESUME_AT}, resumed from "
+        f"{rtim['start_iter']} to {CLI_NITER}: files differing "
+        f"{len(bad)} of {6 * len(jobs)}")
+    require(rtim["start_iter"] == CLI_RESUME_AT and not bad,
+            f"cli: the resumed run differs: {bad[:5]}")
+    shutil.rmtree(res_out)
+
+    # information: does a coarser chunking give the same bits?
+    coarse, *_ = run(dataclasses.replace(
+        cfg, dirname="cli-coarse", write_Niter=2 * CLI_WRITE_NITER,
+        profile_dir=None))
+    bad = differing_files(out, coarse, jobs)
+    say("cli", f"write_Niter {2 * CLI_WRITE_NITER} against "
+        f"{CLI_WRITE_NITER}: {len(bad)} of {6 * len(jobs)} files differ "
+        f"(information only: the warm start rebuilds every inverse at a "
+        f"chunk's first iteration)")
+    shutil.rmtree(coarse)
+    shutil.rmtree(out)
+    return {"niter": CLI_NITER, "write_niter": CLI_WRITE_NITER,
+            "chi2": chi2, "launches": launches, "host_side": host,
+            "eager_host_side": eager_host,
+            "coarse_chunking_files_differing": len(bad)}
 
 
 # --- 6. invariance -----------------------------------------------------------
@@ -2438,6 +2683,43 @@ def phase_times_wide(dev, jobs_w):
                 masked_none_active_ms=masked_ms)
 
 
+def times_process(out_root):
+    """The timing phases (9) in a process of their own, on the same card,
+    their results read back. In the process that ran the runner's traces
+    (the main and cli phases' profile_dir) and the large runs after them,
+    later profiler windows lost device activities (CUPTI records), so the
+    windows of the timing phases start from a fresh process."""
+    out = Path(out_root) / "times.json"
+    subprocess.run([sys.executable, str(Path(__file__).resolve()), "--times",
+                    str(out)], check=True)
+    got = json.loads(out.read_text())
+    return got["tm"], got["tf"], got["tw"]
+
+
+def times_main(out):
+    """``python3 chip_smoke.py --times OUT``: the timing phases on the main
+    path's, the dense and the wide band's jobs (made from the same seeds
+    as in their phases), their results written to OUT as JSON."""
+    from hydra_pspec_torch import runner
+    from hydra_pspec_torch.cli.run import legendre_fgmodes
+    from hydra_pspec_torch.ops.kernels import _build
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    _build.library()
+    jobs = make_jobs(N_BASELINES, runner.BaselineJob, legendre_fgmodes)
+    dense = make_jobs(N_BASELINES, runner.BaselineJob, legendre_fgmodes,
+                      dense=True, seed=SEED + 3)
+    jobs_w = make_jobs(N_BASELINES, runner.BaselineJob, legendre_fgmodes,
+                       nf=WIDE_NF, seed=SEED + 20)
+    tm = phase_times(dev, jobs)
+    tf = phase_times_fallback(dev, jobs, dense, tm)
+    tw = phase_times_wide(dev, jobs_w)
+    Path(out).write_text(json.dumps({"tm": tm, "tf": tf, "tw": tw},
+                                    default=float))
+
+
 def main():
     phase_env()
     dev = torch.device("cuda", 0)
@@ -2466,7 +2748,7 @@ def main():
                        nf=WIDE_NF, seed=SEED + 20)
     out_root = Path(tempfile.mkdtemp(prefix="chip_smoke_"))
     try:
-        jobs, results, launches, rate = phase_main(dev, out_root)
+        jobs, results, launches, rate, main_host = phase_main(dev, out_root)
         phase_invariance(dev, jobs, results)
         del results
         graphs = phase_graph(dev, jobs, jobs_w)
@@ -2474,11 +2756,12 @@ def main():
         fb_launches, fb_stats, dense = phase_fallback(
             dev, jobs, out_root / "fallback")
         shutil.rmtree(out_root)   # the earlier files are checked: free
-        out_root.mkdir()          # the disk for the wide band's
+        out_root.mkdir()          # the disk for the cli's and wide band's
+        cli_stats = phase_cli(dev, jobs, out_root)
         wb_launches, wb_stats = phase_wideband(dev, out_root / "wideband")
-        tm = phase_times(dev, jobs)
-        tf = phase_times_fallback(dev, jobs, dense, tm)
-        tw = phase_times_wide(dev, jobs_w)
+        del jobs_w, dense
+        torch.cuda.empty_cache()
+        tm, tf, tw = times_process(out_root)
     finally:
         shutil.rmtree(out_root, ignore_errors=True)
 
@@ -2531,6 +2814,7 @@ def main():
                             "real": N_BASELINES, "mega": N_BASELINES},
         "herm_chol_solve_k1": tf["chol_k1"],
         "main_baseline_iters_per_s": rate,
+        "host_side": {"main": main_host, "cli": cli_stats},
         "tflags": dict(tf_stats, launches=tf_launches),
         "fallback": fb_stats,
         "cgemm_shapes": tm["cgemm_rows"],
@@ -2550,4 +2834,7 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--times"]:
+        times_main(sys.argv[2])
+    else:
+        main()

@@ -1,7 +1,100 @@
-"""Pieces of the command-line driver that the library path needs (port of
-``hydra_pspec_tpu/cli/run.py:97-193``). The CLI itself (uvh5 reading with
-h5py, YAML configs) is not ported yet: ROADMAP.md, Queue 1 item 5."""
+"""Command-line driver of the port (``hydra_pspec_tpu/cli/run.py`` for one
+process): the reference's run-hydra-pspec.py YAML keys and flags, its
+per-baseline file conventions, output layout and provenance artifacts, on
+the card.
+
+Usage:
+    python -m hydra_pspec_torch.cli.run --config config.yaml [flags]
+    run-hydra-pspec-torch --config config.yaml [flags]
+
+uvh5 input is read with h5py and a YAML config with pyyaml, each imported
+where it is read: :func:`run_jobs`, everything after the load, needs
+neither. The port's policy: ``precision`` ``auto`` or ``x32`` runs the
+float32 engines; ``x64`` (the complex float64 engine) and
+``--num_processes`` above 1 raise ``NotImplementedError`` (ROADMAP.md,
+Queue 1 items 6 and 5); ``engine: auto`` is megachain
+(``runner.select_engine``), and ``runner.route_engine`` sends what it
+does not cover to the mega or real engine.
+"""
+import argparse
+import sys
+import time
+import typing
+from dataclasses import fields
+from pathlib import Path
+
 import numpy as np
+
+from ..parallel.partition import local_indices
+from ..runner import BaselineJob, gelman_rubin, run_baselines
+from ..utils import provenance
+from ..utils import uvh5 as uv
+from ..utils.config import RunConfig, resolve_per_baseline
+from ..utils.io import add_mtime_to_filepath
+
+
+def build_parser():
+    p = argparse.ArgumentParser(
+        description="hydra-pspec on the GPU (config-compatible driver).")
+    p.add_argument("--config", type=str, help="YAML config (reference format)")
+    p.add_argument("file_paths", nargs="*", help="uvh5 visibility file(s)")
+    hints = typing.get_type_hints(RunConfig)
+    for f in fields(RunConfig):
+        if f.name == "file_paths":
+            continue
+        arg = f"--{f.name}"
+        # the resolved annotation decides the type; Optional[T] is T
+        t = hints.get(f.name, str)
+        if typing.get_origin(t) is typing.Union:
+            args_t = [a for a in typing.get_args(t) if a is not type(None)]
+            t = args_t[0] if len(args_t) == 1 else str
+        if t is bool:
+            # --X / --no-X, so knobs that default to True can be turned off
+            p.add_argument(arg, action=argparse.BooleanOptionalAction,
+                           default=None)
+        elif t is int:
+            p.add_argument(arg, type=int, default=None)
+        elif t is float:
+            p.add_argument(arg, type=float, default=None)
+        else:
+            p.add_argument(arg, type=str, default=None)
+    p.add_argument("--num_processes", type=int, default=1)
+    p.add_argument("--process_id", type=int, default=0)
+    p.add_argument("--coordinator", type=str, default=None)
+    return p
+
+
+def load_config(argv=None):
+    args = build_parser().parse_args(argv)
+    overrides = {
+        k: v for k, v in vars(args).items()
+        if k not in ("config", "num_processes", "process_id", "coordinator")
+        and v not in (None, [])
+    }
+    if args.config:
+        cfg = RunConfig.from_yaml(args.config, **overrides)
+    else:
+        cfg = RunConfig.from_dict(overrides)
+    return cfg, args
+
+
+def check_supported(cfg: RunConfig, num_processes: int = 1):
+    """The port's policy (module docstring): raise for what it does not
+    run."""
+    if cfg.precision == "x64":
+        raise NotImplementedError(
+            "precision x64 selects the complex float64 engine, which is not "
+            "ported yet (ROADMAP.md, Queue 1 item 6); use auto or x32")
+    if cfg.precision not in ("auto", "x32"):
+        raise ValueError(f"unknown precision {cfg.precision!r}")
+    _one_process(num_processes)
+
+
+def _one_process(num_processes: int):
+    if num_processes > 1:
+        raise NotImplementedError(
+            "multi-process runs are not ported yet (ROADMAP.md, Queue 1 "
+            "item 5)")
 
 
 def legendre_fgmodes(nfreqs: int, nmodes: int) -> np.ndarray:
@@ -18,6 +111,77 @@ def legendre_fgmodes(nfreqs: int, nmodes: int) -> np.ndarray:
     return np.stack(cols, axis=1)
 
 
+def prepare_jobs(cfg: RunConfig, out_dir: Path, process_id=0,
+                 num_processes=1):
+    """This process's baselines only, read from the uvh5 files (the
+    reference loads everything on rank 0, run-hydra-pspec.py:290-477),
+    with the per-baseline auxiliary inputs, the noise injection and the
+    optional per-time flags. Returns ``(jobs, nfreqs, n_baselines,
+    load seconds, global indices of the jobs)``."""
+    antpairs = uv.parse_ant_str(cfg.ant_str)
+    t0 = time.perf_counter()
+    all_bls = []
+    for fp in sorted(cfg.file_paths):
+        bls, _ = uv.read_uvh5(fp, antpairs=antpairs,
+                              freq_range=cfg.freq_range)
+        all_bls.extend(bls)
+    if not all_bls:
+        raise SystemExit("No baselines found in input file(s).")
+    nfreqs = all_bls[0].vis.shape[1]
+
+    mine = list(local_indices(len(all_bls), process_id, num_processes))
+    jobs = []
+    for i in mine:
+        bl = all_bls[i]
+        a, b = bl.antpair
+        bl_str = f"{a}-{b}"
+        d = np.array(bl.vis)
+
+        flags = resolve_per_baseline(cfg.flags, cfg.flags_file, bl_str)
+        if flags is None:
+            flags = bl.flags
+        nsamples = resolve_per_baseline(cfg.nsamples, cfg.nsamples_file,
+                                        bl_str)
+        noise = resolve_per_baseline(cfg.noise, cfg.noise_file, bl_str)
+        if noise is not None:
+            noise = np.array(noise)
+            if nsamples is not None:
+                noise /= np.sqrt(nsamples)
+            d = d + noise
+
+        sigcov0 = resolve_per_baseline(cfg.sigcov0, cfg.sigcov0_file, bl_str)
+        if sigcov0 is None:
+            sigcov0 = np.eye(nfreqs)
+
+        noise_cov = resolve_per_baseline(cfg.noise_cov, cfg.noise_cov_file,
+                                         bl_str)
+        if noise_cov is not None:
+            ninv = np.linalg.inv(noise_cov)
+        else:
+            ninv = np.eye(nfreqs) / 10.0**2  # reference fallback (:438)
+
+        fgm = resolve_per_baseline(
+            cfg.fgmodes, cfg.fgmodes_file, bl_str,
+            default_name=f"evecs-{_freq_str(bl.freqs)}.npy")
+        if fgm is None:
+            fgm = legendre_fgmodes(nfreqs, cfg.Nfgmodes)
+        fgm = fgm[:, :cfg.Nfgmodes]
+
+        flags_b = np.asarray(flags, dtype=bool)
+        jobs.append(BaselineJob(
+            antpair=bl.antpair, d=d, w=uv.collapse_flags_any_time(flags_b),
+            fgmodes=fgm, S_initial=sigcov0, Ninv=ninv, out_dir=out_dir / bl_str,
+            # opt-in per-time flag patterns (reference FIXME :541)
+            flags_tf=flags_b if cfg.time_flags else None))
+    t_load = time.perf_counter() - t0
+    return jobs, nfreqs, len(all_bls), t_load, mine
+
+
+def _freq_str(freqs_hz):
+    f = np.asarray(freqs_hz) / 1e6
+    return f"{f.min():.3f}-{f.max():.3f}MHz"
+
+
 def build_prior(cfg, nfreqs: int) -> np.ndarray:
     """Prior window around delay 0 (reference run-hydra-pspec.py:504-517).
     ``cfg`` carries ``ps_prior_lo``, ``ps_prior_hi`` and
@@ -29,3 +193,119 @@ def build_prior(cfg, nfreqs: int) -> np.ndarray:
         prior[0, sl] = cfg.ps_prior_hi
         prior[1, sl] = cfg.ps_prior_lo
     return prior
+
+
+def _gather_per_baseline(local, jobs, n_baselines, num_processes):
+    """Per-baseline values (a scalar or a fixed-width 1D array each) of
+    every process, one ``[(bl_str, value), ...]`` list per rank (the
+    reference's ``comm.gather(write_timings)``, run-hydra-pspec.py:557).
+    One process here: its own list."""
+    _one_process(num_processes)
+    order = [f"{j.antpair[0]}_{j.antpair[1]}" for j in jobs]
+    return [[(bl, np.atleast_1d(np.asarray(local[bl], dtype=np.float64)))
+             for bl in order]]
+
+
+def output_dir(cfg: RunConfig) -> Path:
+    """The results directory (reference run-hydra-pspec.py:334-365):
+    ``<out_dir>/results-<freqs>-Niter-<N>``, or ``<dirname>`` (with
+    ``-map-estimate`` in MAP mode); an existing one is renamed with its
+    mtime unless ``clobber`` or ``resume``. Created, with ``git.json``,
+    ``args.json`` and the slurm job file."""
+    if not cfg.dirname:
+        # the default name carries the band: a header-only read
+        import h5py
+
+        with h5py.File(sorted(cfg.file_paths)[0], "r") as f:
+            fr = np.asarray(f["Header/freq_array"][:]).reshape(-1)
+        if cfg.freq_range:
+            fr = uv.filter_freqs(cfg.freq_range, fr / 1e6) * 1e6
+        dirname = f"results-{_freq_str(fr)}-Niter-{cfg.Niter}"
+    else:
+        dirname = cfg.dirname + ("-map-estimate" if cfg.map_estimate else "")
+    out_dir = Path(cfg.out_dir) / dirname
+    if out_dir.exists() and not cfg.clobber and not cfg.resume:
+        add_mtime_to_filepath(out_dir)
+    out_dir.mkdir(parents=True, exist_ok=True)
+    provenance.write_git_json(out_dir)
+    provenance.write_args_json(out_dir, cfg.to_dict())
+    provenance.touch_slurm_job_file(out_dir)
+    if cfg.verbose:
+        print(f"Writing output(s) to {out_dir.absolute()}")
+    return out_dir
+
+
+def run_jobs(cfg: RunConfig, jobs, nfreqs: int, n_baselines: int,
+             t_load: float, out_dir: Path, device="cuda", t_start=None):
+    """Everything :func:`main` does after the load: the chains of ``jobs``
+    through ``runner.run_baselines`` on ``device``, then ``rhat.json``
+    (with more than one chain), ``timings.json`` (the true per-baseline
+    write seconds) and ``resources.json`` in ``out_dir``. ``t_start``:
+    the ``time.perf_counter()`` the run's total counts from (default: the
+    load's start). Returns ``(results, timings)`` of the runner."""
+    if t_start is None:
+        t_start = time.perf_counter() - t_load
+    check_supported(cfg)
+    results, timings = run_baselines(
+        jobs, build_prior(cfg, nfreqs), cfg.Niter, device=device,
+        seed=cfg.seed, nchains=cfg.nchains, write_niter=cfg.write_Niter,
+        map_estimate=cfg.map_estimate, store_cr=cfg.store_cr,
+        jitter=cfg.jitter, engine=cfg.engine, solver=cfg.solver,
+        warm_ns=cfg.warm_ns, drift_max=cfg.drift_max,
+        checkpoint_niter=cfg.checkpoint_Niter, resume=cfg.resume,
+        run_dir=out_dir, verbose=cfg.verbose, profile_dir=cfg.profile_dir)
+
+    # split-R-hat over chains, per baseline, persisted as rhat.json
+    if cfg.nchains > 1:
+        local_rhat = {}
+        for job in jobs:
+            chains = np.stack([r.signal_ps for r in results
+                               if r.antpair == job.antpair])
+            rhat = gelman_rubin(chains)
+            local_rhat[f"{job.antpair[0]}_{job.antpair[1]}"] = rhat
+            if cfg.verbose:
+                print(f"baseline {job.antpair}: split-Rhat max "
+                      f"{np.nanmax(rhat):.3f} median "
+                      f"{np.nanmedian(rhat):.3f}")
+        provenance.write_rhat_json(
+            out_dir, _gather_per_baseline(local_rhat, jobs, n_baselines, 1))
+
+    # the true per-baseline write seconds, summed over its chain dirs
+    # (the reference's comm.gather(write_timings), run-hydra-pspec.py:554-557)
+    local_wt = {f"{j.antpair[0]}_{j.antpair[1]}": float(sum(
+        r.write_time for r in results if r.antpair == j.antpair))
+        for j in jobs}
+    all_wt = _gather_per_baseline(local_wt, jobs, n_baselines, 1)
+    write_data = [{"rank": rank,
+                   "ant_pairs": [bl for bl, _ in entries],
+                   "write_times": [float(np.sum(v)) for _, v in entries]}
+                  for rank, entries in enumerate(all_wt)]
+    provenance.write_timings_json(
+        out_dir, num_ranks=1, num_baselines=n_baselines, load_data=t_load,
+        scatter=timings["scatter"], process=timings["process"], barrier=0.0,
+        total=time.perf_counter() - t_start, write_data=write_data)
+    provenance.write_resources_json(out_dir)
+    if cfg.verbose:
+        print(f"done: {n_baselines} baselines x {cfg.nchains} chains x "
+              f"{cfg.Niter} iters in {timings['process']:.2f}s "
+              f"({n_baselines * cfg.nchains * cfg.Niter / timings['process']:.1f}"
+              f" baseline-iters/s)")
+    return results, timings
+
+
+def main(argv=None, device="cuda"):
+    """The whole run: configuration, output directory, load, chains and
+    artifacts. ``device``: where the chains run (the card unless the
+    caller asks for ``"cpu"``). Returns 0."""
+    t_start = time.perf_counter()
+    cfg, args = load_config(argv)
+    check_supported(cfg, args.num_processes)
+    out_dir = output_dir(cfg)
+    jobs, nfreqs, n_baselines, t_load, _ = prepare_jobs(cfg, out_dir)
+    run_jobs(cfg, jobs, nfreqs, n_baselines, t_load, out_dir, device=device,
+             t_start=t_start)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

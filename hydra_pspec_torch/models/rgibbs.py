@@ -299,7 +299,7 @@ def solve(m, b, jitter: float, solver: str, impl: Impl = KERNELS):
                                    inv=impl.herm_inv, mm=impl.cgemm)
     if solver in ("recinv", "identity"):
         raise NotImplementedError(
-            f"solver {solver!r} is not ported (ROADMAP.md, Queue 1 item 10)")
+            f"solver {solver!r} is not ported (ROADMAP.md, Queue 1 item 6)")
     raise ValueError(f"unknown solver {solver!r}")
 
 

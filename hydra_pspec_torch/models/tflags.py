@@ -12,7 +12,7 @@ all groups (``models/megachain.py``, grouped mode).
 The real engine's grouped step (``gibbs_step_tflags_real``, ``:187-332``)
 runs a signature with more than 8 patterns; the megachain engine's grouped
 mode (``models/megachain.py``) runs the others. Not ported: the complex
-engine's step (``gibbs_step_tflags``, ROADMAP.md Queue 1 item 10).
+engine's step (``gibbs_step_tflags``, ROADMAP.md Queue 1 item 6).
 """
 from typing import NamedTuple, Optional
 

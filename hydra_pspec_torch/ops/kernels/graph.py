@@ -53,8 +53,8 @@ class ChunkGraph:
 
     :meth:`replay` returns the outputs captured, views of the graph's
     static tensors: valid until the next replay. A caller that keeps a
-    chunk's outputs past the next one copies them first (overlapping two
-    chunks needs two graphs or double-buffered outputs)."""
+    chunk's outputs past the next one copies them first, or runs the next
+    chunk in another graph (:class:`GraphSlots`)."""
 
     def __init__(self, body: Callable, ps: torch.Tensor, k_total: int):
         if ps.device.type != "cuda":
@@ -98,11 +98,51 @@ class ChunkGraph:
         return self.out
 
 
+class GraphSlots:
+    """Graph caches that a caller alternates chunk by chunk (chunk i
+    replays the graphs of :meth:`cache` ``(i)``): chunk i's outputs are
+    the static tensors of its slot's graphs, so they stay valid while
+    chunk i+1 runs in the other slot, until chunk i+2 replays the first
+    again. The caller orders that replay after its last read of chunk i
+    (the runner makes the compute stream wait on chunk i's copy).
+
+    A key's graph is captured in every slot at the key's first use, so a
+    run pays its captures before its first replay and its second chunk is
+    already a replay, unless no later chunk of the key follows
+    (``ahead=False``, a run's shorter last chunk): then only its own slot
+    captures it."""
+
+    def __init__(self, n: int = 2):
+        self.caches = tuple(_SlotCache(self) for _ in range(n))
+
+    def cache(self, chunk: int, ahead: bool = True) -> dict:
+        """The graph cache of chunk number ``chunk``."""
+        c = self.caches[chunk % len(self.caches)]
+        c.ahead = ahead
+        return c
+
+
+class _SlotCache(dict):
+    """One slot's graphs by key; ``ahead``: capture a new key in every
+    slot of ``slots``."""
+
+    def __init__(self, slots: GraphSlots):
+        super().__init__()
+        self.slots = slots
+        self.ahead = True
+
+
 def replay_chunk(graphs: dict, key, make_body: Callable, ps: torch.Tensor,
                  k_total: int, iter0):
     """The chunk of ``k_total`` iterations from ``ps`` at ``iter0`` through
     the caller's graph of ``key`` in ``graphs``, captured from
-    ``make_body()`` at its first use and replayed after."""
+    ``make_body()`` at its first use and replayed after. ``graphs`` is a
+    dict, or a :class:`GraphSlots` cache (each slot capturing its own
+    graph from its own body)."""
     if key not in graphs:
-        graphs[key] = ChunkGraph(make_body(), ps, k_total)
+        peers = (graphs.slots.caches if getattr(graphs, "ahead", False)
+                 else (graphs,))
+        for cache in peers:
+            if key not in cache:
+                cache[key] = ChunkGraph(make_body(), ps, k_total)
     return graphs[key].replay(ps, iter0)

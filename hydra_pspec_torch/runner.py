@@ -15,8 +15,24 @@ engines, routed as the JAX runner routes them (:func:`route_engine`):
 Samples are flushed every ``write_niter`` iterations with the reference's
 file names, and a run-level checkpoint allows resume with complete output
 files. Every chain's randomness is keyed on (seed, global chain stream id,
-global iteration) on every engine, so a subset of baselines, a different
-chunking or a resumed run reproduces the same chains.
+global iteration) on every engine, so a subset of baselines or a resumed
+run reproduces the same chains. A different ``write_niter`` does not on
+the megachain engine: its warm start rebuilds every inverse at a chunk's
+first iteration (on the card, chunks of 100 and of 50 differ in every
+sample file).
+
+The host side of a chunk (``runner.py:473-575`` of the JAX package): chunk
+i+1 is dispatched before chunk i's samples are fetched, flushed and
+checkpointed, at chunk i's own state and iteration. On the card the
+megachain and mega engines run each chunk as a CUDA graph in one of two
+slots alternated by chunk parity (``ops/kernels/graph.py::GraphSlots``),
+so chunk i's outputs stay valid while chunk i+1 runs; chunk i's samples
+and state leave on a copy stream through two pinned staging buffers of
+64 MiB, reused in turn, and the compute stream waits on that copy before
+it replays the slot again. The files go through one native writer pool per run
+(``utils/fastio.py``), drained before every checkpoint, so no checkpoint
+records an iteration whose files are not on disk. ``overlap=False`` runs
+the serial loop instead (eager chunks, synchronous copies).
 
 Jobs with time-dependent flags (``flags_tf``) run the grouped time-flags
 path (``runner.py:775-1109`` of the JAX package): baselines with identical
@@ -26,9 +42,9 @@ chain-major (chain, time group) rows (``models/megachain.py::
 TflagsMegaSetup``), on the real engine one group after another.
 
 Single device only: more than one process or device raises
-``NotImplementedError`` (ROADMAP.md, Queue 1 item 7), as does the complex
-engine (item 10). Sample files are written with ``np.save`` (the native
-writer of ``utils/fastio.py`` is not ported).
+``NotImplementedError`` (ROADMAP.md, Queue 1 item 5), as does the complex
+engine (item 6). The time-flags path keeps a serial loop and ``np.save``,
+as the JAX package's does.
 """
 import time
 from dataclasses import dataclass
@@ -37,12 +53,15 @@ from typing import Callable, Optional, Sequence
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
 from .models import mega, megachain, rgibbs, tflags
 from .ops import philox
 from .ops.invgamma import make_invgamma_table
 from .ops.kernels import rng_bandpower as rb
+from .ops.kernels.graph import GraphSlots
 from .utils import io as hio
+from .utils.fastio import AsyncNpyWriter
 
 MAX_NTIMES = 1025
 ENGINES = ("megachain", "mega", "real")
@@ -107,7 +126,7 @@ def select_engine(engine: str = "auto") -> str:
     if engine == "complex":
         raise NotImplementedError(
             "the complex engine is not ported yet (ROADMAP.md, Queue 1 "
-            "item 10)")
+            "item 6)")
     raise ValueError(f"unknown engine {engine!r}")
 
 
@@ -139,7 +158,7 @@ def _check_supported(num_processes, mesh_devices):
                              and len(mesh_devices) > 1):
         raise NotImplementedError(
             "multi-process and multi-device runs are not ported yet "
-            "(ROADMAP.md, Queue 1 item 7)")
+            "(ROADMAP.md, Queue 1 item 5)")
 
 
 def _chunk_randomness(randomness, it, k, device, **kw):
@@ -174,15 +193,29 @@ def run_baselines(
     global_baseline_ids: Optional[Sequence[int]] = None,
     randomness: Optional[Callable] = None,
     verbose: bool = False,
+    overlap: bool = True,
+    profile_dir=None,
 ):
     """Run Gibbs chains for every (baseline, chain) pair on ``device`` (the
     card by default; ``device="cpu"`` runs the plain versions of the
     kernels); returns ``(results, timings)`` with one :class:`RunResult`
     per pair. ``timings["engine"]`` names the engine that ran
     (:func:`route_engine`). On the card the megachain and mega engines run
-    each chunk of ``write_niter`` iterations as one CUDA graph, captured at
-    the run's first chunk (and first shorter tail) and replayed
-    (``ops/kernels/graph.py``), unless ``randomness`` is given.
+    each chunk of ``write_niter`` iterations as one CUDA graph, captured
+    in both slots at the run's first chunk (and in its own slot for a
+    shorter last chunk) and replayed (``ops/kernels/graph.py``), unless
+    ``randomness`` is given.
+
+    ``overlap`` (default True): chunk i+1 is dispatched before chunk i is
+    fetched and flushed, its samples copied through pinned staging on a copy
+    stream on the card (module docstring). False: the serial loop, each
+    chunk run eagerly (no graph), fetched by a synchronous ``.cpu()`` and
+    flushed before the next; the same kernels, so the same bits.
+    ``profile_dir``: a ``torch.profiler`` trace (CPU, and CUDA on the
+    card) of one turn of the loop in steady state -- the second chunk's
+    dispatch, copy and device work and the host's processing of the
+    first, between two device synchronizations -- or of the first chunk
+    when it is the only one, written there as ``chunk-<i>.trace.json``.
 
     ``map_estimate``: the MAP estimate (no fluctuation draws), one
     iteration on the real engine (``niter`` and ``write_niter`` become 1).
@@ -209,7 +242,16 @@ def run_baselines(
     flags) run the grouped time-flags path: each signature checkpoints at
     every flush (``checkpoint_niter`` is not read there, as in the JAX
     package), and ``timings`` sums ``scatter`` (host build and transfer)
-    and ``process`` (sampling and flushes) over the signatures."""
+    and ``process`` (sampling and flushes) over the signatures.
+
+    ``timings`` also splits the host side: ``write`` (flush, pool drain
+    and checkpoint seconds, as the JAX runner counts it), ``flush`` (the
+    host's submissions), ``pool_wait`` (``writer.wait()``), ``pool`` (the
+    pool threads' write seconds), ``fetch_wait`` (waiting for a chunk's
+    copy), ``staging`` (pinned staging into the kept numpy chunks),
+    ``pin_alloc`` (allocating the staging), ``pinned_bytes``,
+    ``is_native`` and, on the card, the two graph slots' pool bytes
+    (``graph_pool_bytes``)."""
     if map_estimate:
         niter = write_niter = 1
     engine = route_engine(jobs, ps_prior, engine, map_estimate)
@@ -260,21 +302,21 @@ def run_baselines(
         torch.cuda.synchronize(device)
     t_scatter = time.perf_counter() - t_scatter0
 
-    graphs = {}   # this run's chunk graphs (the card, Philox streams)
+    slots = GraphSlots(2)   # this run's chunk graphs (the card, Philox streams)
 
-    def run_chunk(ps, n, done):
+    def run_chunk(ps, n, done, graphs):
         if engine == "megachain":
             return megachain.run_chain_megachain(
                 mops, dims, ps, prior_host, n, seed=seed, sids=sid_b,
                 iter0=done, randomness=randomness, tables=tables,
                 store_cr=store_cr, chunk=n, warm_ns=warm_ns,
-                drift_max=drift_max, graphs=graphs)
+                drift_max=drift_max, graph=overlap, graphs=graphs)
         rnd = _chunk_randomness(randomness, done, n, device)
         if engine == "mega":
             return mega.run_chain_mega(
                 mops, dims, ps, bins, n, tables.tlog, tables.q, seed=seed,
                 sids=sid_b, iter0=done, randomness=rnd, store_cr=store_cr,
-                graphs=graphs)
+                graph=overlap, graphs=graphs)
         return rgibbs.run_chain(
             rops, ps, bins, n, seed=seed, sids=sid_b, iter0=done,
             randomness=rnd, map_estimate=map_estimate, jitter=jitter,
@@ -305,50 +347,113 @@ def run_baselines(
 
     # --- chunked chain with host flushes -----------------------------------
     host_chunks = []
-    write_time = 0.0
+    writer = AsyncNpyWriter() if jobs[0].out_dir is not None else None
+    fetch = _Fetch(device, pinned=overlap)
+    native = writer is not None and writer.is_native
+    split = dict(write=0.0, flush=0.0, pool_wait=0.0, pool=0.0)
     ckpt_every = (max(1, -(-checkpoint_niter // write_niter))
                   if checkpoint_niter > 0 else 1)
     n_chunks = 0
+    # per-(baseline, chain) write seconds (the reference gathers them,
+    # run-hydra-pspec.py:554-557): the host's own, plus the pool's seconds
+    # of each flush attributed to rows by the bytes each submitted
     row_write_sec = [0.0] * n_real
-    t0_proc = time.perf_counter()
-    done = start_iter
-    while done < niter:
-        n = min(write_niter, niter - done)
-        ps_b, samples = run_chunk(ps_b, n, done)
-        done += n
-        host_chunks.append(_to_host(samples, store_cr))
-        del samples
+
+    def process(ticket, done_ck):
+        """Fetch one chunk, flush every row's files, drain the pool, then
+        checkpoint at that chunk's state and iteration."""
+        nonlocal n_chunks
+        hc, state = fetch.finish(ticket, store_cr)
+        host_chunks.append(hc)
         n_chunks += 1
         if verbose:
-            hc = host_chunks[-1]
-            print(f"iter {done}/{niter}  chisq={float(np.mean(hc.chisq)):.4f}"
+            print(f"iter {done_ck}/{niter}  chisq={float(np.mean(hc.chisq)):.4f}"
                   f"  ln_post={float(np.mean(hc.ln_post[-1])):.1f}")
+        if writer is None:
+            return
         t0 = time.perf_counter()
-        if jobs[0].out_dir is not None:
+        io0 = writer.write_seconds()
+        row_bytes = [0] * n_real
+        with record_function("hydra:flush"):
             _flush(jobs, meta, host_chunks, nchains, store_cr, nfreqs, prefix,
-                   row_sec=row_write_sec)
-            if checkpoint and run_dir is not None and (
-                    n_chunks % ckpt_every == 0 or done >= niter):
-                hio.save_checkpoint(
-                    run_dir, iteration=done,
-                    ps=ps_b[:, :nfreqs].cpu().numpy(),
-                    key_data=np.asarray([seed], dtype=np.int64),
-                    extra={"niter": niter, "engine": engine,
-                           "nchains": nchains})
-        write_time += time.perf_counter() - t0
+                   writer=writer, row_sec=row_write_sec, row_bytes=row_bytes)
+        t1 = time.perf_counter()
+        # durability: every sample file on disk before the checkpoint
+        # records ``done_ck``
+        with record_function("hydra:pool_wait"):
+            failed = writer.wait()
+        t2 = time.perf_counter()
+        if failed:
+            raise IOError(f"{failed} asynchronous sample writes failed")
+        pool_sec = writer.write_seconds() - io0
+        total = sum(row_bytes)
+        if pool_sec > 0 and total > 0:
+            for i, b in enumerate(row_bytes):
+                row_write_sec[i] += pool_sec * b / total
+        if checkpoint and run_dir is not None and (
+                n_chunks % ckpt_every == 0 or done_ck >= niter):
+            hio.save_checkpoint(
+                run_dir, iteration=done_ck, ps=state[:, :nfreqs],
+                key_data=np.asarray([seed], dtype=np.int64),
+                extra={"niter": niter, "engine": engine,
+                       "nchains": nchains})
+        split["flush"] += t1 - t0
+        split["pool_wait"] += t2 - t1
+        split["write"] += time.perf_counter() - t0
+
+    n_total = max(1, -(-(niter - start_iter) // write_niter))
+    profile_chunk = None if profile_dir is None else min(1, n_total - 1)
+    idx = 0
+    pending = None
+    t0_proc = time.perf_counter()
+    done = start_iter
+    try:
+        while done < niter:
+            n = min(write_niter, niter - done)
+            prof = _profile_start(device) if idx == profile_chunk else None
+            fetch.reuse(idx)
+            with record_function("hydra:chunk"):
+                # the graphs of a key are captured in both slots unless no
+                # later chunk of this size follows
+                ps_b, samples = run_chunk(
+                    ps_b, n, done,
+                    slots.cache(idx, ahead=niter - done - n >= n))
+            done += n
+            ticket = fetch.start(idx, samples, ps_b, store_cr)
+            del samples
+            if pending is not None:
+                process(*pending)   # chunk idx - 1, while chunk idx runs
+            pending = (ticket, done)
+            if not overlap:
+                process(*pending)
+                pending = None
+            if prof is not None:
+                _profile_stop(prof, device, profile_dir, idx)
+            idx += 1
+        if pending is not None:
+            process(*pending)
+    finally:
+        if writer is not None:
+            split["pool"] = writer.write_seconds()
+            writer.close()
     t_process = time.perf_counter() - t0_proc
 
     results = _collect(jobs, meta, host_chunks, nchains, store_cr, nfreqs,
                        row_write_sec, prefix)
     timings = {
         "process": t_process,
-        "write": write_time,
         "scatter": t_scatter,
         "niter": niter,
         "start_iter": start_iter,
         "batch": n_real,
         "engine": engine,
         "device": str(device),
+        **split,
+        "is_native": native,
+        "overlap": overlap,
+        **fetch.stats(),
+        "graph_pool_bytes": [sum(g.pool_bytes for g in cache.values())
+                             for cache in slots.caches],
     }
     return results, timings
 
@@ -549,16 +654,149 @@ class _HostSample:
         self.ln_post = ln_post
 
 
+def _sample_fields(samples, store_cr):
+    """A chunk's sample tensors by name (iterations on axis 0, batch on
+    axis 1); the per-time fields only with ``store_cr``."""
+    out = {"ps": samples.ps, "chisq": samples.chisq,
+           "ln_post": samples.ln_post}
+    if store_cr:
+        out.update(signal_cr=samples.signal_cr, fg_amps=samples.fg_amps)
+    return out
+
+
+def _host_sample(h: dict) -> _HostSample:
+    return _HostSample(h.get("signal_cr"), h["ps"], h.get("fg_amps"),
+                       h["chisq"], h["ln_post"])
+
+
+def _numpy(fields: dict) -> dict:
+    """Tensors -> numpy, by a synchronous copy off the device."""
+    return {k: v.contiguous().cpu().numpy() for k, v in fields.items()}
+
+
 def _to_host(samples, store_cr):
-    """Device samples (iterations on axis 0, batch on axis 1) -> numpy."""
-    h = lambda a: None if a is None else a.contiguous().cpu().numpy()
-    return _HostSample(
-        h(samples.signal_cr) if store_cr else None,
-        h(samples.ps),
-        h(samples.fg_amps) if store_cr else None,
-        h(samples.chisq),
-        h(samples.ln_post),
-    )
+    return _host_sample(_numpy(_sample_fields(samples, store_cr)))
+
+
+STAGING_PIECE_BYTES = 64 << 20   # one of the two pinned staging buffers
+
+
+class _Fetch:
+    """Each chunk's samples and end state on their way to the host.
+
+    ``pinned`` on the card: :meth:`start` records an event after the chunk
+    on the compute stream; on a copy stream that waits on it, the strided
+    sample views are made contiguous on the device. :meth:`finish` streams
+    those bytes through two pinned staging buffers of
+    :data:`STAGING_PIECE_BYTES`, reused in turn: ``non_blocking`` copies
+    on the copy stream, the host waiting on each piece's event only and
+    copying the piece into the kept numpy arrays while the next piece
+    crosses. So the pinned memory stays 2 x 64 MiB however large a chunk
+    or long a run. :meth:`finish` then records the chunk's last copy, on
+    which :meth:`reuse` makes the compute stream wait before the chunk
+    that replays the same graph slot. A ticket holds the device tensors
+    until :meth:`finish`, so no copy reads freed memory. Otherwise (the
+    serial loop, CPU tensors) :meth:`finish` copies synchronously."""
+
+    def __init__(self, device, pinned: bool, nslots: int = 2):
+        self.device = device
+        self.pinned = pinned and device.type == "cuda"
+        self.stream = torch.cuda.Stream(device) if self.pinned else None
+        self.ring = None
+        self.copied = [None] * nslots
+        self.seconds = {"fetch_wait": 0.0, "staging": 0.0, "pin_alloc": 0.0}
+
+    def reuse(self, chunk: int):
+        ev = self.copied[chunk % len(self.copied)]
+        if ev is not None:
+            torch.cuda.current_stream(self.device).wait_event(ev)
+
+    def start(self, chunk: int, samples, state, store_cr):
+        fields = dict(_sample_fields(samples, store_cr), state=state)
+        if not self.pinned:
+            return chunk, fields, None
+        ran = torch.cuda.Event()
+        ran.record(torch.cuda.current_stream(self.device))
+        with torch.cuda.stream(self.stream), record_function("hydra:pack"):
+            self.stream.wait_event(ran)
+            flat = {k: t.contiguous().view(-1).view(torch.uint8)
+                    for k, t in fields.items()}
+        return chunk, fields, flat
+
+    def _issue(self, slot, src):
+        """Copy ``src`` (device bytes) into staging buffer ``slot``; its
+        event."""
+        with torch.cuda.stream(self.stream):
+            self.ring[slot][:src.numel()].copy_(src, non_blocking=True)
+            ev = torch.cuda.Event()
+            ev.record(self.stream)
+        return ev
+
+    def finish(self, ticket, store_cr):
+        """``(_HostSample, state as numpy)`` of a ticket of :meth:`start`."""
+        chunk, fields, flat = ticket
+        t0 = time.perf_counter()
+        if flat is None:
+            h = _numpy(fields)
+            self.seconds["fetch_wait"] += time.perf_counter() - t0
+            return _host_sample(h), h["state"]
+        if self.ring is None:
+            self.ring = [torch.empty(STAGING_PIECE_BYTES, dtype=torch.uint8,
+                                     pin_memory=True) for _ in range(2)]
+            self.seconds["pin_alloc"] += time.perf_counter() - t0
+        h = {k: np.empty(t.shape, np.dtype(str(t.dtype).split(".")[1]))
+             for k, t in fields.items()}
+        pieces = [(k, off) for k, b in flat.items()
+                  for off in range(0, b.numel(), STAGING_PIECE_BYTES)]
+        src = lambda j: flat[pieces[j][0]][
+            pieces[j][1]:pieces[j][1] + STAGING_PIECE_BYTES]
+        events = [self._issue(j, src(j)) for j in range(min(2, len(pieces)))]
+        for j, (k, off) in enumerate(pieces):
+            t1 = time.perf_counter()
+            with record_function("hydra:fetch_wait"):
+                events[j % 2].synchronize()
+            t2 = time.perf_counter()
+            with record_function("hydra:staging"):
+                piece = src(j)
+                dst = h[k].reshape(-1).view(np.uint8)[off:off + piece.numel()]
+                # torch's CPU copy runs on its intra-op threads
+                torch.from_numpy(dst).copy_(self.ring[j % 2][:piece.numel()])
+            if j + 2 < len(pieces):
+                events[j % 2] = self._issue(j % 2, src(j + 2))
+            self.seconds["fetch_wait"] += t2 - t1
+            self.seconds["staging"] += time.perf_counter() - t2
+        done = torch.cuda.Event()
+        done.record(self.stream)
+        self.copied[chunk % len(self.copied)] = done
+        return _host_sample(h), h["state"]
+
+    def stats(self) -> dict:
+        return dict(self.seconds, pinned_bytes=0 if self.ring is None else
+                    sum(b.numel() for b in self.ring))
+
+
+def _profile_start(device):
+    """A ``torch.profiler`` window (CPU, and CUDA on the card) from an idle
+    device."""
+    from torch.profiler import ProfilerActivity, profile
+
+    acts = [ProfilerActivity.CPU]
+    if device.type == "cuda":
+        acts.append(ProfilerActivity.CUDA)
+        torch.cuda.synchronize(device)
+    prof = profile(activities=acts)
+    prof.start()
+    return prof
+
+
+def _profile_stop(prof, device, profile_dir, chunk: int):
+    """Close the window once the device is idle; write its Chrome trace."""
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    prof.stop()
+    out = Path(profile_dir)
+    out.mkdir(parents=True, exist_ok=True)
+    prof.export_chrome_trace(str(out / f"chunk-{chunk}.trace.json"))
 
 
 def _chain_dir(out_dir, chain, nchains):
@@ -617,8 +855,11 @@ def _final_S(ps_last, nfreqs):
 
 
 def _flush(jobs, meta, host_chunks, nchains, store_cr, nfreqs, prefix=None,
-           row_sec=None):
-    """Write every row's six sample files (whole chain so far)."""
+           writer=None, row_sec=None, row_bytes=None):
+    """Write every row's six sample files (whole chain so far), through
+    ``writer`` (an :class:`AsyncNpyWriter`) or ``np.save``. ``row_sec`` /
+    ``row_bytes`` (optional lists aligned with ``meta``) add each row's
+    host seconds and the bytes it submitted."""
     for bidx, (ib, ic) in enumerate(meta):
         job = jobs[ib]
         if job.out_dir is None:
@@ -626,13 +867,15 @@ def _flush(jobs, meta, host_chunks, nchains, store_cr, nfreqs, prefix=None,
         t0 = time.perf_counter()
         ps, lnp, cr, fga, chi = _slice_batch(
             host_chunks, bidx, store_cr, prefix[bidx] if prefix else None)
-        hio.write_numpy_files(
-            _chain_dir(job.out_dir, ic, nchains),
-            cr if cr is not None else np.zeros(0),
-            _final_S(ps[-1], nfreqs), ps,
-            fga if fga is not None else np.zeros(0), chi, lnp)
+        arrays = (cr if cr is not None else np.zeros(0),
+                  _final_S(ps[-1], nfreqs), ps,
+                  fga if fga is not None else np.zeros(0), chi, lnp)
+        hio.write_numpy_files(_chain_dir(job.out_dir, ic, nchains), *arrays,
+                              writer=writer)
         if row_sec is not None:
             row_sec[bidx] += time.perf_counter() - t0
+        if row_bytes is not None:
+            row_bytes[bidx] += sum(a.nbytes for a in arrays)
 
 
 def _collect(jobs, meta, host_chunks, nchains, store_cr, nfreqs,

@@ -27,8 +27,10 @@ SAMPLE_FILENAMES = {
 def write_numpy_files(fp, signal_cr, signal_S, signal_ps, fg_amps, chisq,
                       ln_post, writer=None):
     """Write the six sample arrays with the reference's fixed filenames
-    (hydra_pspec/utils.py:272-313). ``writer``: optional object with a
-    ``save(path, arr)`` method; None writes synchronously with np.save."""
+    (hydra_pspec/utils.py:272-313). ``writer``: optional
+    :class:`utils.fastio.AsyncNpyWriter` -- the writes are queued on its
+    native thread pool (the caller drains it with ``writer.wait()`` before
+    recording a checkpoint); None writes synchronously with np.save."""
     fp = Path(fp)
     fp.mkdir(parents=True, exist_ok=True)
     save = writer.save if writer is not None else np.save

@@ -334,7 +334,7 @@ def case_routing(tmp_path, jax_root):
     for kw, want in table:
         kw.setdefault("ps_prior", _prior())
         assert trunner.route_engine(**kw) == want, (kw.keys(), want)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
+    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
         trunner.route_engine(plain, _prior(), engine="complex")
 
 

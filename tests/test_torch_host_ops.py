@@ -132,18 +132,27 @@ def case_tables_and_prior():
 
 def case_imports_without_jax():
     """The port imports, and runs its CPU path, with jax and the JAX
-    package blocked; no module of it, and not chip_smoke.py, names either
-    (the git-ignored kernel build directory is not part of the package)."""
+    package blocked, and with h5py and yaml blocked too, as on the card's
+    machine: its CLI module imports and ``RunConfig.from_dict`` runs. No
+    module of it, and not chip_smoke.py, names jax or the JAX package, and
+    none imports h5py or yaml at module level (the git-ignored kernel
+    build directory is not part of the package)."""
     imp = re.compile(r"^\s*(import|from)\s+(jax|hydra_pspec_tpu)\b", re.M)
+    top = re.compile(r"^(import|from)\s+(h5py|yaml)\b", re.M)
     sources = [p for p in PORT.rglob("*.py")
                if "_build" not in p.relative_to(PORT).parts[:-1]]
     for p in sources + [PORT.parent / "chip_smoke.py"]:
         assert not imp.search(p.read_text()), p
+        assert not top.search(p.read_text()), p
     code = textwrap.dedent("""
         import sys
-        sys.modules["jax"] = None
-        sys.modules["hydra_pspec_tpu"] = None
+        for name in ("jax", "hydra_pspec_tpu", "h5py", "yaml"):
+            sys.modules[name] = None
         import numpy as np, torch
+        from hydra_pspec_torch.cli import run as cli
+        from hydra_pspec_torch.utils.config import RunConfig
+        cfg = RunConfig.from_dict({"Niter": 3, "engine": "megachain"})
+        assert cfg.Niter == 3 and cli.build_prior(cfg, 12).shape == (2, 12)
         from hydra_pspec_torch.runner import BaselineJob, run_baselines
         rng = np.random.default_rng(0)
         d = rng.standard_normal((6, 12)) + 1j * rng.standard_normal((6, 12))
@@ -152,7 +161,8 @@ def case_imports_without_jax():
         res, tim = run_baselines([job], np.zeros((2, 12)), 2, device="cpu",
                                  seed=1, write_niter=1)
         assert np.isfinite(res[0].signal_ps).all(), res[0].signal_ps
-        assert "jax" not in sys.modules or sys.modules["jax"] is None
+        for name in ("jax", "h5py", "yaml"):
+            assert sys.modules[name] is None, name
         print("ok", tim["engine"])
     """)
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,

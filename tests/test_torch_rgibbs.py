@@ -206,7 +206,7 @@ def case_solver_menu():
         got = trg.gcr_solve(rops, ps, oa, ob, solver=solver)[0].numpy()
         assert _rel(got, ref) < 1e-3, solver
     for solver in ("recinv", "identity"):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
+        with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
             trg.gcr_solve(rops, ps, oa, ob, solver=solver)
 
 

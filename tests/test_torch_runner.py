@@ -150,7 +150,7 @@ def case_subset_invariance(tmp_path, jax_root):
         assert (a.antpair, a.chain) == (b.antpair, b.chain)
         assert np.array_equal(a.signal_ps, b.signal_ps)
         assert np.array_equal(a.signal_cr, b.signal_cr)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
+    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
         trunner.run_baselines(jobs, _prior(), 2, device="cpu",
                               num_processes=2)
 

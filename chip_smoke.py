@@ -92,6 +92,26 @@ Phases, one printed line each (any failure raises; exit code non-zero):
      factor-solve calls a solve); solver="pallas2", 10 x 50; the mega
      engine with 21 prior bins, 20 baselines (chi^2 within 2 %, two
      herm_inv launches an iteration);
+  oracle: the posterior oracle gate (hydra_pspec_torch/validation/
+     validate.py) against the committed synthetic oracle
+     (validation/oracle_posterior_synth.json, 4 x 25000 chains of the
+     NumPy reference sampler): 16 chains (stream ids 0-15 of one
+     baseline of the main path's data, from ps_truth) of megachain
+     (production warm start, chunk graphs, lean), megachain with the
+     channels 12,30-33,77-79,100 flagged (chi_mask), mega and real
+     (solver pallas), 12000 iterations each, burn 2000: chi^2 within 2 %,
+     split-R-hat max <= 1.1, max_z < 4.5, at most 5 bins with z > 3, CI
+     cover >= 0.95; max_z, n_z_gt3, CI cover, min ESS, R-hat, chi^2 and
+     wall printed; every kernel of each engine launched;
+  complex: precision x64 through cli.run.run_jobs, the complex float64
+     engine (complex128, Cholesky solves, a chunk a CUDA graph, no
+     hand-written kernel): its float64 Philox words equal the CPU twin's,
+     8 main jobs x 2 chains x 200 iterations in chunks of 50 with files
+     and checkpoint (complex128 samples, chi^2 within 2 %, the first 2
+     baselines alone and a run stopped at 100 and resumed bit-identical),
+     4 jobs of the tflags signature A on the complex time-flags path
+     (chi^2 on unflagged entries within 2 %), then the oracle gate on 16
+     complex chains x 12000 (burn 500);
   9. times, in a process of its own (python3 chip_smoke.py --times OUT,
      started by this one: a profiler session earlier in a process and the
      large runs after it make later windows lose device activities): one
@@ -141,10 +161,12 @@ import numpy as np
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 
-SEED = 20261016
-NT, NF, NM = 203, 120, 12     # reference shape (SURVEY.md:69, bench.py:54-61)
+# one copy of the data generator: the synthetic problem of the port's checks
+# (SEED, the reference shape NT x NF with NM Legendre modes, the 7-bin prior)
+from hydra_pspec_torch.validation.synth import (  # noqa: E402
+    NF, NM, NT, PRIOR_HALF, SEED, make_jobs, make_prior, ps_truth)
+
 N_BASELINES, NITER, WRITE_NITER = 100, 200, 100
-PRIOR_HALF = 3                # 7 prior bins around delay 0
 CHI2_GATE = 0.02              # README.md:43-48
 N_SIG_A, N_SUBSET = 90, 10    # tflags: baselines of signature A; subset
 RFI = 1.0e4                   # added to every flagged entry of d
@@ -154,7 +176,6 @@ HBM_BYTES_S, FP32_OPS_S = 3.35e12, 67e12   # H100 SXM data sheet
 # scale (log, sqrt, cos, sin, conversions, products)
 PHILOX_OPS, BOX_MULLER_OPS = 110, 10
 
-CHI2_DENSE_RHO = 0.5          # dense noise: C_ij = s^2 rho^|i-j|
 N_MAP, N_PALLAS2, PALLAS2_NITER = 10, 10, 50
 N_TF_REAL, N_TF_SUB, TF_REAL_NITER = 20, 5, 100
 MEGA_HALF, MEGA_NITER = 10, 100   # 21 bounded prior bins
@@ -170,6 +191,17 @@ WIDE_NITER, WIDE_WRITE_NITER, WIDE_BURN = 400, 200, 200
 N_WIDE_DENSE, N_WIDE_MEGA = 20, 20
 N_WIDE_PALLAS2, WIDE_PALLAS2_NITER = 10, 50
 PROFILE_ITERS = 5             # the profiler window: plain iterations at B=100
+# the oracle phase: 16 chains of one baseline against the synthetic oracle
+# (the JAX package's validate_posterior.json entries used 16 x 12000); the
+# real engine at the same size: at 16 x 3000 its split-R-hat fails for a
+# correct sampler (the slowest bins' autocorrelation, ROADMAP.md Queue 3)
+ORACLE_NCHAINS, ORACLE_NITER, ORACLE_NBURN = 16, 12000, 2000
+ORACLE_REAL_NITER = 12000
+# the complex phase: precision x64 on 8 main jobs x 2 chains, 4 chunks, the
+# resume split at 100; 4 jobs of the tflags signature A; its oracle gate
+N_COMPLEX, COMPLEX_NCHAINS, N_COMPLEX_TF = 8, 2, 4
+COMPLEX_NITER, COMPLEX_WRITE_NITER, COMPLEX_RESUME_AT = 200, 50, 100
+COMPLEX_ORACLE_NITER, COMPLEX_ORACLE_NBURN = 12000, 500
 # the cli phase: the main phase's jobs through cli.run.run_jobs, 4 chunks
 # (each of the two graph slots replayed twice), the resume split at 100
 CLI_NITER, CLI_WRITE_NITER, CLI_RESUME_AT = 200, 50, 100
@@ -265,6 +297,11 @@ def say(phase, msg):
     print(f"[{phase}] {msg}", flush=True)
 
 
+def mark(phases, t0):
+    """The seconds since ``t0`` at the end of ``phases``."""
+    say("time", f"{phases} done at {time.perf_counter() - t0:.1f} s")
+
+
 def sync(dev):
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
@@ -294,60 +331,7 @@ def phase_env():
     return smi
 
 
-# --- synthetic data from the model -------------------------------------------
-
-def ps_truth(nf=NF):
-    delay = np.arange(nf) - nf // 2
-    return 1000.0 / (1.0 + (delay / 8.0) ** 2)
-
-
-def noise_cov(b, nbl, nf=NF):
-    """Baseline b's dense noise covariance C_ij = s^2 rho^|i-j|, s^2 from
-    0.5 to 2 over the baselines: stationary noise correlated between
-    neighbouring channels, the np.cov of the data that
-    scripts/calc_vis_cov_matrices.py writes."""
-    i = np.arange(nf)
-    s2 = 0.5 + 1.5 * b / max(nbl - 1, 1)
-    return s2 * CHI2_DENSE_RHO ** np.abs(i[:, None] - i[None, :])
-
-
-def make_jobs(nbl, job_cls, legendre_fgmodes, out_root=None, ntimes=NT,
-              dense=False, seed=SEED, nf=NF):
-    """d = s + Fg a + n with s ~ CN(0, F^H diag(ps/n^2) F), foreground
-    amplitudes ~1e3 x the noise, n ~ CN(0, 1/Ninv), Ninv = 1; with
-    ``dense``, n ~ CN(0, C) with C from :func:`noise_cov` and Ninv = C^-1,
-    a dense matrix. ``nf`` channels; the chains start from S_initial = I."""
-    rng = np.random.default_rng(seed)
-    i = np.arange(nf) - nf // 2
-    f = np.exp(-2j * np.pi * np.outer(i, i) / nf)
-    amp = np.sqrt(ps_truth(nf) / nf**2)
-    fg = legendre_fgmodes(nf, NM)
-    cn = lambda *s: (rng.standard_normal(s)
-                     + 1j * rng.standard_normal(s)) / np.sqrt(2)
-    jobs = []
-    for b in range(nbl):
-        s = (cn(ntimes, nf) * amp) @ f.conj()      # rows: F^H (amp z)
-        a = cn(ntimes, NM) * 1e3 / (1.0 + np.arange(NM))
-        if dense:
-            c = noise_cov(b, nbl, nf)
-            n, ninv = cn(ntimes, nf) @ np.linalg.cholesky(c).T, \
-                np.linalg.inv(c)
-        else:
-            n, ninv = cn(ntimes, nf), np.ones(nf)
-        jobs.append(job_cls(
-            antpair=(b, b + 1), d=s + a @ fg.T + n, w=np.ones(nf),
-            fgmodes=fg, S_initial=np.eye(nf), Ninv=ninv,
-            out_dir=None if out_root is None else out_root / f"{b}-{b + 1}"))
-    return jobs
-
-
-def make_prior(half=PRIOR_HALF, nf=NF):
-    prior = np.zeros((2, nf))
-    sl = slice(nf // 2 - half, nf // 2 + half + 1)
-    prior[0, sl] = ps_truth(nf)[sl] * 10.0
-    prior[1, sl] = ps_truth(nf)[sl] / 10.0
-    return prior
-
+# --- synthetic data from the model: hydra_pspec_torch/validation/synth.py ---
 
 def build_ops(jobs, device):
     from hydra_pspec_torch.models import mega, rgibbs
@@ -1344,10 +1328,8 @@ def run_megachain_path(label, dev, jobs, nf, niter=NITER,
 
 def phase_main(dev, out_root):
     from hydra_pspec_torch import runner
-    from hydra_pspec_torch.cli.run import legendre_fgmodes
 
-    jobs = make_jobs(N_BASELINES, runner.BaselineJob, legendre_fgmodes,
-                     out_root)
+    jobs = make_jobs(N_BASELINES, out_root)
     results, launches, rate, stats = run_megachain_path(
         "main", dev, jobs, NF, profile_dir=out_root / "main-trace")
     return jobs, results, launches, rate, stats["host_side"]
@@ -1712,7 +1694,6 @@ def phase_fallback(dev, jobs_plain, out_root):
     import functools
 
     from hydra_pspec_torch import runner
-    from hydra_pspec_torch.cli.run import legendre_fgmodes
     from hydra_pspec_torch.utils import io as hio
 
     launches, stats = {}, {}
@@ -1720,8 +1701,8 @@ def phase_fallback(dev, jobs_plain, out_root):
     run = functools.partial(drive, dev, launches, stats)
 
     # a dense Ninv at full width: the real engine, the factor-solve kernel
-    dense = make_jobs(len(jobs_plain), runner.BaselineJob, legendre_fgmodes,
-                      out_root / "dense", dense=True, seed=SEED + 3)
+    dense = make_jobs(len(jobs_plain), out_root / "dense", dense=True,
+                      seed=SEED + 3)
     res, _ = run("dense", REAL_KERNELS, "real", dense, NITER,
                    write_niter=WRITE_NITER, store_cr=True)
     ck = hio.load_checkpoint(Path(dense[0].out_dir).parent)
@@ -1815,8 +1796,7 @@ def phase_fallback(dev, jobs_plain, out_root):
         f"|chi^2 - 1| <= {CHI2_GATE})")
     require(abs(chi2 - 1.0) <= CHI2_GATE, "mega chi^2 gate")
     stats["mega"].update(chi2=chi2)
-    long = make_jobs(N_LONG, runner.BaselineJob, legendre_fgmodes,
-                     ntimes=LONG_NT, seed=SEED + 5)
+    long = make_jobs(N_LONG, ntimes=LONG_NT, seed=SEED + 5)
     res, _ = run("mega_long", MEGA_KERNELS, "mega", long, LONG_NITER,
                    write_niter=LONG_NITER, store_cr=False)
     burn = LONG_NITER // 2
@@ -1861,12 +1841,11 @@ def phase_wideband(dev, out_root):
     import functools
 
     from hydra_pspec_torch import runner
-    from hydra_pspec_torch.cli.run import legendre_fgmodes
 
     nf = WIDE_NF
     depth = dict(niter=WIDE_NITER, write_niter=WIDE_WRITE_NITER)
-    jobs = make_jobs(N_BASELINES, runner.BaselineJob, legendre_fgmodes,
-                     out_root / "megachain", nf=nf, seed=SEED + 20)
+    jobs = make_jobs(N_BASELINES, out_root / "megachain", nf=nf,
+                     seed=SEED + 20)
     results, mc_launches, _, mc_stats = run_megachain_path(
         "wideband", dev, jobs, nf, burn=WIDE_BURN, **depth)
     del results
@@ -1877,8 +1856,8 @@ def phase_wideband(dev, out_root):
         "wide_megachain": mc_stats}
     run = functools.partial(drive, dev, launches, stats)
 
-    dense = make_jobs(N_WIDE_DENSE, runner.BaselineJob, legendre_fgmodes,
-                      out_root / "dense", dense=True, seed=SEED + 21, nf=nf)
+    dense = make_jobs(N_WIDE_DENSE, out_root / "dense", dense=True,
+                      seed=SEED + 21, nf=nf)
     run("wide_dense", REAL_KERNELS, "real", dense, WIDE_NITER,
         prior=make_prior(nf=nf), write_niter=WIDE_NITER, store_cr=True)
     got = launches["wide_dense"]["herm_chol_solve"]
@@ -1926,6 +1905,206 @@ def phase_wideband(dev, out_root):
     require(abs(chi2 - 1.0) <= CHI2_GATE, "wide_mega chi^2 gate")
     stats["wide_mega"].update(chi2=chi2)
     return launches, stats
+
+
+# --- oracle: the posterior gate (hydra_pspec_torch/validation/validate.py) ---
+
+def phase_oracle(dev):
+    """Each engine's chains against the committed synthetic oracle
+    (``validation/oracle_posterior_synth.json``) through
+    ``validate.validate``, with the launch counts set to 0 just before
+    each run and read just after: chi^2 within 2 %, split-R-hat <= 1.1 and
+    ``oracle_acceptance``; any failed gate fails the phase."""
+    from hydra_pspec_torch.ops.kernels import _build
+    from hydra_pspec_torch.validation import synth
+    from hydra_pspec_torch.validation import validate as V
+
+    runs = (("megachain", None, ORACLE_NITER, MAIN_KERNELS),
+            ("megachain", synth.FLAG_CHANNELS, ORACLE_NITER, MAIN_KERNELS),
+            ("mega", None, ORACLE_NITER, MEGA_KERNELS),
+            ("real", None, ORACLE_REAL_NITER, REAL_KERNELS))
+    stats, launches, failed = {}, {}, []
+    for engine, flags, niter, kernels in runs:
+        _build.reset_launches()
+        v = V.validate(engine, flag_channels=flags, nchains=ORACLE_NCHAINS,
+                       niter=niter, nburn=ORACLE_NBURN, device=dev)
+        sync(dev)
+        label = V.label_of(v)
+        launches[label] = got = dict(_build.LAUNCHES)
+        stats[label] = oracle_line("oracle", label, v)
+        missing = [k for k in kernels if got[k] == 0]
+        require(not missing, f"oracle {label}: never launched: {missing}")
+        if not v["pass"]:
+            failed.append(label)
+    require(not failed, f"oracle: gates failed for {failed}")
+    return stats, launches
+
+
+def oracle_line(phase, label, v):
+    """Print one validation verdict; return its numbers."""
+    c = v["oracle_compare"]
+    out = {"niter": v["niter"], "nburn": v["nburn"],
+           "nchains": v["nchains"], "wall_s": v["wall_s"],
+           "max_z": c["max_z"], "n_z_gt3": c["n_z_gt3"],
+           "ci_cover": c["ci_cover_frac"], "min_ess": c["min_ess_ours"],
+           "split_rhat_max": v["split_rhat_max"],
+           "chisq": v["chisq_postburn_mean"], "gates": v["gates"],
+           "pass": v["pass"]}
+    say(phase, f"{label}: {v['nchains']} chains x {v['niter']} iterations "
+        f"(burn {v['nburn']}): max_z {c['max_z']} (< 4.5), n_z_gt3 "
+        f"{c['n_z_gt3']} (<= 5), ci_cover {c['ci_cover_frac']} (>= 0.95), "
+        f"min ESS {c['min_ess_ours']}, split-R-hat max "
+        f"{v['split_rhat_max']} (<= 1.1), chi^2 {v['chisq_postburn_mean']}"
+        f" (within 2 %), wall {v['wall_s']} s: "
+        f"{'pass' if v['pass'] else 'FAIL'} {v['gates']}")
+    return out
+
+
+# --- complex: the complex float64 engine behind precision x64 -------------------
+
+def chain_files_differing(dir_a, dir_b, jobs, nchains):
+    """The sample files of ``jobs``' chains that differ between two results
+    directories (``<bl>/chain-<c>/`` with more than one chain)."""
+    from hydra_pspec_torch.utils.io import SAMPLE_FILENAMES
+
+    bad = []
+    for j in jobs:
+        bl = f"{j.antpair[0]}-{j.antpair[1]}"
+        for c in range(nchains):
+            sub = f"{bl}/chain-{c}" if nchains > 1 else bl
+            for name in SAMPLE_FILENAMES.values():
+                if not filecmp.cmp(Path(dir_a) / sub / name,
+                                   Path(dir_b) / sub / name, shallow=False):
+                    bad.append(f"{sub}/{name}")
+    return bad
+
+
+def phase_complex(dev, jobs_main, out_root):
+    """``precision x64`` through ``cli.run.run_jobs``: the complex float64
+    engine on N_COMPLEX of the main jobs x COMPLEX_NCHAINS chains,
+    COMPLEX_NITER iterations in chunks of COMPLEX_WRITE_NITER with files
+    and checkpoint, its launch counts read (no hand-written kernel lies on
+    this path). Gates: the float64 Philox words on the card equal the CPU
+    twin's; complex128 samples; chi^2 within 2 %; the first 2 baselines
+    alone and a run stopped at COMPLEX_RESUME_AT and resumed give
+    bit-identical files; N_COMPLEX_TF jobs with the tflags phase's
+    signature A on the complex time-flags path, chi^2 on unflagged entries
+    within 2 %; then the oracle gate on the complex engine."""
+    from hydra_pspec_torch import runner
+    from hydra_pspec_torch.cli import run as cli
+    from hydra_pspec_torch.ops import philox
+    from hydra_pspec_torch.ops.kernels import _build
+    from hydra_pspec_torch.utils import io as hio
+    from hydra_pspec_torch.utils.config import RunConfig
+    from hydra_pspec_torch.validation import validate as V
+
+    sids = torch.arange(COMPLEX_NCHAINS * N_COMPLEX, dtype=torch.int32)
+    ctr = philox._layout64(NT, NF, NT - 1, 7, "cpu")
+    words = [philox.philox4x32(37, *(c.to(dev) if d else c for c in ctr),
+                               SEED, (sids.to(dev) if d else sids)[:, None])
+             for d in (True, False)]
+    require(all(torch.equal(a.cpu(), b) for a, b in zip(*words)),
+            "complex: float64 Philox words on the card differ from the twin")
+    got = philox.draws64(SEED, sids.to(dev), 37, NT, NF, NT - 1, 7)
+    want = philox.draws64(SEED, sids, 37, NT, NF, NT - 1, 7)
+    err = max(float((a.cpu() - b).abs().max()) for a, b in zip(got, want))
+    say("complex", f"float64 Philox: {words[0][0].numel()} x 4 words "
+        f"bit-identical to the CPU twin; draws within {err:.2e}")
+    require(err < 1e-9, "complex: float64 draws differ from the twin")
+
+    prior = make_prior()
+    lo, hi = prior[1][prior[1] > 0].min(), prior[0].max()
+    cfg = RunConfig.from_dict(dict(
+        Niter=COMPLEX_NITER, write_Niter=COMPLEX_WRITE_NITER, store_cr=True,
+        seed=SEED, nchains=COMPLEX_NCHAINS, precision="x64",
+        out_dir=str(out_root), dirname="complex", n_ps_prior_bins=PRIOR_HALF,
+        ps_prior_lo=float(lo), ps_prior_hi=float(hi)))
+    base = jobs_main[:N_COMPLEX]
+
+    def run(cfg, jobs):
+        out = cli.output_dir(cfg)
+        jobs = [dataclasses.replace(j, out_dir=out / f"{a}-{b}")
+                for j in jobs for a, b in [j.antpair]]
+        t0 = time.perf_counter()
+        res, tim = cli.run_jobs(cfg, jobs, NF, len(jobs), 0.0, out,
+                                device=dev)
+        sync(dev)
+        return out, jobs, res, tim, time.perf_counter() - t0
+
+    _build.reset_launches()
+    out, jobs, results, tim, wall = run(cfg, base)
+    launches = {k: v for k, v in _build.LAUNCHES.items() if v}
+    nb = len(jobs) * COMPLEX_NCHAINS
+    rate = nb * COMPLEX_NITER / (tim["process"] - tim["write"])
+    say("complex", f"run_jobs precision x64: {len(jobs)} baselines x "
+        f"{COMPLEX_NCHAINS} chains x {COMPLEX_NITER} iterations in chunks "
+        f"of {COMPLEX_WRITE_NITER}: engine {tim['engine']}, wall {wall:.2f}"
+        f" s, process {tim['process']:.2f} s (write {tim['write']:.2f} s), "
+        f"sampling {1e3 / (rate / nb):.3f} ms an iteration at B = {nb}; "
+        f"kernel launches {launches or 'none'}")
+    require(tim["engine"] == "complex", f"complex: ran {tim['engine']}")
+    s = hio.load_samples(jobs[0].out_dir / "chain-0")
+    dtypes = {k: str(s[k].dtype) for k in ("signal_cr", "fg_amps",
+                                            "signal_ps", "chisq")}
+    require(dtypes == {"signal_cr": "complex128", "fg_amps": "complex128",
+                       "signal_ps": "float64", "chisq": "float64"},
+            f"complex: sample dtypes {dtypes}")
+    ck = hio.load_checkpoint(out)
+    require(ck is not None and ck["iteration"] == COMPLEX_NITER,
+            "complex: no checkpoint at the last iteration")
+    chi2 = float(np.mean([r.chisq[50:].mean() for r in results]))
+    say("complex", f"samples {dtypes}; checkpoint at {COMPLEX_NITER}; mean "
+        f"chi^2 over iterations 51-{COMPLEX_NITER}: {chi2:.5f} (gate "
+        f"|chi^2 - 1| <= {CHI2_GATE})")
+    require(abs(chi2 - 1.0) <= CHI2_GATE, "complex chi^2 gate")
+
+    sub, *_ = run(dataclasses.replace(cfg, dirname="complex-subset"),
+                  base[:2])
+    bad = chain_files_differing(out, sub, jobs[:2], COMPLEX_NCHAINS)
+    say("complex", f"first 2 baselines alone: {len(bad)} of "
+        f"{6 * 2 * COMPLEX_NCHAINS} files differ")
+    require(not bad, f"complex: the subset run differs: {bad[:5]}")
+    part = dataclasses.replace(cfg, dirname="complex-resume",
+                               Niter=COMPLEX_RESUME_AT)
+    run(part, base)
+    res_out, _, _, rtim, _ = run(dataclasses.replace(
+        part, Niter=COMPLEX_NITER, resume=True), base)
+    bad = chain_files_differing(out, res_out, jobs, COMPLEX_NCHAINS)
+    say("complex", f"stopped at {COMPLEX_RESUME_AT}, resumed from "
+        f"{rtim['start_iter']}: {len(bad)} of {6 * nb} files differ")
+    require(rtim["start_iter"] == COMPLEX_RESUME_AT and not bad,
+            f"complex: the resumed run differs: {bad[:5]}")
+    for d in (out, sub, res_out):
+        shutil.rmtree(d)
+
+    tf_jobs = [dataclasses.replace(j, out_dir=None) for j in
+               make_tflags_jobs(base[:N_COMPLEX_TF], N_COMPLEX_TF)]
+    t0 = time.perf_counter()
+    res_tf, tim_tf = runner.run_baselines(
+        tf_jobs, prior, COMPLEX_NITER, device=dev, seed=SEED,
+        write_niter=COMPLEX_WRITE_NITER, engine="complex")
+    sync(dev)
+    tf_wall = time.perf_counter() - t0
+    chi2_tf = float(np.mean([r.chisq[50:][:, ~j.flags_tf].mean()
+                             for j, r in zip(tf_jobs, res_tf)]))
+    say("complex", f"time flags (signature A, G = 4), {N_COMPLEX_TF} "
+        f"baselines x {COMPLEX_NITER} on the complex path: wall "
+        f"{tf_wall:.2f} s; chi^2 over unflagged entries, iterations "
+        f"51-{COMPLEX_NITER}: {chi2_tf:.5f} (gate within {CHI2_GATE})")
+    require(tim_tf["engine"] == "complex"
+            and abs(chi2_tf - 1.0) <= CHI2_GATE, "complex tflags chi^2 gate")
+
+    v = V.validate("complex", nchains=ORACLE_NCHAINS,
+                   niter=COMPLEX_ORACLE_NITER, nburn=COMPLEX_ORACLE_NBURN,
+                   device=dev)
+    oracle = oracle_line("complex", V.label_of(v), v)
+    require(v["pass"], "complex: the oracle gate failed")
+    return {"baselines": len(jobs), "nchains": COMPLEX_NCHAINS,
+            "niter": COMPLEX_NITER, "chi2": chi2, "dtypes": dtypes,
+            "ms_per_iteration": 1e3 / (rate / nb), "batch": nb,
+            "process_s": tim["process"], "write_s": tim["write"],
+            "launches": launches, "tflags_chi2": chi2_tf,
+            "tflags_wall_s": tf_wall, "oracle": oracle}
 
 
 # --- 9. times ----------------------------------------------------------------
@@ -2701,18 +2880,15 @@ def times_main(out):
     path's, the dense and the wide band's jobs (made from the same seeds
     as in their phases), their results written to OUT as JSON."""
     from hydra_pspec_torch import runner
-    from hydra_pspec_torch.cli.run import legendre_fgmodes
     from hydra_pspec_torch.ops.kernels import _build
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
     _build.library()
-    jobs = make_jobs(N_BASELINES, runner.BaselineJob, legendre_fgmodes)
-    dense = make_jobs(N_BASELINES, runner.BaselineJob, legendre_fgmodes,
-                      dense=True, seed=SEED + 3)
-    jobs_w = make_jobs(N_BASELINES, runner.BaselineJob, legendre_fgmodes,
-                       nf=WIDE_NF, seed=SEED + 20)
+    jobs = make_jobs(N_BASELINES)
+    dense = make_jobs(N_BASELINES, dense=True, seed=SEED + 3)
+    jobs_w = make_jobs(N_BASELINES, nf=WIDE_NF, seed=SEED + 20)
     tm = phase_times(dev, jobs)
     tf = phase_times_fallback(dev, jobs, dense, tm)
     tw = phase_times_wide(dev, jobs_w)
@@ -2724,7 +2900,6 @@ def main():
     phase_env()
     dev = torch.device("cuda", 0)
     from hydra_pspec_torch import runner
-    from hydra_pspec_torch.cli.run import legendre_fgmodes
     from hydra_pspec_torch.ops.kernels import _build
 
     t0 = time.perf_counter()
@@ -2738,30 +2913,40 @@ def main():
                 or "Compiling entry" in line):
             say("build", line.strip())
 
-    jobs8 = make_jobs(8, runner.BaselineJob, legendre_fgmodes)
-    jobs_w8 = make_jobs(8, runner.BaselineJob, legendre_fgmodes, nf=WIDE_NF,
+    jobs8 = make_jobs(8)
+    jobs_w8 = make_jobs(8, nf=WIDE_NF,
                         seed=SEED + 20)
     errs = {}
     phase_kernels(dev, jobs8, jobs_w8, errs)
+    mark("kernels", t0)
     phase_chain(dev, jobs8)
-    jobs_w = make_jobs(N_BASELINES, runner.BaselineJob, legendre_fgmodes,
-                       nf=WIDE_NF, seed=SEED + 20)
+    jobs_w = make_jobs(N_BASELINES, nf=WIDE_NF, seed=SEED + 20)
     out_root = Path(tempfile.mkdtemp(prefix="chip_smoke_"))
     try:
         jobs, results, launches, rate, main_host = phase_main(dev, out_root)
         phase_invariance(dev, jobs, results)
         del results
+        mark("main, invariance", t0)
         graphs = phase_graph(dev, jobs, jobs_w)
         tf_launches, tf_stats = phase_tflags(dev, jobs, out_root / "tflags")
+        mark("graph, tflags", t0)
         fb_launches, fb_stats, dense = phase_fallback(
             dev, jobs, out_root / "fallback")
         shutil.rmtree(out_root)   # the earlier files are checked: free
         out_root.mkdir()          # the disk for the cli's and wide band's
         cli_stats = phase_cli(dev, jobs, out_root)
+        mark("fallback, cli", t0)
         wb_launches, wb_stats = phase_wideband(dev, out_root / "wideband")
         del jobs_w, dense
         torch.cuda.empty_cache()
+        mark("wideband", t0)
+        oracle_stats, oracle_launches = phase_oracle(dev)
+        mark("oracle", t0)
+        complex_stats = phase_complex(dev, jobs, out_root)
+        torch.cuda.empty_cache()
+        mark("complex", t0)
         tm, tf, tw = times_process(out_root)
+        mark("times", t0)
     finally:
         shutil.rmtree(out_root, ignore_errors=True)
 
@@ -2821,6 +3006,8 @@ def main():
         "device_profile": tm["profile"],
         "device_ms": device_ms,
         "omega_layouts_ms": tm["omega_layouts"],
+        "oracle": {"runs": oracle_stats, "launches": oracle_launches},
+        "complex": complex_stats,
         "wideband": {
             "nfreqs": WIDE_NF, "runs": wb_stats, "launches": wb_launches,
             "blocked": tw["blocked"],

@@ -10,11 +10,11 @@ Usage:
 uvh5 input is read with h5py and a YAML config with pyyaml, each imported
 where it is read: :func:`run_jobs`, everything after the load, needs
 neither. The port's policy: ``precision`` ``auto`` or ``x32`` runs the
-float32 engines; ``x64`` (the complex float64 engine) and
-``--num_processes`` above 1 raise ``NotImplementedError`` (ROADMAP.md,
-Queue 1 items 6 and 5); ``engine: auto`` is megachain
-(``runner.select_engine``), and ``runner.route_engine`` sends what it
-does not cover to the mega or real engine.
+float32 engines, ``x64`` the complex float64 engine (complex128 on the
+card, the correctness tier); ``--num_processes`` above 1 raises
+``NotImplementedError`` (ROADMAP.md, Queue 1 item 5); ``engine: auto`` is
+megachain (``runner.select_engine``), and ``runner.route_engine`` sends
+what it does not cover to the mega or real engine.
 """
 import argparse
 import sys
@@ -81,13 +81,19 @@ def load_config(argv=None):
 def check_supported(cfg: RunConfig, num_processes: int = 1):
     """The port's policy (module docstring): raise for what it does not
     run."""
-    if cfg.precision == "x64":
-        raise NotImplementedError(
-            "precision x64 selects the complex float64 engine, which is not "
-            "ported yet (ROADMAP.md, Queue 1 item 6); use auto or x32")
-    if cfg.precision not in ("auto", "x32"):
+    if cfg.precision not in ("auto", "x32", "x64"):
         raise ValueError(f"unknown precision {cfg.precision!r}")
     _one_process(num_processes)
+
+
+def engine_of(cfg: RunConfig) -> str:
+    """The engine the run asks for: ``precision x64`` turns ``engine:
+    auto`` into the complex float64 engine (``cli/run.py:82-94`` of the
+    JAX package: x64 makes ``select_engine`` pick it); an explicit
+    engine is taken as given."""
+    if cfg.precision == "x64" and cfg.engine == "auto":
+        return "complex"
+    return cfg.engine
 
 
 def _one_process(num_processes: int):
@@ -250,7 +256,7 @@ def run_jobs(cfg: RunConfig, jobs, nfreqs: int, n_baselines: int,
         jobs, build_prior(cfg, nfreqs), cfg.Niter, device=device,
         seed=cfg.seed, nchains=cfg.nchains, write_niter=cfg.write_Niter,
         map_estimate=cfg.map_estimate, store_cr=cfg.store_cr,
-        jitter=cfg.jitter, engine=cfg.engine, solver=cfg.solver,
+        jitter=cfg.jitter, engine=engine_of(cfg), solver=cfg.solver,
         warm_ns=cfg.warm_ns, drift_max=cfg.drift_max,
         checkpoint_niter=cfg.checkpoint_Niter, resume=cfg.resume,
         run_dir=out_dir, verbose=cfg.verbose, profile_dir=cfg.profile_dir)

@@ -30,6 +30,7 @@ from ..ops.fourier import dft_matrix
 from ..ops.invgamma import InvGammaTable, make_invgamma_table
 from ..ops.kernels import herm_inv as _hi
 from ..ops.kernels import spd_solve as _ss
+from ..ops.kernels.cgemm import plain_cgemm
 from ..ops.kernels.impl import KERNELS, Impl
 
 
@@ -284,7 +285,12 @@ def gcr_solve(ops: RealOperators, ps, omega_a_delay=None, omega_b=None,
 
 def solve(m, b, jitter: float, solver: str, impl: Impl = KERNELS):
     """``m x = b`` for the Hermitian PD systems ``m`` (B, n, n), ``b``
-    (B, n, K): the solver menu of ``rgibbs.py:245-269``."""
+    (B, n, K): the solver menu of ``rgibbs.py:245-269``. ``recinv`` is
+    :func:`herm_inv.hermitian_solve` (equilibration, the explicit inverse,
+    one refinement step) over the plain ``herm_inv`` and ``cgemm``, as the
+    JAX package's ``cplx.hermitian_solve_recinv`` is the recursive-inverse
+    kernel's algorithm in XLA; ``identity`` returns ``b`` (profiling
+    only, as in the JAX package)."""
     if solver == "auto":
         solver = "pallas" if m.device.type == "cuda" else "chol"
     if solver == "chol":
@@ -297,9 +303,13 @@ def solve(m, b, jitter: float, solver: str, impl: Impl = KERNELS):
         return _hi.hermitian_solve(m, b, refine=2 if solver == "pallas2f"
                                    else 1, jitter=jitter,
                                    inv=impl.herm_inv, mm=impl.cgemm)
-    if solver in ("recinv", "identity"):
-        raise NotImplementedError(
-            f"solver {solver!r} is not ported (ROADMAP.md, Queue 1 item 6)")
+    if solver == "recinv":
+        # the JAX solver is the recursive-inverse kernel's algorithm in XLA,
+        # without the kernel: here the same entry over the plain versions
+        return _hi.hermitian_solve(m, b, refine=1, jitter=jitter,
+                                   inv=_hi.plain_herm_inv, mm=plain_cgemm)
+    if solver == "identity":    # profiling only: no solve at all
+        return b
     raise ValueError(f"unknown solver {solver!r}")
 
 

@@ -11,16 +11,25 @@ all groups (``models/megachain.py``, grouped mode).
 
 The real engine's grouped step (``gibbs_step_tflags_real``, ``:187-332``)
 runs a signature with more than 8 patterns; the megachain engine's grouped
-mode (``models/megachain.py``) runs the others. Not ported: the complex
-engine's step (``gibbs_step_tflags``, ROADMAP.md Queue 1 item 6).
+mode (``models/megachain.py``) runs the others. The complex float64
+engine's grouped step (``gibbs_step_tflags``, ``:68-166``) runs one
+baseline's chains at a time, on that baseline's per-group operators
+(``models/gcr.py``).
 """
 from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
 
+from ..ops.invgamma import sample_bandpowers_grid
+from ..ops.fourier import cfft
 from ..ops.kernels.impl import KERNELS, Impl
-from . import rgibbs
+from . import gcr, gibbs, rgibbs
+
+
+class TimeGroup(NamedTuple):
+    ops: gcr.ChainOperators
+    idx: torch.Tensor  # int64 time indices of this group, increasing
 
 
 class TimeGroupReal(NamedTuple):
@@ -42,6 +51,93 @@ def group_flag_patterns(flags_tf: np.ndarray):
         idx = np.nonzero(inverse == uidx)[0]
         groups.append(((~flags_tf[idx[0]]).astype(float), idx))
     return groups
+
+
+def build_grouped_operators(vis, flags_tf, fgmodes, ninv,
+                            dtype=torch.complex128, device="cpu"):
+    """Per-group chain constants of one baseline for the complex engine
+    (``tflags.py:55-65``), on ``device``."""
+    vis = np.asarray(vis)
+    return [TimeGroup(ops=gcr.build_chain_operators(
+                vis[idx], w_g, fgmodes, ninv, dtype=dtype, device=device),
+                      idx=torch.as_tensor(idx, device=device))
+            for w_g, idx in group_flag_patterns(flags_tf)]
+
+
+def gibbs_step_tflags(groups, ps, prior, rand: dict, *,
+                      map_estimate: bool = False, jitter: float = 0.0,
+                      prior_idx=None):
+    """One grouped Gibbs alternation of the complex engine
+    (``tflags.py:68-143``): each time group draws with its own operators
+    and the chains' ``ps`` (..., Nfreqs); the bandpower draw pools ``beta``
+    over all times, alpha + 1 = the total time count. ``rand``: as
+    :func:`gibbs.gibbs_step`, the omegas over all times in time order
+    (group g takes those of its time indices). Returns ``(ps_new,
+    gibbs.GibbsSample with every time in order, info)``."""
+    ntimes = sum(int(g.idx.shape[0]) for g in groups)
+    first = groups[0].ops
+    nfreqs, nmodes = first.fgmodes.shape[-2:]
+    npb = nfreqs if prior_idx is None else len(prior_idx)
+    oa, ob, gam, u = gibbs.step_randomness(rand, ntimes, nfreqs, npb)
+    batch = ps.shape[:-1]
+    dev, dt = ps.device, first.d_w.dtype
+    rdt = ps.dtype
+    signal_cr = torch.zeros(batch + (ntimes, nfreqs), dtype=dt, device=dev)
+    fg_amps = torch.zeros(batch + (ntimes, nmodes), dtype=dt, device=dev)
+    chisq = torch.zeros(batch + (ntimes, nfreqs), dtype=rdt, device=dev)
+    beta = torch.zeros(batch + (nfreqs,), dtype=rdt, device=dev)
+    beta_masked = torch.zeros_like(beta)
+    noise = torch.zeros(batch, dtype=rdt, device=dev)
+    info = torch.zeros((), dtype=torch.int32, device=dev)
+    for grp in groups:
+        ops, idx = grp.ops, grp.idx
+        pick = lambda z: None if z is None or map_estimate else z[..., idx, :]
+        res = gcr.gcr_solve(ops, ps, pick(oa), pick(ob), jitter=jitter)
+        resid = ops.d_w - (res.signal_cr + res.fg_amps @ ops.fgmodes.mT)
+        sk = cfft(res.signal_cr, dim=-1)
+        skm = cfft(res.signal_cr * ops.w[..., None, :], dim=-1)
+        signal_cr[..., idx, :] = res.signal_cr
+        fg_amps[..., idx, :] = res.fg_amps
+        chisq[..., idx, :] = (gibbs._abs2(resid)
+                              * ops.noise.ninv_full_diag[..., None, :])
+        beta = beta + gibbs._abs2(sk).sum(dim=-2)
+        noise = noise + torch.sum(
+            (ops.noise.apply_ni(resid).conj() * resid).real, dim=(-2, -1))
+        beta_masked = beta_masked + gibbs._abs2(skm).sum(dim=-2)
+        info = torch.maximum(info, res.info.max())
+    ps_new = sample_bandpowers_grid(beta, ntimes, prior, gam=gam, u=u,
+                                    prior_idx=prior_idx)
+    tiny = torch.finfo(rdt).tiny
+    sig_term = torch.sum(beta_masked / torch.clamp(ps_new, min=tiny),
+                         dim=-1)
+    sample = gibbs.GibbsSample(signal_cr, ps_new, fg_amps, chisq,
+                               -(noise + sig_term))
+    return ps_new, sample, info
+
+
+def run_chain_tflags(groups, ps0, prior, niter: int, *, seed=None,
+                     sids=None, iter0: int = 0,
+                     randomness: Optional[dict] = None,
+                     map_estimate: bool = False, jitter: float = 0.0,
+                     store_cr: bool = True):
+    """``niter`` grouped steps of the chains ``ps0`` (B, Nfreqs) of one
+    baseline (``tflags.py:146-166``), eagerly; arguments and result as
+    :func:`gibbs.run_chain`."""
+    prior_t, prior_idx = gibbs.prior_on_device(prior, ps0.device)
+    ps = ps0
+    parts = {name: [] for name in rgibbs.ChainSample._fields}
+    info = torch.zeros((), dtype=torch.int32, device=ps0.device)
+    for k in range(niter):
+        rand = ({name: v[k] for name, v in randomness.items()}
+                if randomness is not None
+                else dict(seed=seed, sids=sids, g=iter0 + k))
+        ps, s, inf = gibbs_step_tflags(groups, ps, prior_t, rand,
+                                       map_estimate=map_estimate,
+                                       jitter=jitter, prior_idx=prior_idx)
+        info = torch.maximum(info, inf)
+        gibbs.append_step(parts, s, store_cr)
+    gibbs.check_factors(info, iter0, niter)
+    return ps, rgibbs.stack_samples(parts)
 
 
 def build_grouped_operators_real(vis, flags_tf, fgmodes, ninv,

@@ -1,6 +1,7 @@
-"""Tabulated truncated inverse-gamma sampling.
+"""Truncated inverse-gamma sampling: the table of the float32 engines and
+the grid inversion of the complex float64 engine.
 
-Port of ``hydra_pspec_tpu/ops/invgamma.py:81-160``. The table of the
+Port of ``hydra_pspec_tpu/ops/invgamma.py``. The table of the
 regularized upper gamma ``Q(alpha, y)`` on a log-spaced ``y`` grid is built
 once on the host in float64 with scipy and stored in float32, as the JAX
 package does. The lookups below are plain torch and serve as the reference
@@ -12,6 +13,8 @@ import numpy as np
 import torch
 
 from . import philox
+from .fourier import cfft
+from .special import gammaincc_fixed, iters_for_shape, on_device
 
 
 class InvGammaTable(NamedTuple):
@@ -109,3 +112,136 @@ def sample_bandpowers_from_beta(beta, prior, log_y, q, *, gam=None, u=None,
     out = free.clone()
     out[:, idx] = x
     return out
+
+
+# --- the complex float64 engine's draw: the grid inversion ----------------
+# (``ops/invgamma.py:32-80`` and ``:162-199``, ``:267-292``)
+
+_NGRID = 1000  # the reference's interpolation grid
+
+
+def invgamma_cdf(x, alpha, beta, iters=None):
+    """CDF of InverseGamma(alpha, scale=beta): ``Q(alpha, beta / x)``, the
+    fixed-count upper incomplete gamma (``ops/special.py``)."""
+    return gammaincc_fixed(alpha, beta / x, iters=iters)
+
+
+def truncated_invgamma_sample(u, alpha, beta, lo, hi, ngrid: int = _NGRID,
+                              iters=None):
+    """Inverse-CDF draw from InverseGamma(alpha, scale=beta) truncated to
+    ``[lo, hi]`` given a uniform ``u`` (reference pspec.py:50-62): the CDF
+    on a log grid of ``ngrid`` points over the bounds, renormalised over
+    the truncation, linearly interpolated at ``u``. Flat stretches of the
+    CDF are bridged with a clamped denominator, as the JAX function does.
+    Arguments broadcast; the result has their shape and ``beta``'s
+    floating dtype (at least float64 for Python scalars)."""
+    dt = beta.dtype if torch.is_tensor(beta) else torch.float64
+    dev = beta.device if torch.is_tensor(beta) else None
+    u, alpha, beta, lo, hi = torch.broadcast_tensors(
+        *(on_device(v, dev).to(dt) for v in (u, alpha, beta, lo, hi)))
+    t = torch.linspace(0.0, 1.0, ngrid, dtype=dt, device=beta.device)
+    log_lo = torch.log10(lo)[..., None]
+    log_hi = torch.log10(hi)[..., None]
+    x = 10.0 ** (log_lo + (log_hi - log_lo) * t)
+    cdf = invgamma_cdf(x, alpha[..., None], beta[..., None], iters=iters)
+    cdf = cdf - cdf[..., :1]
+    tiny = torch.finfo(dt).tiny
+    cdf = cdf / torch.clamp(cdf[..., -1:], min=tiny)
+    idx = torch.clamp(torch.sum((cdf < u[..., None]).to(torch.int64),
+                                dim=-1), 1, ngrid - 1)[..., None]
+    c0 = torch.gather(cdf, -1, idx - 1)[..., 0]
+    c1 = torch.gather(cdf, -1, idx)[..., 0]
+    x0 = torch.gather(x, -1, idx - 1)[..., 0]
+    x1 = torch.gather(x, -1, idx)[..., 0]
+    frac = torch.clamp((u - c0) / torch.clamp(c1 - c0, min=tiny), 0.0, 1.0)
+    return x0 + frac * (x1 - x0)
+
+
+def inversion_sample_invgamma(alpha, beta, prior_min, prior_max, *, u,
+                              ngrid: int = _NGRID):
+    """One truncated draw with the reference API's checks
+    (pspec.py:40-47), at the given uniform ``u`` (the JAX function takes a
+    PRNG key and draws ``u`` from it)."""
+    if prior_min <= 0:
+        raise ValueError("prior_min must be greater than zero")
+    if prior_max <= 0:
+        raise ValueError("prior_max must be greater than zero")
+    if not np.isfinite(prior_max):
+        raise ValueError("prior_max must be finite")
+    if prior_max <= prior_min:
+        raise ValueError("prior_max must be greater than prior_min")
+    return truncated_invgamma_sample(u, alpha, beta, prior_min, prior_max,
+                                     ngrid=ngrid)
+
+
+def sample_bandpowers_grid(beta, ntimes: int, prior, *, gam, u,
+                           prior_idx=None):
+    """The bandpower conditional draw from ``beta_k = sum_t |sk|^2`` (...,
+    n) with the grid inversion (``sample_bandpowers_from_beta`` of the JAX
+    package without its table, as its complex engine runs it): free bins
+    ``beta / gam``, ``gam`` the Gamma(Ntimes - 1) draws (..., n); bounded
+    bins the truncated inverse gamma at alpha + 1 = Ntimes with the
+    fixed counts of ``special.iters_for_shape(Ntimes + 1)``. Uniforms
+    ``u``: (..., n), lane k for bin k, or with ``prior_idx`` (npb,)
+    (..., npb), lane j for bin ``prior_idx[j]``, as in the JAX function."""
+    alpha = float(ntimes) - 1.0
+    iters = iters_for_shape(float(ntimes) + 1.0)
+    prior = torch.as_tensor(prior).to(device=beta.device, dtype=beta.dtype)
+    free = beta / gam
+    if prior_idx is None:
+        has = torch.any(prior > 0, dim=0)
+        lo = torch.where(has, prior[1], torch.ones_like(prior[1]))
+        hi = torch.where(has, prior[0], 10.0 * torch.ones_like(prior[0]))
+        bounded = truncated_invgamma_sample(u, alpha + 1.0, beta, lo, hi,
+                                            iters=iters)
+        return torch.where(has, bounded, free)
+    idx = torch.as_tensor(prior_idx).to(device=beta.device,
+                                        dtype=torch.int64)
+    p_sub = prior[:, idx]
+    has = torch.any(p_sub > 0, dim=0)
+    lo = torch.where(has, p_sub[1], torch.ones_like(p_sub[1]))
+    hi = torch.where(has, p_sub[0], 10.0 * torch.ones_like(p_sub[0]))
+    bounded = truncated_invgamma_sample(u[..., :idx.shape[0]], alpha + 1.0,
+                                        beta[..., idx], lo, hi, iters=iters)
+    out = free.clone()
+    out[..., idx] = torch.where(has, bounded, free[..., idx])
+    return out
+
+
+def sample_bandpowers(sk, prior, *, gam, u, prior_idx=None):
+    """The bandpower draw from the delay transform ``sk`` (..., Ntimes, n)
+    of the signal (``ops/invgamma.py:162-183``); randomness as
+    :func:`sample_bandpowers_grid`."""
+    beta = torch.sum(sk.real * sk.real + sk.imag * sk.imag, dim=-2)
+    return sample_bandpowers_grid(beta, sk.shape[-2], prior, gam=gam, u=u,
+                                  prior_idx=prior_idx)
+
+
+def sample_S(s=None, sk=None, prior=None, *, gam, u):
+    """Bandpower draw from real-space ``s`` or delay-space ``sk`` signal
+    samples (Ntimes, n): the reference API (pspec.py:67-127), with the
+    Gamma draws and uniforms given."""
+    if s is None and sk is None:
+        raise ValueError("Must pass in s (real space) or sk (Fourier space).")
+    if sk is None:
+        sk = cfft(s, dim=-1)
+    if prior is None:
+        prior = torch.zeros((2, sk.shape[-1]), dtype=sk.real.dtype)
+    return sample_bandpowers(sk, prior, gam=gam, u=u)
+
+
+def sprior(signals, bins: int, factor: float):
+    """A ``(2, Nfreqs)`` bandpower prior window from true signals
+    (reference pspec.py:130-148): bounds ``ds * factor`` and
+    ``ds / factor`` within ``bins`` of delay 0 (FFT order), zero elsewhere,
+    normalised by ``Ntimes / 2 - 1``."""
+    signals = torch.as_tensor(signals)
+    nobs, nfreq = signals.shape
+    sk = torch.fft.fft(signals, dim=-1)
+    ds = torch.sum(sk.real * sk.real + sk.imag * sk.imag, dim=0)
+    prior = torch.stack([ds * factor, ds / factor])
+    mask = torch.zeros(nfreq, dtype=torch.bool)
+    mask[:bins + 1] = True
+    if bins > 0:
+        mask[-bins:] = True
+    return prior * mask[None, :] / (nobs / 2 - 1)

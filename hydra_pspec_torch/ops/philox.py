@@ -38,8 +38,27 @@ mode exactly: row key and chain key are both ``sid``.
 It replaces the TPU core PRNG of ``ops/pallas/megachain.py:238-302`` and the
 Box-Muller of ``ops/pallas/megastep.py:55-73``.
 
-The 32x32 -> 64-bit ``mulhi`` of Philox overflows signed int64, so it is
-split into 16-bit halves here.
+The complex float64 engine (``models/gibbs.py``) draws from the same
+streams under its own purposes, in plain torch: each float64 uniform takes
+two 32-bit words, the top 27 bits of the first and the top 26 of the
+second, ``(w0 >> 5) 2^26 + (w1 >> 6) + 1/2`` over 2^53 (:func:`uniform53`,
+open on both ends), so one Philox call gives two uniforms:
+
+* ``OMEGA64`` (3): counter ``(g, 3, time t, 2 f + s)``: one standard complex
+  normal by Box-Muller, ``s = 0`` the delay-basis omega ``omega_a`` and
+  ``s = 1`` the frequency-basis ``omega_b`` of time t, channel f;
+* ``GAMMA64`` (4): counter ``(g, 4, bin i, r)``: the uniforms ``2r, 2r+1``
+  of ``Gamma(alpha) = -sum log u``;
+* ``UNIFORM64`` (5): counter ``(g, 5, 0, r)``: the uniforms ``2r, 2r+1`` of
+  the bounded bins, lane j for bounded bin j.
+
+As for the float32 engines, a chain's draws depend on (seed, sid,
+iteration) only, so a subset of baselines or a resumed run draws the same
+numbers; a time-flags group takes the omegas of its global time indices.
+
+The 32x32 -> 64-bit product of Philox can exceed signed int64; its low 64
+bits, which int64 multiplication keeps, are the product's bit pattern, so
+:func:`_mulhilo` takes it whole on every device.
 """
 import math
 
@@ -56,11 +75,12 @@ CHAIN_STREAM_OFFSET = 1 << 30  # grouped mode: chain keys sid + 2^30
 
 def _mulhilo(a: int, b: torch.Tensor):
     """(hi, lo) 32-bit words of the 64-bit product a*b, for a < 2^32 and an
-    int64 tensor b in [0, 2^32), without leaving int64."""
-    p_lo = a * (b & 0xFFFF)          # < 2^48
-    p_hi = a * (b >> 16)             # < 2^48
-    s = p_lo + ((p_hi & 0xFFFF) << 16)
-    return (p_hi >> 16) + (s >> 32), s & MASK32
+    int64 tensor b in [0, 2^32), without leaving int64. The product is
+    taken whole: int64 multiplication keeps its low 64 bits, which are the
+    product's bit pattern whatever their signed reading, and the shift
+    and mask read the two words from it."""
+    p = a * b
+    return (p >> 32) & MASK32, p & MASK32
 
 
 def philox4x32(c0, c1, c2, c3, k0, k1):
@@ -198,3 +218,74 @@ def prior_uniforms(seed: int, sids: torch.Tensor, g: int,
     words = philox4x32(_word(g), UNIFORM, 0, r, k0, k1[:, None])
     # (B, nr, 4): lane 4r + q
     return uniform_open(torch.stack(words, dim=2)).reshape(-1, 4 * nr)
+
+
+# --- float64 draws of the complex engine (module docstring) ----------------
+
+OMEGA64, GAMMA64, UNIFORM64 = 3, 4, 5
+
+
+def uniform53(w_hi, w_lo) -> torch.Tensor:
+    """(0, 1)-open float64 uniform from two words: 27 + 26 bits."""
+    k = (w_hi >> 5) * (1 << 26) + (w_lo >> 6)
+    return (k.to(torch.float64) + 0.5) * 2.0 ** -53
+
+
+def complex_normal64(w0, w1, w2, w3):
+    """One standard complex normal (E|z|^2 = 1) from the four words of one
+    Philox call, by Box-Muller in float64."""
+    u1 = uniform53(w0, w1)
+    u2 = uniform53(w2, w3)
+    r = torch.sqrt(-torch.log(u1))        # sqrt(-2 log u1) sqrt(1/2)
+    th = (2.0 * math.pi) * u2
+    return torch.complex(r * torch.cos(th), r * torch.sin(th))
+
+
+_LAYOUTS = {}
+
+
+def _layout64(ntimes: int, nfreqs: int, alpha: int, count: int, device):
+    """The counter words ``(c1, c2, c3)`` (int64, (L,)) of one step's
+    draws, in the order omegas ``(t, j)``, Gamma words ``(bin, r)``,
+    uniform words ``r``; kept per shape and device, so a step builds none
+    (and a graph's capture finds them made by its warm-up)."""
+    key = (ntimes, nfreqs, alpha, count, str(device))
+    if key not in _LAYOUTS:
+        ar = lambda n: torch.arange(n, dtype=torch.int64, device=device)
+        nj, nr, nu = 2 * nfreqs, -(-alpha // 2), max(1, -(-count // 2))
+        parts = [(OMEGA64, ar(ntimes).repeat_interleave(nj),
+                  ar(nj).repeat(ntimes)),
+                 (GAMMA64, ar(nfreqs).repeat_interleave(nr),
+                  ar(nr).repeat(nfreqs)),
+                 (UNIFORM64, torch.zeros(nu, dtype=torch.int64,
+                                         device=device), ar(nu))]
+        _LAYOUTS[key] = tuple(torch.cat(c) for c in zip(*(
+            (torch.full_like(c2, purpose), c2, c3)
+            for purpose, c2, c3 in parts)))
+    return _LAYOUTS[key]
+
+
+def draws64(seed: int, sids: torch.Tensor, g, ntimes: int, nfreqs: int,
+            alpha: int, count: int):
+    """One step's float64 randomness of the chains ``sids`` at iteration
+    ``g`` (see :func:`iteration`), from one Philox call over the counters
+    of the module docstring: ``(omega_a, omega_b)`` complex128 (B, ntimes,
+    nfreqs) standard complex normals, ``gam`` (B, nfreqs) Gamma(alpha) =
+    -sum of the logs of ``alpha`` uniforms (integer alpha), and ``u`` (B,
+    count) the uniforms of the bounded bins."""
+    c1, c2, c3 = _layout64(ntimes, nfreqs, alpha, count, sids.device)
+    k0, k1 = _keys(seed, sids)
+    w = philox4x32(_word(g), c1, c2, c3, k0, k1[:, None])
+    B = sids.shape[0]
+    n_om, nr = ntimes * 2 * nfreqs, -(-alpha // 2)
+    n_ga = nfreqs * nr
+    z = complex_normal64(*(x[:, :n_om] for x in w)).reshape(B, ntimes, -1)
+    ga = [x[:, n_om:n_om + n_ga].reshape(B, nfreqs, nr) for x in w]
+    r = torch.arange(nr, dtype=torch.int64, device=sids.device)
+    lu = torch.log(uniform53(ga[0], ga[1])).sum(dim=2)
+    lu2 = torch.log(uniform53(ga[2], ga[3]))
+    lu2 = torch.where(2 * r + 1 < alpha, lu2, torch.zeros_like(lu2))
+    un = [x[:, n_om + n_ga:] for x in w]
+    u = torch.stack((uniform53(un[0], un[1]), uniform53(un[2], un[3])),
+                    dim=2).reshape(B, -1)[:, :count]
+    return z[:, :, 0::2], z[:, :, 1::2], -(lu + lu2.sum(dim=2)), u

@@ -1,7 +1,7 @@
 """Multi-baseline, multi-chain execution on one device (port of
 ``hydra_pspec_tpu/runner.py``).
 
-The (baseline x chain) product is one batch axis, run by one of three
+The (baseline x chain) product is one batch axis, run by one of four
 engines, routed as the JAX runner routes them (:func:`route_engine`):
 
 * ``megachain`` (the default, ``models/megachain.py``): K whole iterations
@@ -10,7 +10,12 @@ engines, routed as the JAX runner routes them (:func:`route_engine`):
   more than 8 bounded prior bins or ``Ntimes > 1025``;
 * ``real`` (``models/rgibbs.py``): the unpadded real engine with the
   factor-solve kernel, for a dense ``Ninv``, MAP mode, and time flags with
-  more than 8 patterns (``models/tflags.py``).
+  more than 8 patterns (``models/tflags.py``);
+* ``complex`` (``models/gibbs.py``): the complex float64 engine, the
+  correctness tier, only when asked for (``engine="complex"``, or
+  ``precision x64`` in the CLI): complex128 with Cholesky solves, a chunk
+  a CUDA graph on the card; it runs everything itself (dense ``Ninv``,
+  MAP, any prior) and its time-flags path runs one baseline at a time.
 
 Samples are flushed every ``write_niter`` iterations with the reference's
 file names, and a run-level checkpoint allows resume with complete output
@@ -42,9 +47,8 @@ chain-major (chain, time group) rows (``models/megachain.py::
 TflagsMegaSetup``), on the real engine one group after another.
 
 Single device only: more than one process or device raises
-``NotImplementedError`` (ROADMAP.md, Queue 1 item 5), as does the complex
-engine (item 6). The time-flags path keeps a serial loop and ``np.save``,
-as the JAX package's does.
+``NotImplementedError`` (ROADMAP.md, Queue 1 item 5). The time-flags path
+keeps a serial loop and ``np.save``, as the JAX package's does.
 """
 import time
 from dataclasses import dataclass
@@ -55,7 +59,7 @@ import numpy as np
 import torch
 from torch.profiler import record_function
 
-from .models import mega, megachain, rgibbs, tflags
+from .models import gcr, gibbs, mega, megachain, rgibbs, tflags
 from .ops import philox
 from .ops.invgamma import make_invgamma_table
 from .ops.kernels import rng_bandpower as rb
@@ -64,7 +68,7 @@ from .utils import io as hio
 from .utils.fastio import AsyncNpyWriter
 
 MAX_NTIMES = 1025
-ENGINES = ("megachain", "mega", "real")
+ENGINES = ("megachain", "mega", "real", "complex")
 
 
 @dataclass
@@ -118,15 +122,13 @@ def _max_tflag_groups(jobs):
 def select_engine(engine: str = "auto") -> str:
     """``auto`` is the megachain engine on any device (the port's policy;
     :func:`route_engine` then sends what it does not cover elsewhere);
-    ``megachain``, ``mega`` and ``real`` are taken as given."""
+    ``megachain``, ``mega``, ``real`` and ``complex`` are taken as given
+    (the JAX package picks ``complex`` under x64, ``runner.py:109-123``;
+    the port's CLI does so for ``precision x64``)."""
     if engine == "auto":
         return "megachain"
     if engine in ENGINES:
         return engine
-    if engine == "complex":
-        raise NotImplementedError(
-            "the complex engine is not ported yet (ROADMAP.md, Queue 1 "
-            "item 6)")
     raise ValueError(f"unknown engine {engine!r}")
 
 
@@ -136,7 +138,8 @@ def route_engine(jobs, ps_prior, engine: str = "auto",
     rule for rule. Megachain gives way to mega for MAP mode, more than 8
     bounded prior bins, ``Ntimes > 1025`` or more than 8 flag patterns;
     mega and megachain give way to real for MAP mode or a dense ``Ninv``;
-    mega gives way to real for time flags."""
+    mega gives way to real for time flags. The complex engine runs
+    everything itself."""
     engine = select_engine(engine)
     if engine == "megachain":
         n_prior = int(np.count_nonzero(np.any(np.asarray(ps_prior) > 0,
@@ -166,6 +169,15 @@ def _chunk_randomness(randomness, it, k, device, **kw):
     if randomness is None:
         return None
     return megachain.randomness_on(randomness(it, k, **kw), device)
+
+
+def _complex_randomness(randomness, it, k, device, **kw):
+    """One chunk's external randomness of the complex engine (``oa``,
+    ``ob``, ``gam``, ``u`` with a leading K axis) on ``device``, or None."""
+    if randomness is None:
+        return None
+    return {name: torch.as_tensor(np.asarray(v)).to(device)
+            for name, v in randomness(it, k, **kw).items()}
 
 
 def run_baselines(
@@ -218,7 +230,8 @@ def run_baselines(
     when it is the only one, written there as ``chunk-<i>.trace.json``.
 
     ``map_estimate``: the MAP estimate (no fluctuation draws), one
-    iteration on the real engine (``niter`` and ``write_niter`` become 1).
+    iteration on the real engine, or the complex one when it is asked for
+    (``niter`` and ``write_niter`` become 1).
     ``solver`` / ``jitter``: the real engine's Hermitian solve (``auto``,
     ``chol``, ``pallas``, ``pallas2``, ``pallas2f``; see
     ``models/rgibbs.py``) and the jitter added to its equilibrated
@@ -231,8 +244,9 @@ def run_baselines(
     optional callable ``(iteration, k_total) -> dict`` of external
     randomness per chunk in the JAX package's layout (``oa_re``, ``oa_im``,
     ``ob_re``, ``ob_im`` in the engine's omega layout, ``gam``, ``u_pb``,
-    each with a leading K axis), for pinning against it; default is the
-    Philox streams of ``seed``. On the time-flags path it is called as
+    each with a leading K axis; on the complex engine ``oa``, ``ob``,
+    ``gam`` and ``u`` as ``models/gibbs.py`` takes them), for pinning
+    against it; default is the Philox streams of ``seed``. On the time-flags path it is called as
     ``randomness(iteration, k_total, sids=row stream ids, sidc=chain id of
     each row, group=G)`` on the megachain engine and ``randomness(
     iteration, k_total, sids=chain ids)`` on the real engine (omegas over
@@ -276,12 +290,22 @@ def run_baselines(
 
     # --- build, stack and move the chain constants -----------------------
     t_scatter0 = time.perf_counter()
-    ops_list = [rgibbs.build_chain_operators(j.d, j.w, j.fgmodes, j.Ninv)
-                for j in jobs]
-    stacked = rgibbs.stack_chain_operators([ops_list[ib] for ib, _ in meta])
+    if engine != "complex":
+        ops_list = [rgibbs.build_chain_operators(j.d, j.w, j.fgmodes,
+                                                 j.Ninv) for j in jobs]
+        stacked = rgibbs.stack_chain_operators(
+            [ops_list[ib] for ib, _ in meta])
     ps_host = np.stack([_initial_ps_host(jobs[ib].S_initial, nfreqs)
                         for ib, _ in meta])
-    if engine == "real":
+    if engine == "complex":
+        per_bl = [gcr.build_chain_operators(j.d, j.w, j.fgmodes, j.Ninv)
+                  for j in jobs]
+        cops = gcr.to_device(gcr.stack_chain_operators(
+            [per_bl[ib] for ib, _ in meta]), device)
+        del per_bl
+        to_state = lambda ps: torch.as_tensor(
+            np.asarray(ps, np.float64)).to(device)
+    elif engine == "real":
         rops = rgibbs.to_device(stacked, device)
         to_state = lambda ps: torch.as_tensor(
             np.asarray(ps, np.float32)).to(device)
@@ -289,7 +313,8 @@ def run_baselines(
         mops, dims = mega.from_chain_operators(stacked, device)
         tables = megachain.make_chain_tables(mops, device)
         to_state = lambda ps: mega.pad_ps(ps, dims, device)
-    del stacked
+    if engine != "complex":
+        del stacked
     ps_b = to_state(ps_host)
     bins = rb.prior_bins(rb.bounded_bins(prior_host), device)
     gids = (list(global_baseline_ids) if global_baseline_ids is not None
@@ -311,6 +336,12 @@ def run_baselines(
                 iter0=done, randomness=randomness, tables=tables,
                 store_cr=store_cr, chunk=n, warm_ns=warm_ns,
                 drift_max=drift_max, graph=overlap, graphs=graphs)
+        if engine == "complex":
+            return gibbs.run_chain(
+                cops, ps, prior_host, n, seed=seed, sids=sid_b, iter0=done,
+                randomness=_complex_randomness(randomness, done, n, device),
+                map_estimate=map_estimate, jitter=jitter, store_cr=store_cr,
+                graph=overlap, graphs=graphs)
         rnd = _chunk_randomness(randomness, done, n, device)
         if engine == "mega":
             return mega.run_chain_mega(
@@ -469,13 +500,15 @@ def _run_baselines_tflags(jobs, ps_prior, niter, *, device, seed, nchains,
                           randomness, verbose, map_estimate, jitter, solver):
     """The grouped time-flags path, one flag signature after another
     (``runner.py:775-1063`` of the JAX package, single device), on the
-    megachain or the real engine."""
+    megachain or the real engine; on the complex engine one baseline after
+    another (``runner.py:1120-1199``), each with its own checkpoint."""
     nbl = len(jobs)
     flags_of = [np.zeros(j.d.shape, dtype=bool) if j.flags_tf is None
                 else np.asarray(j.flags_tf, dtype=bool) for j in jobs]
     sig_members = {}
     for ib, f in enumerate(flags_of):
-        sig_members.setdefault((f.shape, f.tobytes()), []).append(ib)
+        key = ib if engine == "complex" else (f.shape, f.tobytes())
+        sig_members.setdefault(key, []).append(ib)
     if run_dir is None and jobs[0].out_dir is not None:
         run_dir = Path(jobs[0].out_dir).parent
     prior_host = np.asarray(ps_prior, dtype=np.float64)
@@ -491,29 +524,28 @@ def _run_baselines_tflags(jobs, ps_prior, niter, *, device, seed, nchains,
 
         # --- build: per-(baseline, group) operators, stacked over chains --
         t0 = time.perf_counter()
-        per_bl = {ib: tflags.build_grouped_operators_real(
-                      jobs[ib].d, flags_of[ib], jobs[ib].fgmodes,
-                      jobs[ib].Ninv)
-                  for ib in ibs}
-        first = per_bl[ibs[0]]
-        groups = [tflags.TimeGroupReal(
-                      ops=rgibbs.stack_chain_operators(
-                          [per_bl[ib][g].ops for ib, _ in meta]),
-                      idx=first[g].idx)
-                  for g in range(len(first))]
-        del per_bl
         sid_host = np.asarray([gids[ib] * nchains + ic for ib, ic in meta],
                               dtype=np.int64)
         ps_host = np.stack([_initial_ps_host(jobs[ib].S_initial, nfreqs)
                             for ib, _ in meta])
-        if engine == "real":
-            run, to_state, chain_ps = _tflags_real(
+        if engine == "complex":
+            job = jobs[ibs[0]]
+            groups = tflags.build_grouped_operators(
+                job.d, flags_of[ibs[0]], job.fgmodes, job.Ninv,
+                device=device)
+            run, to_state, chain_ps = _tflags_complex(
                 groups, sid_host, device, seed, store_cr, randomness,
-                map_estimate, jitter, solver, bins)
+                map_estimate, jitter, prior_host)
         else:
-            run, to_state, chain_ps = _tflags_megachain(
-                groups, sid_host, device, seed, store_cr, randomness,
-                warm_ns, drift_max, prior_host)
+            groups = _stacked_groups_real(jobs, flags_of, ibs, meta)
+            if engine == "real":
+                run, to_state, chain_ps = _tflags_real(
+                    groups, sid_host, device, seed, store_cr, randomness,
+                    map_estimate, jitter, solver, bins)
+            else:
+                run, to_state, chain_ps = _tflags_megachain(
+                    groups, sid_host, device, seed, store_cr, randomness,
+                    warm_ns, drift_max, prior_host)
         ps_state = to_state(ps_host)
         del groups
         if device.type == "cuda":
@@ -586,6 +618,39 @@ def _run_baselines_tflags(jobs, ps_prior, niter, *, device, seed, nchains,
         "device": str(device),
     }
     return results, timings
+
+
+def _stacked_groups_real(jobs, flags_of, ibs, meta):
+    """A signature's per-group real operators, stacked over its (baseline,
+    chain) rows."""
+    per_bl = {ib: tflags.build_grouped_operators_real(
+                  jobs[ib].d, flags_of[ib], jobs[ib].fgmodes, jobs[ib].Ninv)
+              for ib in ibs}
+    first = per_bl[ibs[0]]
+    return [tflags.TimeGroupReal(
+                ops=rgibbs.stack_chain_operators(
+                    [per_bl[ib][g].ops for ib, _ in meta]),
+                idx=first[g].idx)
+            for g in range(len(first))]
+
+
+def _tflags_complex(groups, sid_host, device, seed, store_cr, randomness,
+                    map_estimate, jitter, prior_host):
+    """One baseline's chains on the complex engine's grouped step, the
+    groups' operators shared by the chains. Returns as
+    :func:`_tflags_megachain` (one state row per chain)."""
+    sids_t = torch.from_numpy(sid_host.astype(np.int32)).to(device)
+
+    def run(ps, n, done):
+        return tflags.run_chain_tflags(
+            groups, ps, prior_host, n, seed=seed, sids=sids_t, iter0=done,
+            randomness=_complex_randomness(randomness, done, n, device,
+                                           sids=sid_host),
+            map_estimate=map_estimate, jitter=jitter, store_cr=store_cr)
+
+    return (run,
+            lambda ps: torch.as_tensor(np.asarray(ps, np.float64)).to(device),
+            lambda ps: ps)
 
 
 def _tflags_megachain(groups, sid_host, device, seed, store_cr, randomness,

@@ -48,9 +48,9 @@ class RunConfig:
     # --- extensions of the reference ---------------------------------------
     nchains: int = 1          # independent Gibbs chains per baseline
     time_flags: bool = False  # per-time flag patterns (reference FIXME :541)
-    precision: str = "auto"   # auto | x32: the float32 engines (the port's
-                              # only ones); x64 (the complex float64 engine)
-                              # raises NotImplementedError
+    precision: str = "auto"   # auto | x32: the float32 engines; x64: the
+                              # complex float64 engine (engine auto becomes
+                              # complex)
     store_cr: bool = True     # materialize per-iteration signal CRs
     resume: bool = False      # resume from checkpoint.npz if present
     checkpoint_Niter: int = 0  # 0 = checkpoint every write_Niter
@@ -61,9 +61,9 @@ class RunConfig:
                               # unpadded engine); runner.route_engine sends
                               # MAP, dense Ninv, wide priors, long nights
                               # and many flag patterns where they run;
-                              # complex raises NotImplementedError
+                              # complex (complex128, the correctness tier)
     solver: str = "auto"      # real engine: auto | chol | pallas | pallas2
-                              # | pallas2f (recinv, identity: not ported)
+                              # | pallas2f | recinv | identity (profiling)
     warm_ns: int = 3          # megachain: Newton-Schulz inverse-refresh steps
     drift_max: float = 0.6    # megachain: max rel. ps move for warm start
     profile_dir: Optional[str] = None  # a torch.profiler trace (CPU and

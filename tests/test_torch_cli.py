@@ -239,8 +239,9 @@ def _artifacts(res):
 def test_main_end_to_end_against_jax_cli(tmp_path):
     """``main(argv, device="cpu")``: the JAX CLI's artifact file names and
     JSON keys; the sample files exactly those of ``run_baselines`` on the
-    JAX-prepared jobs; ``profile_dir`` gets the trace; the port's policy
-    on precision and processes."""
+    JAX-prepared jobs; ``profile_dir`` gets the trace; ``--precision x64``
+    runs the complex engine with the JAX CLI's files (names, shapes and
+    dtypes, complex128 samples); more than one process raises."""
     fp, bl_strs = _write_inputs(tmp_path)
     prof = tmp_path / "trace"
     assert tcli.main(_argv(fp, tmp_path / "t", "--profile_dir", str(prof)),
@@ -273,9 +274,16 @@ def test_main_end_to_end_against_jax_cli(tmp_path):
         "--Niter", "2", "--write_Niter", "2", "--Nfgmodes", "2"],
         device="cpu") == 0
     assert (tmp_path / "t" / "results-100.000-101.500MHz-Niter-2").is_dir()
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        tcli.main(_argv(fp, tmp_path / "x", "--precision", "x64"),
-                  device="cpu")
+    # precision x64: the complex float64 engine, as the JAX CLI runs here
+    assert tcli.main(_argv(fp, tmp_path / "x", "--precision", "x64"),
+                     device="cpu") == 0
+    res_x = tmp_path / "x" / "res"
+    assert _artifacts(res_x) == (names_j, keys_j)
+    for bl in bl_strs:
+        for name in tio.SAMPLE_FILENAMES.values():
+            a, b = np.load(res_x / bl / name), np.load(res_j / bl / name)
+            assert (a.shape, a.dtype) == (b.shape, b.dtype), (bl, name)
+    assert np.load(res_x / bl_strs[0] / "gcr-eor.npy").dtype == np.complex128
     with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
         tcli.main(_argv(fp, tmp_path / "x", "--num_processes", "2"),
                   device="cpu")

@@ -334,8 +334,12 @@ def case_routing(tmp_path, jax_root):
     for kw, want in table:
         kw.setdefault("ps_prior", _prior())
         assert trunner.route_engine(**kw) == want, (kw.keys(), want)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        trunner.route_engine(plain, _prior(), engine="complex")
+    # the complex engine, asked for, runs everything itself
+    for kw in (dict(jobs=plain), dict(jobs=plain, map_estimate=True),
+               dict(jobs=_jobs(J, None, dense=True)),
+               dict(jobs=_jobs(J, None, flags=_flags()))):
+        assert trunner.route_engine(ps_prior=_prior(9), engine="complex",
+                                    **kw) == "complex", kw.keys()
 
 
 def case_dense_matches_jax(tmp_path, jax_root):

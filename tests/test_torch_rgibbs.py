@@ -196,18 +196,20 @@ def case_step_map():
 
 def case_solver_menu():
     """Every solver of the menu on the CPU (their plain versions) solves
-    the step's system alike; the unported ones raise."""
+    the step's system alike; ``identity`` skips the solve."""
     _, t = _ops(dense=True)
     rops = trg.to_device(t, CPU)
     ps = torch.from_numpy(_ps())
     oa, ob = (torch.from_numpy(z) for z in _omegas(43))
     ref = trg.gcr_solve(rops, ps, oa, ob, solver="chol")[0].numpy()
-    for solver in ("auto", "pallas", "pallas2", "pallas2f"):
+    for solver in ("auto", "pallas", "pallas2", "pallas2f", "recinv"):
         got = trg.gcr_solve(rops, ps, oa, ob, solver=solver)[0].numpy()
         assert _rel(got, ref) < 1e-3, solver
-    for solver in ("recinv", "identity"):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-            trg.gcr_solve(rops, ps, oa, ob, solver=solver)
+    m = torch.eye(4, dtype=torch.complex64)[None]
+    b = torch.ones((1, 4, 2), dtype=torch.complex64)
+    assert trg.solve(m, b, 0.0, "identity") is b
+    with pytest.raises(ValueError):
+        trg.solve(m, b, 0.0, "lu")
 
 
 CASES = {f.__name__[5:]: f for f in (

@@ -112,6 +112,25 @@ Phases, one printed line each (any failure raises; exit code non-zero):
      4 jobs of the tflags signature A on the complex time-flags path
      (chi^2 on unflagged entries within 2 %), then the oracle gate on 16
      complex chains x 12000 (burn 500);
+  multiproc: two processes sharing the card over gloo (python3
+     chip_smoke.py --multiproc RANK SPEC OUT, started by this one), each
+     through cli.run.run_jobs on its block of 21 main jobs x 2 chains x
+     100 iterations (11 + 10 by the block rule, chunks of 50): every
+     sample file bit-identical to one process on the same jobs,
+     timings.json over 2 ranks, rhat.json, checkpoint-p0/p1; a two-process
+     run stopped at 50 and resumed; the time-flags path with the tflags
+     signatures A and B, A split across the ranks; every main kernel
+     launched on each rank; the sampling-only rates per rank, their sum
+     and one process's, that one a fresh worker process as each rank is
+     (descriptive: two processes share one card); then
+     run_baselines(mesh_devices=[cuda:0, cuda:0]) bit-identical to one
+     device on megachain, mega and real (20 baselines x 200, kernels
+     launched), entry.dryrun_multichip(2), and one call of entry.entry()'s
+     real-engine step at 203 x 120 (finite, on the card, kernels
+     launched);
+  estimators: LSSA, OQE and DPSS (models/lssa.py, oqe.py, dpss.py) on
+     the card against the same call on the CPU at 120 channels within
+     1e-10 relative, and the time of one call;
   9. times, in a process of its own (python3 chip_smoke.py --times OUT,
      started by this one: a profiler session earlier in a process and the
      large runs after it make later windows lose device activities): one
@@ -150,6 +169,7 @@ import dataclasses
 import filecmp
 import json
 import math
+import os
 import shutil
 import subprocess
 import sys
@@ -167,6 +187,11 @@ from hydra_pspec_torch.validation.synth import (  # noqa: E402
     NF, NM, NT, PRIOR_HALF, SEED, make_jobs, make_prior, ps_truth)
 
 N_BASELINES, NITER, WRITE_NITER = 100, 200, 100
+# the environment this process started with, for the multiproc phase's
+# ranks: validation/oracle.py, imported by the oracle phase, sets the BLAS
+# thread count in os.environ for its own pool (after this process's BLAS
+# has loaded), and the host's float64 products (cov-eor.npy) round by it
+ENV0 = dict(os.environ)
 CHI2_GATE = 0.02              # README.md:43-48
 N_SIG_A, N_SUBSET = 90, 10    # tflags: baselines of signature A; subset
 RFI = 1.0e4                   # added to every flagged entry of d
@@ -205,6 +230,17 @@ COMPLEX_ORACLE_NITER, COMPLEX_ORACLE_NBURN = 12000, 500
 # the cli phase: the main phase's jobs through cli.run.run_jobs, 4 chunks
 # (each of the two graph slots replayed twice), the resume split at 100
 CLI_NITER, CLI_WRITE_NITER, CLI_RESUME_AT = 200, 50, 100
+# the multiproc phase: N_MP main jobs (an odd count: 11 + 10 by the block
+# rule) x MP_NCHAINS chains over two processes sharing the card, chunks of
+# MP_WRITE_NITER, the resume split at MP_RESUME_AT; signature A on the
+# first N_MP_SIG_A of the time-flags run (split across the ranks); the
+# in-process shards on N_SHARD baselines x SHARD_NITER
+N_MP, MP_NCHAINS, MP_NITER, MP_WRITE_NITER, MP_RESUME_AT = 21, 2, 100, 50, 50
+N_MP_SIG_A, MP_TIMEOUT_S = 12, 600
+N_SHARD, SHARD_NITER = 20, 200
+# the estimators phase: card against CPU (complex128 / float64), the calls
+# timed after one
+EST_RTOL, EST_REPS = 1e-10, 5
 # the runner's profiler spans of the host side (runner.py)
 HOST_SPANS = ("hydra:chunk", "hydra:fetch_wait", "hydra:staging",
               "hydra:flush", "hydra:pool_wait")
@@ -2107,6 +2143,363 @@ def phase_complex(dev, jobs_main, out_root):
             "tflags_wall_s": tf_wall, "oracle": oracle}
 
 
+# --- multiproc: processes and device shards (parallel/dist.py) -------------
+
+def _mp_config(out_root, dirname, niter, resume=False):
+    """The multiproc phase's RunConfig (flags only, no yaml): the main
+    seed and prior, MP_NCHAINS chains, chunks of MP_WRITE_NITER."""
+    from hydra_pspec_torch.utils.config import RunConfig
+
+    prior = make_prior()
+    lo, hi = prior[1][prior[1] > 0].min(), prior[0].max()
+    return RunConfig.from_dict(dict(
+        Niter=niter, write_Niter=MP_WRITE_NITER, nchains=MP_NCHAINS,
+        store_cr=True, seed=SEED, out_dir=str(out_root), dirname=dirname,
+        n_ps_prior_bins=PRIOR_HALF, ps_prior_lo=float(lo),
+        ps_prior_hi=float(hi), warm_ns=3, drift_max=0.6, resume=resume))
+
+
+def _mp_jobs(jobs, cfg):
+    """``jobs`` writing under ``cfg``'s results directory."""
+    out = Path(cfg.out_dir) / cfg.dirname
+    return [dataclasses.replace(j, out_dir=out / f"{a}-{b}")
+            for j in jobs for a, b in [j.antpair]]
+
+
+def multiproc_worker(rank, nranks, spec_path, out_path):
+    """``python3 chip_smoke.py --multiproc RANK NRANKS SPEC OUT``: one rank
+    of the multiproc phase's runs over NRANKS processes (two on one card;
+    one a card under ``--multichip``; one for the one-process reference,
+    with no group). SPEC (a pickle the phase wrote)
+    holds each run's label, config, all jobs and its coordinator port;
+    the rank joins each run's process group over gloo, takes its device
+    (``dist.rank_device``), lets rank 0 create the results directory, runs
+    its block (the block rule) through ``cli.run.run_jobs`` with the
+    launch counts set to 0 just before and read just after, and writes
+    its launches and timings to OUT as JSON."""
+    import pickle
+
+    from hydra_pspec_torch.cli import run as cli
+    from hydra_pspec_torch.ops.kernels import _build
+    from hydra_pspec_torch.parallel import dist
+    from hydra_pspec_torch.parallel.partition import local_indices
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    with open(spec_path, "rb") as f:
+        runs = pickle.load(f)   # written by phase_multiproc
+    _build.library()
+    got = {}
+    for label, cfg, jobs, port in runs:
+        dist.initialize_distributed(f"localhost:{port}", nranks, rank)
+        try:
+            dev = dist.rank_device("cuda", rank)
+            out = cli.output_dir(cfg, create=rank == 0)
+            dist.barrier()
+            ids = list(local_indices(len(jobs), rank, nranks))
+            _build.reset_launches()
+            _, tim = cli.run_jobs(
+                cfg, [jobs[i] for i in ids], NF, len(jobs), 0.0, out,
+                device=dev, global_baseline_ids=ids, process_id=rank,
+                num_processes=nranks)
+            sync(dev)
+            got[label] = {"launches": dict(_build.LAUNCHES),
+                          "rows": len(ids) * cfg.nchains,
+                          "device": tim["device"], "engine": tim["engine"],
+                          **{k: tim[k] for k in ("process", "write",
+                                                 "scatter", "start_iter")}}
+        finally:
+            dist.shutdown()
+        say(f"multiproc rank {rank}", f"{label}: {len(ids)} baselines "
+            f"{ids[0]}-{ids[-1]} x {cfg.nchains} chains on {tim['device']}, "
+            f"process {tim['process']:.2f} s (write {tim['write']:.2f} s)")
+    Path(out_path).write_text(json.dumps(got))
+
+
+def _mp_workers(runs, out_root, nranks):
+    """The ``nranks`` ranks of ``runs``, each a process of its own
+    (:func:`multiproc_worker`); their results by rank. All are stopped
+    if one fails."""
+    import pickle
+
+    spec = out_root / "multiproc-spec.pkl"
+    with open(spec, "wb") as f:
+        pickle.dump(runs, f)
+    outs = [out_root / f"multiproc-rank{r}.json" for r in range(nranks)]
+    procs = [subprocess.Popen([sys.executable, str(Path(__file__).resolve()),
+                               "--multiproc", str(r), str(nranks), str(spec),
+                               str(outs[r])], env=ENV0)
+             for r in range(nranks)]
+    try:
+        rcs = [p.wait(timeout=MP_TIMEOUT_S) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    require(rcs == [0] * nranks, f"multiproc: the ranks exited with {rcs}")
+    return [json.loads(o.read_text()) for o in outs]
+
+
+def _free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def phase_multiproc(dev, jobs_main, out_root, nranks=2, shard_devices=None):
+    """Two processes sharing the card over gloo (``nranks``; under
+    ``--multichip`` one a card, ``shard_devices`` every card), each through
+    ``cli.run.run_jobs`` on its block of N_MP main jobs x MP_NCHAINS
+    chains (11 + 10 baselines by the block rule), MP_NITER iterations in
+    chunks of MP_WRITE_NITER, held against one process on the same jobs:
+    every sample file bit-identical, ``timings.json`` over 2 ranks with
+    every baseline's write seconds, ``rhat.json`` with every baseline,
+    ``checkpoint-p0.npz`` and ``checkpoint-p1.npz``; a two-process run
+    stopped at MP_RESUME_AT and resumed; the time-flags path with the
+    tflags phase's two signatures, A split across the ranks; every main
+    kernel launched on each rank. Then the in-process device shards:
+    ``run_baselines(mesh_devices=[cuda:0, cuda:0])`` on N_SHARD baselines
+    x SHARD_NITER iterations bit-identical to one device on megachain,
+    mega and real, each with its kernels launched; then
+    ``entry.dryrun_multichip(2)`` (the shards' count) and one call of
+    ``entry.entry()``'s step on the card (finite outputs on the card, the
+    real engine's kernels launched). The one-process reference runs as a
+    fresh worker process too, so its rate and the ranks' pay the same
+    start-up; rates of two processes on one card are descriptive only
+    (they share the card), not a scaling result."""
+    from hydra_pspec_torch import entry, runner
+    from hydra_pspec_torch.ops.kernels import _build
+    from hydra_pspec_torch.parallel.partition import local_indices
+    from hydra_pspec_torch.utils import io as hio
+
+    t_phase = time.perf_counter()
+    out_root.mkdir(parents=True, exist_ok=True)
+    jobs = [dataclasses.replace(j, out_dir=None) for j in jobs_main[:N_MP]]
+    jobs_tf = make_tflags_jobs(jobs, N_MP_SIG_A)
+    cfgs = {"plain": _mp_config(out_root, "mp", MP_NITER),
+            "resume_a": _mp_config(out_root, "mp-resume", MP_RESUME_AT),
+            "resume_b": _mp_config(out_root, "mp-resume", MP_NITER, True),
+            "tflags": _mp_config(out_root, "mp-tf", MP_NITER)}
+    runs = [(k, cfg, _mp_jobs(jobs_tf if k == "tflags" else jobs, cfg),
+             _free_port()) for k, cfg in cfgs.items()]
+    # one process on the same jobs, a fresh worker as each rank is
+    one_runs = [(k, cfg, _mp_jobs(src, cfg), _free_port())
+                for k, src in (("plain", jobs), ("tflags", jobs_tf))
+                for cfg in [_mp_config(out_root, f"one-{k}", MP_NITER)]]
+    one = _mp_workers(one_runs, out_root, 1)[0]
+    t0 = time.perf_counter()
+    ranks = _mp_workers(runs, out_root, nranks)
+    shard_devices = shard_devices or [dev, dev]
+    cards = len({str(d) for d in [dev] + list(shard_devices)})
+    mp_wall = time.perf_counter() - t0
+    for run, ref in (("plain", "plain"), ("resume_b", "plain"),
+                     ("tflags", "tflags")):
+        src = jobs_tf if ref == "tflags" else jobs
+        bad = chain_files_differing(out_root / f"one-{ref}",
+                                    out_root / cfgs[run].dirname, src,
+                                    MP_NCHAINS)
+        say("multiproc", f"{run}, {nranks} processes: files differing "
+            f"from one process {len(bad)} of {6 * MP_NCHAINS * len(src)}")
+        require(not bad, f"multiproc {run}: files differ: {bad[:5]}")
+    res = out_root / "mp"
+    tj = json.loads((res / "timings.json").read_text())
+    rhat = json.loads((res / "rhat.json").read_text())
+    n_wd = sum(len(e["ant_pairs"]) for e in tj["write_data"])
+    blocks = [len(local_indices(N_MP, r, nranks)) for r in range(nranks)]
+    require(tj["num_ranks"] == nranks and n_wd == N_MP
+            and [len(e["ant_pairs"]) for e in tj["write_data"]] == blocks,
+            f"multiproc: timings.json num_ranks {tj['num_ranks']}, "
+            f"write_data {n_wd} baselines")
+    require(len(rhat) == N_MP, f"multiproc: rhat.json has {len(rhat)}")
+    for d in (res, out_root / "mp-resume"):
+        for p in range(nranks):
+            ck = hio.load_checkpoint(d, tag=f"-p{p}")
+            require(ck is not None and ck["iteration"] == MP_NITER,
+                    f"multiproc: {d.name}/checkpoint-p{p}.npz")
+    require(all(r["resume_b"]["start_iter"] == MP_RESUME_AT for r in ranks),
+            "multiproc: the resumed ranks did not start at the checkpoint")
+    say("multiproc", f"timings.json: num_ranks {nranks}, write seconds of "
+        f"{n_wd} baselines ({[len(e['ant_pairs']) for e in tj['write_data']]}"
+        f" by rank), barrier {tj['rank_0_timers']['barrier']:.4f} s; "
+        f"rhat.json {len(rhat)} baselines; checkpoint-p0..p{nranks - 1} at "
+        f"{MP_NITER}, resumed from {MP_RESUME_AT}")
+    launches = {}
+    for run in cfgs:
+        for r, got in enumerate(ranks):
+            launches[f"{run} rank {r}"] = got[run]["launches"]
+            missing = [k for k in MAIN_KERNELS if got[run]["launches"][k] == 0]
+            require(got[run]["device"].startswith("cuda") and not missing,
+                    f"multiproc {run} rank {r}: on {got[run]['device']}, "
+                    f"kernels never launched {missing}")
+    say("multiproc", f"launches by run and rank {launches}")
+    rates = {}
+    for run in ("plain", "tflags"):
+        per = [g[run]["rows"] * MP_NITER / (g[run]["process"]
+                                            - g[run]["write"])
+               for g in ranks]
+        tim = one[run]
+        one_rate = tim["rows"] * MP_NITER / (tim["process"] - tim["write"])
+        rates[run] = {"per_rank": per, "aggregate": sum(per),
+                      "one_process": one_rate}
+        say("multiproc", f"{run}: sampling only, (baseline x chain)-"
+            f"iterations/s, {nranks} processes on {cards} card(s) "
+            f"(descriptive, not a scaling result): by rank "
+            f"{[round(r, 1) for r in per]}, aggregate {sum(per):.1f}; one "
+            f"process on the same jobs, also a fresh worker, {one_rate:.1f} "
+            f"(aggregate / one process {sum(per) / one_rate:.3f})")
+    say("multiproc", f"{nranks}-process runs: wall {mp_wall:.1f} s for "
+        f"{len(runs)} runs, processes started included")
+
+    # in-process device shards: one process, a shard a device
+    shards = {}
+    sjobs = [dataclasses.replace(j, out_dir=None)
+             for j in jobs_main[:N_SHARD]]
+    for engine, kernels in (("megachain", MAIN_KERNELS),
+                            ("mega", MEGA_KERNELS), ("real", REAL_KERNELS)):
+        kw = dict(device=dev, seed=SEED, write_niter=WRITE_NITER,
+                  store_cr=True, warm_ns=3, drift_max=0.6, engine=engine)
+        res1, tim1 = runner.run_baselines(sjobs, make_prior(), SHARD_NITER,
+                                          **kw)
+        _build.reset_launches()
+        res2, tim2 = runner.run_baselines(sjobs, make_prior(), SHARD_NITER,
+                                          mesh_devices=shard_devices, **kw)
+        sync(dev)
+        got = dict(_build.LAUNCHES)
+        same = all(np.array_equal(getattr(a, f), getattr(b, f))
+                   for a, b in zip(res1, res2)
+                   for f in ("signal_ps", "signal_cr", "fg_amps", "chisq",
+                             "ln_post"))
+        missing = [k for k in kernels if got[k] == 0]
+        say("multiproc", f"shards {engine}: {N_SHARD} baselines x "
+            f"{SHARD_NITER} over [{tim2['device']}]: bit-identical to one "
+            f"device {same}; launches {got}")
+        require(tim1["engine"] == tim2["engine"] == engine and same
+                and not missing,
+                f"multiproc shards {engine}: engine {tim2['engine']}, "
+                f"identical {same}, kernels never launched {missing}")
+        shards[engine] = {"launches": got, "identical": same,
+                          "process_s": [tim1["process"], tim2["process"]]}
+    entry.dryrun_multichip(len(shard_devices))
+    # entry(): one real-engine Gibbs step at 203 x 120 on the card
+    fn, args = entry.entry()
+    _build.reset_launches()
+    step = fn(*args)
+    sync(dev)
+    got = dict(_build.LAUNCHES)
+    missing = [k for k in REAL_KERNELS if got[k] == 0]
+    shapes = [tuple(t.shape) for t in step]
+    say("multiproc", f"entry(): one real-engine gibbs_step, outputs "
+        f"{shapes} on {step[0].device}, launches {got}")
+    require(all(t.device.type == "cuda" and bool(torch.isfinite(t).all())
+                for t in step) and shapes == [(1, NF), (1,), (1, NF)]
+            and not missing,
+            f"multiproc: entry() outputs {shapes} on "
+            f"{[str(t.device) for t in step]}, finite "
+            f"{[bool(torch.isfinite(t).all()) for t in step]}, kernels "
+            f"never launched {missing}")
+    wall = time.perf_counter() - t_phase
+    say("multiproc", f"phase wall {wall:.1f} s")
+    return {"ranks": nranks, "cards": cards, "shard_devices":
+            [str(d) for d in shard_devices],
+            "baselines": N_MP, "nchains": MP_NCHAINS, "niter": MP_NITER,
+            "launches": launches, "sampling_rates": rates,
+            "barrier_s": tj["rank_0_timers"]["barrier"], "shards": shards,
+            "wall_s": wall}
+
+
+# --- estimators: LSSA, OQE and DPSS on the card ------------------------------
+
+def _est_rel(a, b):
+    a, b = a.detach().cpu(), b.detach().cpu()
+    return float((a - b).abs().max() / max(float(b.abs().max()), 1e-300))
+
+
+def phase_estimators(dev):
+    """Each estimator (``models/lssa.py``, ``oqe.py``, ``dpss.py``) on the
+    card against the same call on the CPU, on seeded numpy inputs at NF
+    channels (OQE: NT visibilities), within EST_RTOL relative to the
+    largest magnitude, with the inputs as tensors on the card and as numpy
+    arrays with the default device (the outputs must be on the card); the
+    time of one call on the card (host clock over EST_REPS calls after
+    one, inputs on the card, synchronised)."""
+    from hydra_pspec_torch.models import dpss, lssa, oqe
+
+    rng = np.random.default_rng(SEED + 40)
+    crandn = lambda *s: (rng.standard_normal(s)
+                         + 1j * rng.standard_normal(s)) / np.sqrt(2)
+    freqs = 100.0 + 0.09765625 * np.arange(NF)   # MHz
+    d = crandn(NF)
+    X = crandn(NF, NF)
+    cov = X @ X.conj().T / NF + np.eye(NF)
+    invcov = np.linalg.inv(cov)
+    w = np.ones(NF)
+    w[[12, 30, 31, 77]] = 0.0
+    R = crandn(NF, NF) / np.sqrt(NF) + np.eye(NF)
+    Rh = np.eye(NF) * 2.0 + 0.1 * np.exp(-np.abs(
+        np.subtract.outer(np.arange(NF), np.arange(NF))) / 4.0)
+    V = crandn(NT, NF)
+    cs = np.eye(NF) * 0.8 + 0.02
+    tau = lssa.default_tau(freqs, device="cpu").numpy()
+    are, aim = rng.standard_normal(NF), rng.standard_normal(NF)
+    calls = {
+        "lssa_fit_modes": (lssa.lssa_fit_modes,
+                           lambda t: (t(d), t(freqs), t(invcov))),
+        "decorr_pspec": (lssa.decorr_pspec,
+                         lambda t: (t(are), t(aim), t(w), t(tau), t(freqs))),
+        "oqe_F": (oqe.F, lambda t: (t(R),)),
+        "oqe_M_Finv": (lambda r: oqe.M_Finv(oqe.F(r)), lambda t: (t(R),)),
+        "oqe_M_opt": (lambda r: oqe.M_opt(oqe.F(r)), lambda t: (t(R),)),
+        "oqe_M_Fhalf": (lambda r: oqe.M_Fhalf(oqe.F(r)), lambda t: (t(Rh),)),
+        "oqe_bias": (oqe.bias, lambda t: (t(R), t(cov))),
+        "oqe_qhat_all": (oqe.qhat_all, lambda t: (t(V), t(R))),
+        "oqe_qhat_h_all": (oqe.qhat_h_all, lambda t: (t(V[0:NT - 1:2]),
+                                                      t(V[1::2]), t(R))),
+        "oqe_getqs": (oqe.getqs, lambda t: (t(V[:NT - 1]), t(R))),
+        "oqe_Sig_QESN": (oqe.Sig_QESN, lambda t: (t(R), t(cov), t(cs),
+                                                  t(np.asarray(0.7)))),
+        "dpss_fit_modes": (lambda *a: dpss.dpss_fit_modes(*a, nmodes=NM),
+                           lambda t: (t(d), t(w), t(freqs), t(cov))),
+    }
+    out = {}
+    for name, (fn, args) in calls.items():
+        cpu = fn(*args(lambda x: torch.from_numpy(np.array(x))))
+        on_dev = args(lambda x: torch.from_numpy(np.array(x)).to(dev))
+        gpu = fn(*on_dev)
+        sync(dev)
+        t0 = time.perf_counter()
+        for _ in range(EST_REPS):
+            fn(*on_dev)
+        sync(dev)
+        ms = (time.perf_counter() - t0) / EST_REPS * 1e3
+        # numpy inputs and the default device: the card
+        from_np = fn(*args(np.array))
+        cpu = cpu if isinstance(cpu, tuple) else (cpu,)
+        gpu = ((gpu if isinstance(gpu, tuple) else (gpu,))
+               + (from_np if isinstance(from_np, tuple) else (from_np,)))
+        require(all(g.device.type == "cuda" for g in gpu),
+                f"estimators {name}: an output left the card (tensors on "
+                f"the card, or numpy inputs with the default device)")
+        err = max(_est_rel(g, c) for g, c in zip(gpu, cpu + cpu))
+        require(all(torch.isfinite(g).all() for g in gpu),
+                f"estimators {name}: not finite")
+        say("estimators", f"{name}: card against CPU max rel. error "
+            f"{err:.3e} (gate {EST_RTOL}; inputs as tensors on the card and "
+            f"as numpy arrays); one call on the card {ms:.3f} ms (inputs on "
+            f"the card)")
+        require(err <= EST_RTOL, f"estimators {name}: {err:.3e}")
+        out[name] = {"max_rel_err": err, "ms": ms}
+    pd, ratio, cond = oqe.matc(torch.from_numpy(R).to(dev))
+    pd_c, ratio_c, cond_c = oqe.matc(torch.from_numpy(R))
+    say("estimators", f"matc: card ({pd}, {ratio:.6e}, {cond:.6e}), CPU "
+        f"({pd_c}, {ratio_c:.6e}, {cond_c:.6e})")
+    require(pd == pd_c and abs(ratio - ratio_c) <= EST_RTOL * abs(ratio_c)
+            and abs(cond - cond_c) <= EST_RTOL * abs(cond_c),
+            "estimators: matc differs between the card and the CPU")
+    return out
+
+
 # --- 9. times ----------------------------------------------------------------
 
 def work(name, B, n, t, m, ntimes, valid=None, chains=None, alpha=None):
@@ -2896,6 +3289,28 @@ def times_main(out):
                                     default=float))
 
 
+def multichip_main(n):
+    """``python3 chip_smoke.py --multichip N`` on a machine with N cards:
+    the multiproc phase with one rank a card (``cuda:{rank}``), the
+    shards over every card and ``dryrun_multichip(N)``; its numbers as
+    the last line (JSON). Not part of the one-card run."""
+    from hydra_pspec_torch.ops.kernels import _build
+
+    phase_env()
+    require(torch.cuda.device_count() >= n,
+            f"--multichip {n}: {torch.cuda.device_count()} cards")
+    _build.build()
+    _build.library()
+    out_root = Path(tempfile.mkdtemp(prefix="chip_smoke_multichip_"))
+    try:
+        stats = phase_multiproc(
+            torch.device("cuda", 0), make_jobs(N_MP), out_root, nranks=n,
+            shard_devices=[torch.device("cuda", i) for i in range(n)])
+    finally:
+        shutil.rmtree(out_root, ignore_errors=True)
+    print(json.dumps({"multichip": stats}), flush=True)
+
+
 def main():
     phase_env()
     dev = torch.device("cuda", 0)
@@ -2945,6 +3360,11 @@ def main():
         complex_stats = phase_complex(dev, jobs, out_root)
         torch.cuda.empty_cache()
         mark("complex", t0)
+        multiproc_stats = phase_multiproc(dev, jobs, out_root / "multiproc")
+        torch.cuda.empty_cache()
+        mark("multiproc", t0)
+        estimator_stats = phase_estimators(dev)
+        mark("estimators", t0)
         tm, tf, tw = times_process(out_root)
         mark("times", t0)
     finally:
@@ -3008,6 +3428,8 @@ def main():
         "omega_layouts_ms": tm["omega_layouts"],
         "oracle": {"runs": oracle_stats, "launches": oracle_launches},
         "complex": complex_stats,
+        "multiproc": multiproc_stats,
+        "estimators": estimator_stats,
         "wideband": {
             "nfreqs": WIDE_NF, "runs": wb_stats, "launches": wb_launches,
             "blocked": tw["blocked"],
@@ -3023,5 +3445,10 @@ def main():
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--times"]:
         times_main(sys.argv[2])
+    elif sys.argv[1:2] == ["--multiproc"]:
+        multiproc_worker(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4],
+                         sys.argv[5])
+    elif sys.argv[1:2] == ["--multichip"]:
+        multichip_main(int(sys.argv[2]))
     else:
         main()

@@ -1,5 +1,5 @@
-"""Command-line driver of the port (``hydra_pspec_tpu/cli/run.py`` for one
-process): the reference's run-hydra-pspec.py YAML keys and flags, its
+"""The port's command line (the counterpart of ``hydra_pspec_tpu/cli/
+run.py``): the reference's run-hydra-pspec.py YAML keys and flags, its
 per-baseline file conventions, output layout and provenance artifacts, on
 the card.
 
@@ -7,14 +7,21 @@ Usage:
     python -m hydra_pspec_torch.cli.run --config config.yaml [flags]
     run-hydra-pspec-torch --config config.yaml [flags]
 
+Over N processes (one per device, or several on one card), start each
+with ``--num_processes N --process_id i --coordinator host:port`` (process
+0's address, any free port): each reads and samples its block of
+baselines (the reference's block rule) on ``cuda:{LOCAL_RANK}`` when a
+launcher sets ``LOCAL_RANK``, else ``cuda:{i % device_count}``; the group
+runs over gloo (``parallel/dist.py``), and process 0 writes the run's
+artifacts.
+
 uvh5 input is read with h5py and a YAML config with pyyaml, each imported
 where it is read: :func:`run_jobs`, everything after the load, needs
 neither. The port's policy: ``precision`` ``auto`` or ``x32`` runs the
 float32 engines, ``x64`` the complex float64 engine (complex128 on the
-card, the correctness tier); ``--num_processes`` above 1 raises
-``NotImplementedError`` (ROADMAP.md, Queue 1 item 5); ``engine: auto`` is
-megachain (``runner.select_engine``), and ``runner.route_engine`` sends
-what it does not cover to the mega or real engine.
+card, the correctness tier); ``engine: auto`` is megachain
+(``runner.select_engine``), and ``runner.route_engine`` sends what it does
+not cover to the mega or real engine.
 """
 import argparse
 import sys
@@ -25,6 +32,7 @@ from pathlib import Path
 
 import numpy as np
 
+from ..parallel import dist
 from ..parallel.partition import local_indices
 from ..runner import BaselineJob, gelman_rubin, run_baselines
 from ..utils import provenance
@@ -78,12 +86,11 @@ def load_config(argv=None):
     return cfg, args
 
 
-def check_supported(cfg: RunConfig, num_processes: int = 1):
+def check_supported(cfg: RunConfig):
     """The port's policy (module docstring): raise for what it does not
     run."""
     if cfg.precision not in ("auto", "x32", "x64"):
         raise ValueError(f"unknown precision {cfg.precision!r}")
-    _one_process(num_processes)
 
 
 def engine_of(cfg: RunConfig) -> str:
@@ -94,13 +101,6 @@ def engine_of(cfg: RunConfig) -> str:
     if cfg.precision == "x64" and cfg.engine == "auto":
         return "complex"
     return cfg.engine
-
-
-def _one_process(num_processes: int):
-    if num_processes > 1:
-        raise NotImplementedError(
-            "multi-process runs are not ported yet (ROADMAP.md, Queue 1 "
-            "item 5)")
 
 
 def legendre_fgmodes(nfreqs: int, nmodes: int) -> np.ndarray:
@@ -134,6 +134,10 @@ def prepare_jobs(cfg: RunConfig, out_dir: Path, process_id=0,
     if not all_bls:
         raise SystemExit("No baselines found in input file(s).")
     nfreqs = all_bls[0].vis.shape[1]
+    if len(all_bls) < num_processes:
+        # the reference calls comm.Abort (run-hydra-pspec.py:273-277)
+        raise ValueError(f"Number of baselines ({len(all_bls)}) should be "
+                         f">= number of ranks ({num_processes})")
 
     mine = list(local_indices(len(all_bls), process_id, num_processes))
     jobs = []
@@ -201,23 +205,13 @@ def build_prior(cfg, nfreqs: int) -> np.ndarray:
     return prior
 
 
-def _gather_per_baseline(local, jobs, n_baselines, num_processes):
-    """Per-baseline values (a scalar or a fixed-width 1D array each) of
-    every process, one ``[(bl_str, value), ...]`` list per rank (the
-    reference's ``comm.gather(write_timings)``, run-hydra-pspec.py:557).
-    One process here: its own list."""
-    _one_process(num_processes)
-    order = [f"{j.antpair[0]}_{j.antpair[1]}" for j in jobs]
-    return [[(bl, np.atleast_1d(np.asarray(local[bl], dtype=np.float64)))
-             for bl in order]]
-
-
-def output_dir(cfg: RunConfig) -> Path:
+def output_dir(cfg: RunConfig, create: bool = True) -> Path:
     """The results directory (reference run-hydra-pspec.py:334-365):
     ``<out_dir>/results-<freqs>-Niter-<N>``, or ``<dirname>`` (with
-    ``-map-estimate`` in MAP mode); an existing one is renamed with its
-    mtime unless ``clobber`` or ``resume``. Created, with ``git.json``,
-    ``args.json`` and the slurm job file."""
+    ``-map-estimate`` in MAP mode). With ``create`` (process 0 alone), an
+    existing one is renamed with its mtime unless ``clobber`` or
+    ``resume``, then it is created, with ``git.json``, ``args.json`` and
+    the slurm job file."""
     if not cfg.dirname:
         # the default name carries the band: a header-only read
         import h5py
@@ -230,6 +224,8 @@ def output_dir(cfg: RunConfig) -> Path:
     else:
         dirname = cfg.dirname + ("-map-estimate" if cfg.map_estimate else "")
     out_dir = Path(cfg.out_dir) / dirname
+    if not create:
+        return out_dir
     if out_dir.exists() and not cfg.clobber and not cfg.resume:
         add_mtime_to_filepath(out_dir)
     out_dir.mkdir(parents=True, exist_ok=True)
@@ -242,16 +238,25 @@ def output_dir(cfg: RunConfig) -> Path:
 
 
 def run_jobs(cfg: RunConfig, jobs, nfreqs: int, n_baselines: int,
-             t_load: float, out_dir: Path, device="cuda", t_start=None):
+             t_load: float, out_dir: Path, device="cuda", t_start=None,
+             global_baseline_ids=None, process_id: int = 0,
+             num_processes: int = 1):
     """Everything :func:`main` does after the load: the chains of ``jobs``
     through ``runner.run_baselines`` on ``device``, then ``rhat.json``
     (with more than one chain), ``timings.json`` (the true per-baseline
     write seconds) and ``resources.json`` in ``out_dir``. ``t_start``:
     the ``time.perf_counter()`` the run's total counts from (default: the
-    load's start). Returns ``(results, timings)`` of the runner."""
+    load's start). ``global_baseline_ids``: the jobs' indices among the
+    run's ``n_baselines`` (:func:`prepare_jobs` returns them), which key
+    their streams. ``process_id`` / ``num_processes``: ``jobs`` is this
+    process's block of a run over that many processes, whose group is up
+    (``dist.initialize_distributed``): R-hat and write seconds are
+    gathered over it, and process 0 alone writes the three files. Returns
+    ``(results, timings)`` of the runner."""
     if t_start is None:
         t_start = time.perf_counter() - t_load
     check_supported(cfg)
+    is_rank0 = process_id == 0
     results, timings = run_baselines(
         jobs, build_prior(cfg, nfreqs), cfg.Niter, device=device,
         seed=cfg.seed, nchains=cfg.nchains, write_niter=cfg.write_Niter,
@@ -259,7 +264,10 @@ def run_jobs(cfg: RunConfig, jobs, nfreqs: int, n_baselines: int,
         jitter=cfg.jitter, engine=engine_of(cfg), solver=cfg.solver,
         warm_ns=cfg.warm_ns, drift_max=cfg.drift_max,
         checkpoint_niter=cfg.checkpoint_Niter, resume=cfg.resume,
-        run_dir=out_dir, verbose=cfg.verbose, profile_dir=cfg.profile_dir)
+        run_dir=out_dir, process_id=process_id, num_processes=num_processes,
+        n_global_baselines=n_baselines,
+        global_baseline_ids=global_baseline_ids,
+        verbose=cfg.verbose and is_rank0, profile_dir=cfg.profile_dir)
 
     # split-R-hat over chains, per baseline, persisted as rhat.json
     if cfg.nchains > 1:
@@ -269,26 +277,33 @@ def run_jobs(cfg: RunConfig, jobs, nfreqs: int, n_baselines: int,
                                if r.antpair == job.antpair])
             rhat = gelman_rubin(chains)
             local_rhat[f"{job.antpair[0]}_{job.antpair[1]}"] = rhat
-            if cfg.verbose:
+            if cfg.verbose and is_rank0:
                 print(f"baseline {job.antpair}: split-Rhat max "
                       f"{np.nanmax(rhat):.3f} median "
                       f"{np.nanmedian(rhat):.3f}")
-        provenance.write_rhat_json(
-            out_dir, _gather_per_baseline(local_rhat, jobs, n_baselines, 1))
+        all_rhat = dist.gather_per_baseline(local_rhat, jobs, num_processes)
+        if is_rank0:
+            provenance.write_rhat_json(out_dir, all_rhat)
 
     # the true per-baseline write seconds, summed over its chain dirs
     # (the reference's comm.gather(write_timings), run-hydra-pspec.py:554-557)
     local_wt = {f"{j.antpair[0]}_{j.antpair[1]}": float(sum(
         r.write_time for r in results if r.antpair == j.antpair))
         for j in jobs}
-    all_wt = _gather_per_baseline(local_wt, jobs, n_baselines, 1)
+    all_wt = dist.gather_per_baseline(local_wt, jobs, num_processes)
+    t_barrier0 = time.perf_counter()
+    dist.barrier()
+    t_barrier = time.perf_counter() - t_barrier0
+    if not is_rank0:
+        return results, timings
     write_data = [{"rank": rank,
                    "ant_pairs": [bl for bl, _ in entries],
                    "write_times": [float(np.sum(v)) for _, v in entries]}
                   for rank, entries in enumerate(all_wt)]
     provenance.write_timings_json(
-        out_dir, num_ranks=1, num_baselines=n_baselines, load_data=t_load,
-        scatter=timings["scatter"], process=timings["process"], barrier=0.0,
+        out_dir, num_ranks=num_processes, num_baselines=n_baselines,
+        load_data=t_load, scatter=timings["scatter"],
+        process=timings["process"], barrier=t_barrier,
         total=time.perf_counter() - t_start, write_data=write_data)
     provenance.write_resources_json(out_dir)
     if cfg.verbose:
@@ -300,16 +315,28 @@ def run_jobs(cfg: RunConfig, jobs, nfreqs: int, n_baselines: int,
 
 
 def main(argv=None, device="cuda"):
-    """The whole run: configuration, output directory, load, chains and
-    artifacts. ``device``: where the chains run (the card unless the
-    caller asks for ``"cpu"``). Returns 0."""
+    """The whole run: configuration, process group, output directory,
+    load, chains and artifacts. ``device``: where the chains run (the
+    card unless the caller asks for ``"cpu"``; with more than one process,
+    this process's card, ``dist.rank_device``). Returns 0."""
     t_start = time.perf_counter()
     cfg, args = load_config(argv)
-    check_supported(cfg, args.num_processes)
-    out_dir = output_dir(cfg)
-    jobs, nfreqs, n_baselines, t_load, _ = prepare_jobs(cfg, out_dir)
-    run_jobs(cfg, jobs, nfreqs, n_baselines, t_load, out_dir, device=device,
-             t_start=t_start)
+    check_supported(cfg)
+    pid, nproc = args.process_id, args.num_processes
+    started = dist.initialize_distributed(args.coordinator, nproc, pid)
+    try:
+        device = dist.rank_device(device, pid)
+        out_dir = output_dir(cfg, create=pid == 0)
+        # no rank writes under a directory that rank 0 is still renaming
+        dist.barrier()
+        jobs, nfreqs, n_baselines, t_load, gids = prepare_jobs(
+            cfg, out_dir, pid, nproc)
+        run_jobs(cfg, jobs, nfreqs, n_baselines, t_load, out_dir,
+                 device=device, t_start=t_start, global_baseline_ids=gids,
+                 process_id=pid, num_processes=nproc)
+    finally:
+        if started:
+            dist.shutdown()
     return 0
 
 

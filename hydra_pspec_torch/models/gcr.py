@@ -73,7 +73,8 @@ def build_chain_operators(vis, w, fgmodes, ninv, dtype=torch.complex128,
     rhs0 = fg.mH @ noise.apply_ni(d_w).mT
     a0 = torch.linalg.lstsq(maa, rhs0, driver="gelsd").solution.mT
     ni_d = noise.apply_ni(d_w - a0 @ fg.mT)
-    ops = ChainOperators(d_w, w, fg, fourier_operator(nfreqs, dtype), noise,
+    ops = ChainOperators(d_w, w, fg, fourier_operator(nfreqs, dtype, "cpu"),
+                         noise,
                          ni_d, ni_fg, maa, a0)
     return to_device(ops, device)
 

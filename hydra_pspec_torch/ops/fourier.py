@@ -22,10 +22,11 @@ def dft_matrix(n: int, dtype=np.float32) -> np.ndarray:
 
 # --- the complex float64 engine's operators (``ops/fourier.py:20-76``) -----
 
-def fourier_operator(n: int, dtype=torch.complex128, device=None):
+def fourier_operator(n: int, dtype=torch.complex128, device="cuda"):
     """The centred DFT matrix ``F[k, x] = exp(-2 pi i k x / n)`` as a torch
-    tensor (``ops/fourier.py:20-37``): built on the host in float64, then
-    cast. ``F F^H = n I``, ``F^T = F``."""
+    tensor on ``device`` (the card unless the caller asks for the CPU;
+    ``ops/fourier.py:20-37``): built on the host in float64, then cast.
+    ``F F^H = n I``, ``F^T = F``."""
     i = np.arange(n) - n // 2
     op = np.exp(1j * (np.outer(i, i) * (-2.0 * np.pi / n)))
     return torch.as_tensor(op).to(dtype=dtype, device=device)

@@ -14,7 +14,8 @@ import torch
 
 from . import philox
 from .fourier import cfft
-from .special import gammaincc_fixed, iters_for_shape, on_device
+from .special import (as_input, gammaincc_fixed, input_device,
+                      iters_for_shape, on_device)
 
 
 class InvGammaTable(NamedTuple):
@@ -158,10 +159,12 @@ def truncated_invgamma_sample(u, alpha, beta, lo, hi, ngrid: int = _NGRID,
 
 
 def inversion_sample_invgamma(alpha, beta, prior_min, prior_max, *, u,
-                              ngrid: int = _NGRID):
+                              ngrid: int = _NGRID, device="cuda"):
     """One truncated draw with the reference API's checks
     (pspec.py:40-47), at the given uniform ``u`` (the JAX function takes a
-    PRNG key and draws ``u`` from it)."""
+    PRNG key and draws ``u`` from it), on the device of the tensor inputs,
+    or on ``device`` (the card unless the caller asks for the CPU) when
+    none is a tensor."""
     if prior_min <= 0:
         raise ValueError("prior_min must be greater than zero")
     if prior_max <= 0:
@@ -170,6 +173,9 @@ def inversion_sample_invgamma(alpha, beta, prior_min, prior_max, *, u,
         raise ValueError("prior_max must be finite")
     if prior_max <= prior_min:
         raise ValueError("prior_max must be greater than prior_min")
+    device = input_device(device, alpha, beta, prior_min, prior_max, u)
+    if not torch.is_tensor(beta):   # the draw's device and float64
+        beta = torch.as_tensor(beta, dtype=torch.float64, device=device)
     return truncated_invgamma_sample(u, alpha, beta, prior_min, prior_max,
                                      ngrid=ngrid)
 
@@ -217,30 +223,37 @@ def sample_bandpowers(sk, prior, *, gam, u, prior_idx=None):
                                   prior_idx=prior_idx)
 
 
-def sample_S(s=None, sk=None, prior=None, *, gam, u):
+def sample_S(s=None, sk=None, prior=None, *, gam, u, device="cuda"):
     """Bandpower draw from real-space ``s`` or delay-space ``sk`` signal
     samples (Ntimes, n): the reference API (pspec.py:67-127), with the
-    Gamma draws and uniforms given."""
+    Gamma draws and uniforms given; on the device of the tensor inputs, or
+    on ``device`` (the card unless the caller asks for the CPU) when none
+    is a tensor."""
     if s is None and sk is None:
         raise ValueError("Must pass in s (real space) or sk (Fourier space).")
-    if sk is None:
-        sk = cfft(s, dim=-1)
+    device = input_device(device, s, sk, prior, gam, u)
+    sk = (cfft(as_input(s, device), dim=-1) if sk is None
+          else as_input(sk, device))
     if prior is None:
-        prior = torch.zeros((2, sk.shape[-1]), dtype=sk.real.dtype)
-    return sample_bandpowers(sk, prior, gam=gam, u=u)
+        prior = torch.zeros((2, sk.shape[-1]), dtype=sk.real.dtype,
+                            device=device)
+    return sample_bandpowers(sk, prior, gam=as_input(gam, device),
+                             u=as_input(u, device))
 
 
-def sprior(signals, bins: int, factor: float):
+def sprior(signals, bins: int, factor: float, *, device="cuda"):
     """A ``(2, Nfreqs)`` bandpower prior window from true signals
     (reference pspec.py:130-148): bounds ``ds * factor`` and
     ``ds / factor`` within ``bins`` of delay 0 (FFT order), zero elsewhere,
-    normalised by ``Ntimes / 2 - 1``."""
-    signals = torch.as_tensor(signals)
+    normalised by ``Ntimes / 2 - 1``; on ``signals``' device when it is a
+    tensor, else on ``device`` (the card unless the caller asks for the
+    CPU)."""
+    signals = as_input(signals, device)
     nobs, nfreq = signals.shape
     sk = torch.fft.fft(signals, dim=-1)
     ds = torch.sum(sk.real * sk.real + sk.imag * sk.imag, dim=0)
     prior = torch.stack([ds * factor, ds / factor])
-    mask = torch.zeros(nfreq, dtype=torch.bool)
+    mask = torch.zeros(nfreq, dtype=torch.bool, device=signals.device)
     mask[:bins + 1] = True
     if bins > 0:
         mask[-bins:] = True

@@ -28,7 +28,9 @@ reads stays allocated while the graph lives. The caller owns the graph
 looked up by a tensor's address, so a freed and reused address is never
 replayed.
 """
+import gc
 import time
+import weakref
 from typing import Callable
 
 import torch
@@ -73,14 +75,26 @@ class ChunkGraph:
         self.warmup_s = time.perf_counter() - t0
         self.graph = torch.cuda.CUDAGraph(keep_graph=True)
         t0 = time.perf_counter()
-        with _build.counted() as rec:
-            with torch.cuda.graph(self.graph):
+        # no garbage collection inside the capture: freeing a dead cycle's
+        # CUDA graphs or events there would invalidate it (the one guard
+        # against that; the port's own graph owners hold no cycle)
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
+            # a capture stream of this graph's device: torch.cuda.graph's
+            # default is one stream for the process, on the device that was
+            # current at its first capture
+            with _build.counted() as rec, torch.cuda.graph(
+                    self.graph, stream=torch.cuda.Stream(device=dev)):
                 reserved0 = torch.cuda.memory_reserved(dev)
                 allocated0 = torch.cuda.memory_allocated(dev)
                 self.out = body(self.ps_in, self.g0, k_total)
                 self.pool_bytes = torch.cuda.memory_reserved(dev) - reserved0
                 self.output_bytes = (torch.cuda.memory_allocated(dev)
                                      - allocated0)
+        finally:
+            if collecting:
+                gc.enable()
         self.capture_s = time.perf_counter() - t0
         t0 = time.perf_counter()
         self.graph.instantiate()
@@ -128,8 +142,20 @@ class _SlotCache(dict):
 
     def __init__(self, slots: GraphSlots):
         super().__init__()
-        self.slots = slots
+        # a weak reference: a run's slots and graphs (their memory pools)
+        # are freed when the run drops them, not at the collector's next
+        # pass over a cycle
+        self._slots = weakref.ref(slots)
         self.ahead = True
+
+    @property
+    def slots(self) -> GraphSlots:
+        slots = self._slots()
+        if slots is None:
+            raise RuntimeError("a graph cache used after its GraphSlots "
+                               "was freed: keep the GraphSlots while its "
+                               "caches are in use")
+        return slots
 
 
 def replay_chunk(graphs: dict, key, make_body: Callable, ps: torch.Tensor,

@@ -95,6 +95,22 @@ def on_device(v, device):
     return torch.as_tensor(v, device=device)
 
 
+def input_device(device, *xs) -> torch.device:
+    """Where a public function with a ``device`` argument computes: on
+    the device of its tensor inputs when it has any, else on ``device``."""
+    return next((x.device for x in xs if torch.is_tensor(x)),
+                torch.device(device))
+
+
+def as_input(v, device, dtype=None):
+    """``v`` as an input tensor: a tensor keeps its own device (cast to
+    ``dtype`` when given); an array or a number becomes a tensor on
+    ``device``."""
+    if torch.is_tensor(v):
+        return v if dtype is None else v.to(dtype)
+    return torch.as_tensor(v, dtype=dtype, device=device)
+
+
 def gammaincc_fixed(a, x, iters=None):
     """Regularized upper incomplete gamma Q(a, x) with static counts
     ``iters = (series, cf)`` (default (256, 128)); ``a`` and ``x``

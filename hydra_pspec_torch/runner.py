@@ -1,5 +1,5 @@
-"""Multi-baseline, multi-chain execution on one device (port of
-``hydra_pspec_tpu/runner.py``).
+"""Multi-baseline, multi-chain execution on a device, a block of devices
+or a process of a multi-process run (port of ``hydra_pspec_tpu/runner.py``).
 
 The (baseline x chain) product is one batch axis, run by one of four
 engines, routed as the JAX runner routes them (:func:`route_engine`):
@@ -46,10 +46,29 @@ another, each with its own checkpoint: on the megachain engine as
 chain-major (chain, time group) rows (``models/megachain.py::
 TflagsMegaSetup``), on the real engine one group after another.
 
-Single device only: more than one process or device raises
-``NotImplementedError`` (ROADMAP.md, Queue 1 item 5). The time-flags path
-keeps a serial loop and ``np.save``, as the JAX package's does.
+More than one process (``num_processes``, the CLI's ``--num_processes``):
+each process runs its own block of baselines on its own device, the
+streams keyed on ``global_baseline_ids``, and checkpoints under its own
+tag (``checkpoint-p{pid}.npz``; ``-tf{s}-p{pid}`` per flag signature), as
+the JAX runner does (``runner.py:299-340, 430, 800-811, 989-990``).
+Nothing crosses processes while sampling (``parallel/dist.py``).
+
+More than one device in a process (``mesh_devices``, the counterpart of
+``runner.py:341-365``): the (baseline x chain) rows are split into
+contiguous blocks (``dist.shard_rows``), each built and run on its own
+device with its own chunk graphs, fetch and state (:class:`_Shard`, on
+every engine of the plain path); chunk i is dispatched on every shard
+before chunk i-1 is processed, and the shards' host chunks are joined in
+row order, so the files and the checkpoint are those of a one-device run.
+A chain's bits depend on (seed, global chain id, iteration) only, with
+one exception: ``all_unflagged`` is decided per batch (``models/mega.py``,
+ROADMAP.md Queue 3), so an unflagged shard split off a batch with flagged
+chains can differ from the whole batch in the last bits; bit identity
+holds for batches of one flag state. The time-flags path runs on one
+device (``mesh_devices`` with more than one raises, ROADMAP.md Queue 1);
+it keeps a serial loop and ``np.save``, as the JAX package's does.
 """
+import contextlib
 import time
 from dataclasses import dataclass
 from pathlib import Path
@@ -64,6 +83,7 @@ from .ops import philox
 from .ops.invgamma import make_invgamma_table
 from .ops.kernels import rng_bandpower as rb
 from .ops.kernels.graph import GraphSlots
+from .parallel.dist import shard_rows
 from .utils import io as hio
 from .utils.fastio import AsyncNpyWriter
 
@@ -156,12 +176,35 @@ def route_engine(jobs, ps_prior, engine: str = "auto",
     return engine
 
 
-def _check_supported(num_processes, mesh_devices):
-    if num_processes > 1 or (mesh_devices is not None
-                             and len(mesh_devices) > 1):
-        raise NotImplementedError(
-            "multi-process and multi-device runs are not ported yet "
-            "(ROADMAP.md, Queue 1 item 5)")
+def _global_ids(ids, nbl, num_processes, n_global):
+    """The jobs' global baseline indices, which key their streams: given,
+    or ``0 .. nbl-1`` in a one-process run. With more than one process
+    they must be given, or every rank would repeat rank 0's streams."""
+    if ids is None:
+        if num_processes > 1:
+            raise ValueError("a run over more than one process needs "
+                             "global_baseline_ids (they key the streams)")
+        return list(range(nbl))
+    ids = [int(i) for i in ids]
+    if len(ids) != nbl or (n_global is not None and any(
+            not 0 <= i < n_global for i in ids)):
+        raise ValueError(f"global_baseline_ids {ids} do not index "
+                         f"{nbl} of {n_global} baselines")
+    return ids
+
+
+def _on(device):
+    """``device`` made current for the launches of a block (the kernels
+    launch on the current device's stream)."""
+    if device.type == "cuda":
+        return torch.cuda.device(device)
+    return contextlib.nullcontext()
+
+
+def _sync(devices):
+    for d in devices:
+        if d.type == "cuda":
+            torch.cuda.synchronize(d)
 
 
 def _chunk_randomness(randomness, it, k, device, **kw):
@@ -200,7 +243,9 @@ def run_baselines(
     checkpoint_niter: int = 0,
     resume: bool = False,
     run_dir: Optional[Path] = None,
+    process_id: int = 0,
     num_processes: int = 1,
+    n_global_baselines: Optional[int] = None,
     mesh_devices: Optional[Sequence] = None,
     global_baseline_ids: Optional[Sequence[int]] = None,
     randomness: Optional[Callable] = None,
@@ -240,7 +285,15 @@ def run_baselines(
     ``warm_ns`` / ``drift_max``: megachain engine only, Newton-Schulz
     refresh steps of the carried system inverse and the largest relative
     bandpower move that trusts it (0 disables). ``global_baseline_ids``:
-    the baselines' global indices, which key their streams. ``randomness``:
+    the baselines' global indices, which key their streams (required with
+    more than one process). ``process_id`` / ``num_processes`` /
+    ``n_global_baselines``: ``jobs`` is process ``process_id``'s block of
+    a run over ``num_processes`` (the CLI's block rule) of
+    ``n_global_baselines`` in all; it runs on ``device`` and checkpoints
+    under the tag ``-p{process_id}`` (module docstring). ``mesh_devices``:
+    the devices the rows are split over in this process (default
+    ``[device]``); more than one runs the plain path's shards (module
+    docstring), one per device, and refuses ``randomness``. ``randomness``:
     optional callable ``(iteration, k_total) -> dict`` of external
     randomness per chunk in the JAX package's layout (``oa_re``, ``oa_im``,
     ``ob_re``, ``ob_im`` in the engine's omega layout, ``gam``, ``u_pb``,
@@ -269,18 +322,34 @@ def run_baselines(
     if map_estimate:
         niter = write_niter = 1
     engine = route_engine(jobs, ps_prior, engine, map_estimate)
-    _check_supported(num_processes, mesh_devices)
     device = torch.device(device)
+    devices = ([torch.device(d) for d in mesh_devices] if mesh_devices
+               else [device])
     seed = 0 if seed is None else int(seed)
+    gids = _global_ids(global_baseline_ids, len(jobs), num_processes,
+                       n_global_baselines)
+    # per-process checkpoints (``runner.py:430`` of the JAX package)
+    ck_tag = f"-p{process_id}" if num_processes > 1 else ""
     if any(j.flags_tf is not None for j in jobs):
+        if len(devices) > 1:
+            raise NotImplementedError(
+                "time flags over more than one device in a process are not "
+                "ported (ROADMAP.md, Queue 1 item 5); run one process per "
+                "device")
+        if engine == "complex" and num_processes > 1:
+            raise NotImplementedError(
+                "time flags on the complex float64 engine run in one "
+                "process only (as in the JAX package)")
         return _run_baselines_tflags(
-            jobs, ps_prior, niter, device=device, seed=seed,
+            jobs, ps_prior, niter, device=devices[0], seed=seed,
             nchains=nchains, write_niter=write_niter, store_cr=store_cr,
             engine=engine, warm_ns=warm_ns, drift_max=drift_max,
             checkpoint=checkpoint, resume=resume, run_dir=run_dir,
-            global_baseline_ids=global_baseline_ids, randomness=randomness,
+            gids=gids, ck_tag=ck_tag, randomness=randomness,
             verbose=verbose, map_estimate=map_estimate, jitter=jitter,
             solver=solver)
+    if randomness is not None and len(devices) > 1:
+        raise ValueError("external randomness runs on one device")
     nbl = len(jobs)
     nfreqs = jobs[0].d.shape[-1]
     meta = [(ib, ic) for ib in range(nbl) for ic in range(nchains)]
@@ -288,68 +357,49 @@ def run_baselines(
         run_dir = Path(jobs[0].out_dir).parent
     prior_host = np.asarray(ps_prior, dtype=np.float64)
 
-    # --- build, stack and move the chain constants -----------------------
+    # --- build the chain constants, a block of rows per device ------------
     t_scatter0 = time.perf_counter()
-    if engine != "complex":
-        ops_list = [rgibbs.build_chain_operators(j.d, j.w, j.fgmodes,
-                                                 j.Ninv) for j in jobs]
-        stacked = rgibbs.stack_chain_operators(
-            [ops_list[ib] for ib, _ in meta])
+    build = (gcr.build_chain_operators if engine == "complex"
+             else rgibbs.build_chain_operators)
+    per_bl = [build(j.d, j.w, j.fgmodes, j.Ninv) for j in jobs]
     ps_host = np.stack([_initial_ps_host(jobs[ib].S_initial, nfreqs)
                         for ib, _ in meta])
-    if engine == "complex":
-        per_bl = [gcr.build_chain_operators(j.d, j.w, j.fgmodes, j.Ninv)
-                  for j in jobs]
-        cops = gcr.to_device(gcr.stack_chain_operators(
-            [per_bl[ib] for ib, _ in meta]), device)
-        del per_bl
-        to_state = lambda ps: torch.as_tensor(
-            np.asarray(ps, np.float64)).to(device)
-    elif engine == "real":
-        rops = rgibbs.to_device(stacked, device)
-        to_state = lambda ps: torch.as_tensor(
-            np.asarray(ps, np.float32)).to(device)
-    else:
-        mops, dims = mega.from_chain_operators(stacked, device)
-        tables = megachain.make_chain_tables(mops, device)
-        to_state = lambda ps: mega.pad_ps(ps, dims, device)
-    if engine != "complex":
-        del stacked
-    ps_b = to_state(ps_host)
-    bins = rb.prior_bins(rb.bounded_bins(prior_host), device)
-    gids = (list(global_baseline_ids) if global_baseline_ids is not None
-            else list(range(nbl)))
     # global chain stream ids: a chain's draws depend on this id only
-    sid_b = torch.as_tensor(np.asarray(
-        [gids[ib] * nchains + ic for ib, ic in meta], dtype=np.int32)).to(
-            device)
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
+    sid_host = np.asarray([gids[ib] * nchains + ic for ib, ic in meta],
+                          dtype=np.int32)
+    shards = [_Shard(engine, [per_bl[meta[r][0]] for r in rows], rows,
+                     ps_host, sid_host, prior_host, dev, overlap)
+              for dev, rows in zip(devices, shard_rows(len(meta),
+                                                       len(devices)))
+              if len(rows)]
+    del per_bl
+    _sync(devices)
     t_scatter = time.perf_counter() - t_scatter0
 
-    slots = GraphSlots(2)   # this run's chunk graphs (the card, Philox streams)
-
-    def run_chunk(ps, n, done, graphs):
+    def run_chunk(sh, n, done, graphs):
         if engine == "megachain":
             return megachain.run_chain_megachain(
-                mops, dims, ps, prior_host, n, seed=seed, sids=sid_b,
-                iter0=done, randomness=randomness, tables=tables,
-                store_cr=store_cr, chunk=n, warm_ns=warm_ns,
-                drift_max=drift_max, graph=overlap, graphs=graphs)
+                sh.ops, sh.dims, sh.ps, prior_host, n, seed=seed,
+                sids=sh.sids, iter0=done, randomness=randomness,
+                tables=sh.tables, store_cr=store_cr, chunk=n,
+                warm_ns=warm_ns, drift_max=drift_max, graph=overlap,
+                graphs=graphs)
         if engine == "complex":
             return gibbs.run_chain(
-                cops, ps, prior_host, n, seed=seed, sids=sid_b, iter0=done,
-                randomness=_complex_randomness(randomness, done, n, device),
+                sh.ops, sh.ps, prior_host, n, seed=seed, sids=sh.sids,
+                iter0=done, randomness=_complex_randomness(
+                    randomness, done, n, sh.device),
                 map_estimate=map_estimate, jitter=jitter, store_cr=store_cr,
                 graph=overlap, graphs=graphs)
-        rnd = _chunk_randomness(randomness, done, n, device)
+        rnd = _chunk_randomness(randomness, done, n, sh.device)
         if engine == "mega":
             return mega.run_chain_mega(
-                mops, dims, ps, bins, n, tables.tlog, tables.q, seed=seed,
-                sids=sid_b, iter0=done, randomness=rnd, store_cr=store_cr,
-                graph=overlap, graphs=graphs)
+                sh.ops, sh.dims, sh.ps, sh.bins, n, sh.tables.tlog,
+                sh.tables.q, seed=seed, sids=sh.sids, iter0=done,
+                randomness=rnd, store_cr=store_cr, graph=overlap,
+                graphs=graphs)
         return rgibbs.run_chain(
-            rops, ps, bins, n, seed=seed, sids=sid_b, iter0=done,
+            sh.ops, sh.ps, sh.bins, n, seed=seed, sids=sh.sids, iter0=done,
             randomness=rnd, map_estimate=map_estimate, jitter=jitter,
             store_cr=store_cr, solver=solver)
 
@@ -358,7 +408,7 @@ def run_baselines(
     prefix = None
     n_real = len(meta)
     if resume and run_dir is not None:
-        ck = hio.load_checkpoint(run_dir)
+        ck = hio.load_checkpoint(run_dir, tag=ck_tag)
         if ck is not None:
             consistent = (
                 ck["ps"].shape == (n_real, nfreqs)
@@ -369,7 +419,9 @@ def run_baselines(
                                       store_cr)
             if prefix is not None:
                 start_iter = ck["iteration"]
-                ps_b = to_state(ck["ps"])
+                for sh in shards:
+                    sh.ps = sh.to_state(ck["ps"][sh.rows.start:
+                                                 sh.rows.stop])
                 if verbose:
                     print(f"resuming from iteration {start_iter}")
             elif verbose:
@@ -379,7 +431,6 @@ def run_baselines(
     # --- chunked chain with host flushes -----------------------------------
     host_chunks = []
     writer = AsyncNpyWriter() if jobs[0].out_dir is not None else None
-    fetch = _Fetch(device, pinned=overlap)
     native = writer is not None and writer.is_native
     split = dict(write=0.0, flush=0.0, pool_wait=0.0, pool=0.0)
     ckpt_every = (max(1, -(-checkpoint_niter // write_niter))
@@ -390,11 +441,12 @@ def run_baselines(
     # of each flush attributed to rows by the bytes each submitted
     row_write_sec = [0.0] * n_real
 
-    def process(ticket, done_ck):
-        """Fetch one chunk, flush every row's files, drain the pool, then
-        checkpoint at that chunk's state and iteration."""
+    def process(tickets, done_ck):
+        """Fetch one chunk from every shard, flush every row's files, drain
+        the pool, then checkpoint at that chunk's state and iteration."""
         nonlocal n_chunks
-        hc, state = fetch.finish(ticket, store_cr)
+        hc, state = _join_rows([sh.fetch.finish(t, store_cr)
+                                for sh, t in zip(shards, tickets)])
         host_chunks.append(hc)
         n_chunks += 1
         if verbose:
@@ -427,7 +479,7 @@ def run_baselines(
                 run_dir, iteration=done_ck, ps=state[:, :nfreqs],
                 key_data=np.asarray([seed], dtype=np.int64),
                 extra={"niter": niter, "engine": engine,
-                       "nchains": nchains})
+                       "nchains": nchains}, tag=ck_tag)
         split["flush"] += t1 - t0
         split["pool_wait"] += t2 - t1
         split["write"] += time.perf_counter() - t0
@@ -441,25 +493,29 @@ def run_baselines(
     try:
         while done < niter:
             n = min(write_niter, niter - done)
-            prof = _profile_start(device) if idx == profile_chunk else None
-            fetch.reuse(idx)
-            with record_function("hydra:chunk"):
-                # the graphs of a key are captured in both slots unless no
-                # later chunk of this size follows
-                ps_b, samples = run_chunk(
-                    ps_b, n, done,
-                    slots.cache(idx, ahead=niter - done - n >= n))
+            prof = _profile_start(devices) if idx == profile_chunk else None
+            tickets = []
+            for sh in shards:   # chunk idx on every shard, then chunk idx-1
+                with _on(sh.device):
+                    sh.fetch.reuse(idx)
+                    with record_function("hydra:chunk"):
+                        # the graphs of a key are captured in both slots
+                        # unless no later chunk of this size follows
+                        sh.ps, samples = run_chunk(
+                            sh, n, done,
+                            sh.slots.cache(idx, ahead=niter - done - n >= n))
+                    tickets.append(sh.fetch.start(idx, samples, sh.ps,
+                                                  store_cr))
+                    del samples
             done += n
-            ticket = fetch.start(idx, samples, ps_b, store_cr)
-            del samples
             if pending is not None:
                 process(*pending)   # chunk idx - 1, while chunk idx runs
-            pending = (ticket, done)
+            pending = (tickets, done)
             if not overlap:
                 process(*pending)
                 pending = None
             if prof is not None:
-                _profile_stop(prof, device, profile_dir, idx)
+                _profile_stop(prof, devices, profile_dir, idx)
             idx += 1
         if pending is not None:
             process(*pending)
@@ -471,6 +527,7 @@ def run_baselines(
 
     results = _collect(jobs, meta, host_chunks, nchains, store_cr, nfreqs,
                        row_write_sec, prefix)
+    fetch = [sh.fetch.stats() for sh in shards]
     timings = {
         "process": t_process,
         "scatter": t_scatter,
@@ -478,15 +535,65 @@ def run_baselines(
         "start_iter": start_iter,
         "batch": n_real,
         "engine": engine,
-        "device": str(device),
+        "device": ", ".join(str(sh.device) for sh in shards),
         **split,
         "is_native": native,
         "overlap": overlap,
-        **fetch.stats(),
-        "graph_pool_bytes": [sum(g.pool_bytes for g in cache.values())
-                             for cache in slots.caches],
+        **{k: sum(f[k] for f in fetch) for k in fetch[0]},
+        "graph_pool_bytes": [sum(g.pool_bytes for sh in shards
+                                 for g in sh.slots.caches[i].values())
+                             for i in range(2)],
     }
     return results, timings
+
+
+class _Shard:
+    """One device's contiguous block ``rows`` of the (baseline x chain)
+    rows on the plain path, on every engine: its chain operators (built
+    from ``ops_rows``, the host operators of its rows), bandpower state,
+    stream ids, prior bins, chunk graphs in two slots and fetch."""
+
+    def __init__(self, engine, ops_rows, rows, ps_host, sid_host, prior_host,
+                 device, overlap):
+        self.rows, self.device = rows, device
+        self.dims = self.tables = None
+        if engine == "complex":
+            self.ops = gcr.to_device(gcr.stack_chain_operators(ops_rows),
+                                     device)
+            self.to_state = lambda ps: torch.as_tensor(
+                np.asarray(ps, np.float64)).to(device)
+        elif engine == "real":
+            self.ops = rgibbs.to_device(
+                rgibbs.stack_chain_operators(ops_rows), device)
+            self.to_state = lambda ps: torch.as_tensor(
+                np.asarray(ps, np.float32)).to(device)
+        else:
+            self.ops, dims = mega.from_chain_operators(
+                rgibbs.stack_chain_operators(ops_rows), device)
+            self.dims = dims
+            self.tables = megachain.make_chain_tables(self.ops, device)
+            # no reference back to the shard: a cycle would hold its
+            # graphs' memory until the collector's next pass
+            self.to_state = lambda ps: mega.pad_ps(ps, dims, device)
+        block = slice(rows.start, rows.stop)
+        self.ps = self.to_state(ps_host[block])
+        self.bins = rb.prior_bins(rb.bounded_bins(prior_host), device)
+        self.sids = torch.as_tensor(sid_host[block]).to(device)
+        self.slots = GraphSlots(2)   # its chunk graphs (card, Philox streams)
+        self.fetch = _Fetch(device, pinned=overlap)
+
+
+def _join_rows(parts):
+    """The shards' ``(_HostSample, state)`` of one chunk joined in row
+    order (samples on axis 1, the state on axis 0)."""
+    if len(parts) == 1:
+        return parts[0]
+    cat = lambda xs, axis: (None if xs[0] is None
+                            else np.concatenate(xs, axis=axis))
+    hs = [h for h, _ in parts]
+    return (_HostSample(*(cat([getattr(h, k) for h in hs], 1)
+                          for k in _HostSample.__slots__)),
+            cat([s for _, s in parts], 0))
 
 
 def _per_row(ps, G):
@@ -496,12 +603,13 @@ def _per_row(ps, G):
 
 def _run_baselines_tflags(jobs, ps_prior, niter, *, device, seed, nchains,
                           write_niter, store_cr, engine, warm_ns, drift_max,
-                          checkpoint, resume, run_dir, global_baseline_ids,
+                          checkpoint, resume, run_dir, gids, ck_tag,
                           randomness, verbose, map_estimate, jitter, solver):
     """The grouped time-flags path, one flag signature after another
-    (``runner.py:775-1063`` of the JAX package, single device), on the
-    megachain or the real engine; on the complex engine one baseline after
-    another (``runner.py:1120-1199``), each with its own checkpoint."""
+    (``runner.py:775-1063`` of the JAX package, on this process's device),
+    on the megachain or the real engine; on the complex engine one
+    baseline after another (``runner.py:1120-1199``), each with its own
+    checkpoint tag ``-tf{s}`` followed by the process's ``ck_tag``."""
     nbl = len(jobs)
     flags_of = [np.zeros(j.d.shape, dtype=bool) if j.flags_tf is None
                 else np.asarray(j.flags_tf, dtype=bool) for j in jobs]
@@ -513,8 +621,6 @@ def _run_baselines_tflags(jobs, ps_prior, niter, *, device, seed, nchains,
         run_dir = Path(jobs[0].out_dir).parent
     prior_host = np.asarray(ps_prior, dtype=np.float64)
     bins = rb.prior_bins(rb.bounded_bins(prior_host), device)
-    gids = (list(global_baseline_ids) if global_baseline_ids is not None
-            else list(range(nbl)))
     results_by_row = {}
     start_iters = []
     write_time = t_build = t_process = 0.0
@@ -553,7 +659,7 @@ def _run_baselines_tflags(jobs, ps_prior, niter, *, device, seed, nchains,
         t_build += time.perf_counter() - t0
 
         # --- resume: each signature carries its own checkpoint -----------
-        tag = f"-tf{si}"
+        tag = f"-tf{si}{ck_tag}"
         start_iter = 0
         prefix = None
         if resume and run_dir is not None:
@@ -840,24 +946,24 @@ class _Fetch:
                     sum(b.numel() for b in self.ring))
 
 
-def _profile_start(device):
-    """A ``torch.profiler`` window (CPU, and CUDA on the card) from an idle
-    device."""
+def _profile_start(devices):
+    """A ``torch.profiler`` window (CPU, and CUDA on the card) from idle
+    devices."""
     from torch.profiler import ProfilerActivity, profile
 
     acts = [ProfilerActivity.CPU]
-    if device.type == "cuda":
+    if any(d.type == "cuda" for d in devices):
         acts.append(ProfilerActivity.CUDA)
-        torch.cuda.synchronize(device)
+    _sync(devices)
     prof = profile(activities=acts)
     prof.start()
     return prof
 
 
-def _profile_stop(prof, device, profile_dir, chunk: int):
-    """Close the window once the device is idle; write its Chrome trace."""
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
+def _profile_stop(prof, devices, profile_dir, chunk: int):
+    """Close the window once the devices are idle; write its Chrome
+    trace."""
+    _sync(devices)
     prof.stop()
     out = Path(profile_dir)
     out.mkdir(parents=True, exist_ok=True)

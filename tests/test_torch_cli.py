@@ -241,7 +241,8 @@ def test_main_end_to_end_against_jax_cli(tmp_path):
     JSON keys; the sample files exactly those of ``run_baselines`` on the
     JAX-prepared jobs; ``profile_dir`` gets the trace; ``--precision x64``
     runs the complex engine with the JAX CLI's files (names, shapes and
-    dtypes, complex128 samples); more than one process raises."""
+    dtypes, complex128 samples); more than one process without a
+    coordinator's address raises."""
     fp, bl_strs = _write_inputs(tmp_path)
     prof = tmp_path / "trace"
     assert tcli.main(_argv(fp, tmp_path / "t", "--profile_dir", str(prof)),
@@ -284,7 +285,7 @@ def test_main_end_to_end_against_jax_cli(tmp_path):
             a, b = np.load(res_x / bl / name), np.load(res_j / bl / name)
             assert (a.shape, a.dtype) == (b.shape, b.dtype), (bl, name)
     assert np.load(res_x / bl_strs[0] / "gcr-eor.npy").dtype == np.complex128
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
+    with pytest.raises(ValueError, match="coordinator"):
         tcli.main(_argv(fp, tmp_path / "x", "--num_processes", "2"),
                   device="cpu")
 

@@ -119,7 +119,8 @@ def _jax_step_randomness(key, nt, nf, npb):
 def case_fourier():
     rng = np.random.default_rng(1)
     for n in (16, 17):
-        jf, tf = jfo.fourier_operator(n), tfo.fourier_operator(n)
+        jf, tf = jfo.fourier_operator(n), tfo.fourier_operator(n,
+                                                               device="cpu")
         _close(tf, jf, 1e-15, "fourier_operator")
         x = _crandn(rng, 5, n)
         _close(tfo.cfft(T(x)), jfo.cfft(jnp.asarray(x)), TOL, "cfft")
@@ -200,7 +201,8 @@ def case_invgamma():
     key = jax.random.key(5)
     want = jinv.inversion_sample_invgamma(10.0, 30.0, 0.5, 8.0, key=key)
     got = tinv.inversion_sample_invgamma(10.0, 30.0, 0.5, 8.0,
-                                         u=float(jax.random.uniform(key)))
+                                         u=float(jax.random.uniform(key)),
+                                         device="cpu")
     _close(got, want, 1e-11, "inversion_sample_invgamma")
     with pytest.raises(ValueError):
         tinv.inversion_sample_invgamma(10.0, 30.0, 2.0, 1.0, u=0.5)
@@ -325,7 +327,8 @@ def case_reference_api():
     d, w, fg, ninv, tol = _problem("10x16")
     nt, nf = d.shape
     S0 = tfo.covariance_from_pspec(T(np.linspace(1.0, 20.0, nf) / nf**2),
-                                   tfo.fourier_operator(nf)).numpy()
+                                   tfo.fourier_operator(nf, device="cpu")
+                                   ).numpy()
     key = jax.random.key(12)
     want = jgibbs.gibbs_step_fgmodes(key, d, w, S0, fg, ninv)
     got = tgibbs.gibbs_step_fgmodes(

@@ -150,9 +150,12 @@ def case_subset_invariance(tmp_path, jax_root):
         assert (a.antpair, a.chain) == (b.antpair, b.chain)
         assert np.array_equal(a.signal_ps, b.signal_ps)
         assert np.array_equal(a.signal_cr, b.signal_cr)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-        trunner.run_baselines(jobs, _prior(), 2, device="cpu",
-                              num_processes=2)
+    # the same block as process 1's of a two-process run: the same chains
+    res_p, _ = trunner.run_baselines(
+        jobs, _prior(), NITER, device="cpu", seed=SEED, write_niter=WRITE,
+        nchains=2, global_baseline_ids=[1], process_id=1, num_processes=2)
+    for a, b in zip(res_one, res_p):
+        assert np.array_equal(a.signal_ps, b.signal_ps)
 
 
 CASES = {f.__name__[5:]: f for f in (case_matches_jax, case_output_files,

@@ -17,8 +17,11 @@ Phases, one printed line each (any failure raises; exit code non-zero):
      (as in a graph replay) bit-identical to it given by value, bandpower
      too; herm_inv (also blocked at n = 256) and cgemm with an active mask
      (flagged chains bit-identical to the unmasked launch, the others'
-     outputs untouched); the warm start's drift gate warm_gate equal to
-     its plain version, a NaN rebuilding; the grouped
+     outputs untouched); herm_inv's gate mode (the warm start's drift
+     gate computed in the launch) at B=100, n=128 and blocked at n=256
+     against its plain version, the plain gate and the masked inverse:
+     flags and rebuilt inverses torch.equal, with an unmoved row, a NaN
+     row and a row whose drift is exactly drift_max; the grouped
      time-flags variants (per-row time counts, pooled bandpower) at the
      tflags path's shapes (8 chains x G=4 rows, t=128); the Hermitian
      factor-solve (herm_chol_solve) at B=8, n=120, K=203, the herm_inv
@@ -125,12 +128,23 @@ Phases, one printed line each (any failure raises; exit code non-zero):
      (descriptive: two processes share one card); then
      run_baselines(mesh_devices=[cuda:0, cuda:0]) bit-identical to one
      device on megachain, mega and real (20 baselines x 200, kernels
-     launched), entry.dryrun_multichip(2), and one call of entry.entry()'s
+     launched), and with time flags on grouped megachain (signatures A
+     and B, 10 baselines each, A split across the devices) and on the
+     grouped real engine (11 flag patterns, 20 baselines x 100), with
+     the rates of one and two devices (descriptive: both are cuda:0),
+     entry.dryrun_multichip(2), and one call of entry.entry()'s
      real-engine step at 203 x 120 (finite, on the card, kernels
      launched);
   estimators: LSSA, OQE and DPSS (models/lssa.py, oqe.py, dpss.py) on
      the card against the same call on the CPU at 120 channels within
      1e-10 relative, and the time of one call;
+  scripts: hydra_pspec_torch/scripts on the card: simple_example
+     (gibbs_sample_with_fg, one synthetic baseline at 203 x 120, 100
+     iterations: finite, chi^2 within 2 %, the recovered EoR power within
+     a factor 2 of the truth) and the scaling harness (scaling_test:
+     8 baselines x 100 iterations through cli.run.run_jobs at one and
+     two processes on the card and at two devices in one process, cuda:0
+     twice): every point's sample files bit-identical to one process;
   9. times, in a process of its own (python3 chip_smoke.py --times OUT,
      started by this one: a profiler session earlier in a process and the
      large runs after it make later windows lose device activities): one
@@ -140,7 +154,8 @@ Phases, one printed line each (any failure raises; exit code non-zero):
      B=100 (megachain, grouped, mega and the wide band each eagerly and as
      a graph replay of a 5-iteration chunk, in turns), the masked herm_inv
      launch with no chain active (n = 128, and blocked at n = 256) and
-     warm_gate, the factor-solve at B=100, n=120, K=203 and K=1 (the factor
+     herm_inv's gate mode with no chain and with every chain rebuilding,
+     the factor-solve at B=100, n=120, K=203 and K=1 (the factor
      and one tile, with its own bound), kernels against the
      plain versions (CUDA events), with each kernel's bound and the
      iteration bounds (each cgemm launch priced at its own shape); cgemm,
@@ -274,19 +289,16 @@ KERNELS = {
                         "hydra_pspec_tpu/ops/pallas/spd_inv.py:149"),
     "gcr_megastep": ("hydra_pspec_torch/ops/kernels/megastep.py",
                      "hydra_pspec_tpu/ops/pallas/megastep.py:388"),
-    "warm_gate": ("hydra_pspec_torch/csrc/draw_fused.cu",
-                  "hydra_pspec_tpu/ops/pallas/megachain.py:366"),
 }
 # the kernels each path must launch
 MAIN_KERNELS = ("cgemm", "herm_inv", "draw_rhs", "draw_system",
-                "row_scale_sumsq", "draw_resid", "bandpower", "warm_gate")
+                "row_scale_sumsq", "draw_resid", "bandpower")
 REAL_KERNELS = ("cgemm", "herm_chol_solve", "row_scale_sumsq", "rng_fields",
                 "bandpower")
 PALLAS2_KERNELS = ("cgemm", "herm_inv", "hermitian_solve", "row_scale_sumsq",
                    "rng_fields", "bandpower")
 # the mega engine: the exact inverse every iteration, no warm start
-MEGA_KERNELS = tuple(k for k in MAIN_KERNELS if k != "warm_gate") + (
-    "gcr_megastep",)
+MEGA_KERNELS = MAIN_KERNELS + ("gcr_megastep",)
 ENTRIES = ("hermitian_solve", "gcr_megastep")   # composed from kernels
 # where each kernel's "launches" of the kernels JSON line are read
 HOME_PATH = dict({k: "main" for k in MAIN_KERNELS},
@@ -581,6 +593,64 @@ def check_herm_tiles(dev, cmp):
     _build.reset_launches()
 
 
+def check_gate_mode(dev, cmp):
+    """herm_inv's gate mode (the warm start's drift gate computed in the
+    launch) at B = N_BASELINES against its plain version, plain_warm_gate
+    followed by the masked inverse: at n = 128 (one launch) and n = 256
+    (the blocked route, whose first base launch computes the gate), for
+    drift_max 0.6, 0.3, 0.05 and the exact drift of one row, with an
+    unmoved row (never rebuilds) and a NaN row (always rebuilds). The
+    flags written are torch.equal to plain_warm_gate's (the row at exactly
+    drift_max does not rebuild), each rebuilt chain is torch.equal to the
+    unmasked kernel launch and within 1e-3 of the plain inverse, every
+    other chain keeps its carried inverse bit for bit; one herm_inv launch
+    at n = 128, two and four cgemm at n = 256."""
+    from hydra_pspec_torch.ops.kernels import _build
+    from hydra_pspec_torch.ops.kernels import herm_inv as hi
+
+    B = N_BASELINES
+    gen = torch.Generator(device=dev).manual_seed(SEED + 14)
+    for n, launches in ((128, {"herm_inv": 1}),
+                        (256, {"herm_inv": 2, "cgemm": 4})):
+        s = equilibrated_spd(B, n, dev, gen)
+        full, want = hi.herm_inv(s), hi.plain_herm_inv(s)
+        psx = 1.0 + 99.0 * torch.rand((B, n), generator=gen, device=dev)
+        ps = psx * torch.exp(0.6 * torch.rand((B, n), generator=gen,
+                                              device=dev) - 0.3)
+        ps[0] = psx[0]
+        ps[2, 5] = float("nan")
+        # row 4's drift, by plain_warm_gate's expression: drift_max there
+        tiny = torch.finfo(torch.float32).tiny
+        rel = torch.abs(ps - psx) / (
+            0.5 * (torch.abs(ps) + torch.abs(psx))
+            + 1e-6 * torch.amax(psx, dim=1, keepdim=True) + tiny)
+        exact = float(torch.amax(rel, dim=1)[4])
+        carried = torch.full_like(s, complex(7.0, -3.0))
+        for dmax in (0.6, 0.3, 0.05, exact):
+            flags = torch.full((B,), -1, dtype=torch.int32, device=dev)
+            _build.reset_launches()
+            got = hi.herm_inv(s, out=carried.clone(), gate=(ps, psx, dmax),
+                              rebuild=flags)
+            sync(dev)
+            ran = {k: v for k, v in _build.LAUNCHES.items() if v}
+            plain = hi.plain_warm_gate(ps, psx, dmax)
+            on = plain.bool()
+            ok = (torch.equal(flags, plain) and torch.equal(got[on], full[on])
+                  and torch.equal(got[~on], carried[~on]))
+            rows = (int(plain[0]), int(plain[2]), int(plain[4]))
+            say("kernels", f"herm_inv gate    n={n} B={B} drift_max={dmax}: "
+                f"{int(plain.sum())} rebuild; flags == plain, rebuilt == "
+                f"unmasked launch, others untouched: {ok}; rows 0 (unmoved), "
+                f"2 (NaN), 4 (drift {exact}) {rows}; launches {ran}")
+            require(ok and rows[:2] == (0, 1) and ran == launches
+                    and (dmax != exact or rows[2] == 0),
+                    f"herm_inv gate mode n={n} drift_max={dmax}")
+            if on.any():
+                cmp("herm_inv", got[on], want[on], 1e-3,
+                    f"gate n={n} vs plain")
+    _build.reset_launches()
+
+
 def phase_kernels(dev, jobs8, jobs_w8, errs):
     from hydra_pspec_torch.models import mega, megachain
     from hydra_pspec_torch.ops.kernels import _build
@@ -728,19 +798,7 @@ def phase_kernels(dev, jobs8, jobs_w8, errs):
     say("kernels", f"herm_inv, cgemm  active mask {active.tolist()}: "
         f"flagged chains == unmasked, others untouched: {ok_inv}, {ok_mm}")
     require(ok_inv and ok_mm, "masked herm_inv/cgemm")
-    # the drift gate: moves under and over drift_max, a NaN
-    gen_g = torch.Generator(device=dev).manual_seed(SEED + 14)
-    ps_new = ps * torch.exp(0.6 * torch.rand(ps.shape, generator=gen_g,
-                                             device=dev) - 0.3)
-    ps_new[0] = ps[0]
-    ps_new[2, 5] = float("nan")
-    for dmax in (0.6, 0.3, 0.05):
-        flags = K.warm_gate(ps_new, ps, dmax)
-        want = P.warm_gate(ps_new, ps, dmax)
-        cmp("warm_gate", flags.float(), want.float(), 0.0,
-            f"drift_max={dmax} {flags.tolist()}", 1.0)
-        require(int(flags[0]) == 0 and int(flags[2]) == 1,
-                "warm_gate: an unmoved chain rebuilds or a NaN does not")
+    check_gate_mode(dev, cmp)
     ex = mm(s, inv_k, what="S X")
     mm(inv_k, ex, x=inv_k, alpha=-1.0, beta=2.0, what="NS X(2I - S X)")
     x = mm(inv_k, sys_p[1], what="S^-1 xs")
@@ -1051,11 +1109,11 @@ def rebuilt_chains(ps0, ps_out, drift_max):
     from its input ``ps0`` and its per-iteration ``ps`` outputs (K, B, >=)
     (padded or trimmed: the gate reads zero pad bins as no move), by the
     plain gate: the rebuilds the kernels' device-side gate chose."""
-    from hydra_pspec_torch.ops.kernels import impl as I
+    from hydra_pspec_torch.ops.kernels.herm_inv import plain_warm_gate
 
     nf = ps_out.shape[2]
     prev = [ps0[:, :nf]] + [ps_out[k] for k in range(ps_out.shape[0] - 1)]
-    return [int(I.PLAIN.warm_gate(prev[k], prev[k - 1], drift_max).sum())
+    return [int(plain_warm_gate(prev[k], prev[k - 1], drift_max).sum())
             for k in range(1, ps_out.shape[0])]
 
 
@@ -2381,6 +2439,49 @@ def phase_multiproc(dev, jobs_main, out_root, nranks=2, shard_devices=None):
                 f"identical {same}, kernels never launched {missing}")
         shards[engine] = {"launches": got, "identical": same,
                           "process_s": [tim1["process"], tim2["process"]]}
+    # time flags over the devices: grouped megachain with signatures A and
+    # B (A's chains split across the devices) and the grouped real engine
+    # with 11 flag patterns, against one device
+    rf = rfi_windows()
+    for label, tjobs, engine, kernels, niter in (
+            ("tflags", make_tflags_jobs(sjobs, N_SHARD // 2), "megachain",
+             MAIN_KERNELS, SHARD_NITER),
+            ("tflags_real", [dataclasses.replace(j, d=j.d + RFI * rf,
+                                                 flags_tf=rf)
+                             for j in sjobs], "real", REAL_KERNELS,
+             TF_REAL_NITER)):
+        kw = dict(device=dev, seed=SEED, write_niter=WRITE_NITER,
+                  store_cr=True, warm_ns=3, drift_max=0.6)
+        res1, tim1 = runner.run_baselines(tjobs, make_prior(), niter, **kw)
+        _build.reset_launches()
+        res2, tim2 = runner.run_baselines(tjobs, make_prior(), niter,
+                                          mesh_devices=shard_devices, **kw)
+        sync(dev)
+        got = dict(_build.LAUNCHES)
+        same = all(np.array_equal(getattr(a, f), getattr(b, f))
+                   for a, b in zip(res1, res2)
+                   for f in ("signal_ps", "signal_cr", "fg_amps", "chisq",
+                             "ln_post"))
+        missing = [k for k in kernels if got[k] == 0]
+        rates = [len(tjobs) * niter / (t["process"] - t["write"])
+                 for t in (tim1, tim2)]
+        say("multiproc", f"shards {label}: {len(tjobs)} baselines x {niter} "
+            f"on {engine} over [{tim2['device']}]: bit-identical to one "
+            f"device {same}; launches {got}; sampling only, baseline-"
+            f"iterations/s: one device {rates[0]:.1f}, "
+            f"{len(shard_devices)} devices {rates[1]:.1f} (descriptive, "
+            f"not a scaling result)")
+        require(tim1["engine"] == tim2["engine"] == engine and same
+                and not missing
+                and len(tim2["device"].split(", ")) == len(shard_devices),
+                f"multiproc shards {label}: engine {tim2['engine']} on "
+                f"{tim2['device']}, identical {same}, kernels never launched "
+                f"{missing}")
+        shards[label] = {"launches": got, "identical": same,
+                         "engine": engine, "niter": niter,
+                         "baselines": len(tjobs),
+                         "process_s": [tim1["process"], tim2["process"]],
+                         "baseline_iters_per_s": rates}
     entry.dryrun_multichip(len(shard_devices))
     # entry(): one real-engine Gibbs step at 203 x 120 on the card
     fn, args = entry.entry()
@@ -2407,6 +2508,46 @@ def phase_multiproc(dev, jobs_main, out_root, nranks=2, shard_devices=None):
             "launches": launches, "sampling_rates": rates,
             "barrier_s": tj["rank_0_timers"]["barrier"], "shards": shards,
             "wall_s": wall}
+
+
+# --- scripts: hydra_pspec_torch/scripts on the card ----------------------------
+
+N_SCALING, SCALING_NITER, SCALING_WRITE_NITER = 8, 100, 50
+
+
+def phase_scripts(dev, out_root):
+    """``simple_example`` on the card (finite, chi^2 within CHI2_GATE, the
+    recovered EoR power within a factor 2 of the truth) and the scaling
+    harness at one and two processes and at two devices in one process
+    (``cuda:0`` twice on one card), each point its own processes: every
+    point's sample files bit-identical to one process."""
+    from hydra_pspec_torch.scripts import scaling_test, simple_example
+
+    t0 = time.perf_counter()
+    ex = simple_example.main(["--device", str(dev)])
+    t_ex = time.perf_counter() - t0
+    say("scripts", f"simple_example: chi^2 {ex['chi2']:.5f} (gate "
+        f"|chi^2 - 1| <= {CHI2_GATE}), median recovered/true on the EoR "
+        f"bins {ex['ratio']:.4f}, finite {ex['finite']}, {t_ex:.1f} s")
+    require(ex["finite"] and abs(ex["chi2"] - 1.0) <= CHI2_GATE
+            and 0.5 < ex["ratio"] < 2.0, "scripts: simple_example")
+    out = out_root / "scaling"
+    t0 = time.perf_counter()
+    rc = scaling_test.main([
+        "--out", str(out), "--ranks", "1,2", "--device_sweep", "2",
+        "--devices", str(dev), "--device", "cuda", "--n", str(N_SCALING),
+        "--niter", str(SCALING_NITER), "--write_niter",
+        str(SCALING_WRITE_NITER)])
+    wall = time.perf_counter() - t0
+    rows, ok = scaling_test.table(out)
+    say("scripts", f"scaling_test: points {[r['point'] for r in rows]}, "
+        f"every point's files bit-identical to ranks-1: {ok} (exit {rc}); "
+        f"wall {wall:.1f} s, processes started included")
+    require(rc == 0 and ok and len(rows) == 3, "scripts: scaling_test")
+    return {"simple_example": {"chi2": ex["chi2"], "ratio": ex["ratio"],
+                               "seconds": t_ex},
+            "scaling": {"rows": rows, "identical": ok, "wall_s": wall,
+                        "baselines": N_SCALING, "niter": SCALING_NITER}}
 
 
 # --- estimators: LSSA, OQE and DPSS on the card ------------------------------
@@ -2546,8 +2687,8 @@ def work(name, B, n, t, m, ntimes, valid=None, chains=None, alpha=None):
                 + vec), 10 * B * n * t + 2 * B * m * t
     if name == "rng_fields":   # a Philox call, two Box-Muller pairs a lane
         return 2 * cfield, draw + n * lanes * BOX_MULLER_OPS
-    if name == "warm_gate":    # two (B, n) rows read, a flag a chain out
-        return 2 * vec + 4 * B, 10 * B * n
+    if name == "herm_inv_gate":   # the gate alone: two (B, n) rows read,
+        return 2 * vec + 4 * B, 10 * B * n   # a flag a chain written
     if name == "bandpower":    # ceil(alpha/4) Philox calls + logs per bin
         draws = B if chains is None else chains
         return 2 * vec + 8 * 4096, draws * n * (-(-alpha // 4)) * 120
@@ -2634,8 +2775,8 @@ def _time_pairs(label, cases, reps=10):
 class _CgemmShapes:
     """Counts the (batch, M, K, N, op, A shared, X, masked) of every cgemm
     launch while it is active, and the herm_inv launches with an ``active``
-    mask (the warm start's rebuilds), read at the launch wrapper
-    ``_build.call``."""
+    mask or a drift gate (the warm start's rebuilds), read at the launch
+    wrapper ``_build.call``."""
 
     def __enter__(self):
         from hydra_pspec_torch.ops.kernels import _build
@@ -2650,7 +2791,8 @@ class _CgemmShapes:
                 masked = args[12] is not None
                 self.shapes[(batch, M, K, N, "NTH"[op], not a_batched,
                              args[2] is not None, masked)] += 1
-            elif kernel == "herm_inv" and args[4] is not None:
+            elif kernel == "herm_inv" and (args[4] is not None
+                                           or args[5] is not None):
                 self.masked[kernel] += 1
             return self._call(kernel, entry, *args)
 
@@ -2926,8 +3068,6 @@ def phase_times(dev, jobs):
     beta = P.row_scale_sumsq(x, dinv, dd)[1]
     da = torch.zeros_like(mops.a0)
     key = df.OmegaKey(SEED, sids, 0)
-    ps_moved = P.bandpower(beta, prior, tables.tlog, tables.q, seed=SEED,
-                           sids=sids, g=1, alpha=nt - 1)
     cases = {   # draw_rhs and draw_system in the main path's keyed mode
         "cgemm": lambda M: M.cgemm(mops.f, rc),
         "herm_inv": lambda M: M.herm_inv(s),
@@ -2942,7 +3082,6 @@ def phase_times(dev, jobs):
         "bandpower": lambda M: M.bandpower(
             beta, prior, tables.tlog, tables.q, seed=SEED, sids=sids, g=0,
             alpha=nt - 1),
-        "warm_gate": lambda M: M.warm_gate(ps_moved, ps, 0.6),
     }
     times = _time_pairs(f"B={B}", cases)
     # one PyTorch call computing the same function, where there is one
@@ -2976,13 +3115,25 @@ def phase_times(dev, jobs):
                                lambda M: M.draw_system(mops.pt, ps, frc, oa,
                                                        nt, nf)),
     }
-    # what the warm start's masked rebuild costs when no chain rebuilds
+    # what the warm start's masked rebuild costs when no chain rebuilds: an
+    # active mask of zeros, and the gate mode (the drift gate in the launch)
+    # with ps == psx; the gate mode with every chain rebuilding
+    # (drift_max -1) against the unmasked launch
     none = torch.zeros((B,), dtype=torch.int32, device=dev)
+    flags = torch.empty((B,), dtype=torch.int32, device=dev)
     inv_buf = K.herm_inv(s)
     dcases["herm_inv masked, none active"] = (
         "herm_inv", dict(shape, B=0),
         lambda M: M.herm_inv(s, out=inv_buf, active=none))
-    dcases["warm_gate"] = ("warm_gate", shape, cases["warm_gate"])
+    dcases["herm_inv gate, none rebuild"] = (
+        "herm_inv_gate", shape,
+        lambda M: M.herm_inv(s, out=inv_buf, gate=(ps, ps, 0.6),
+                             rebuild=flags))
+    dcases["herm_inv gate, all rebuild"] = (
+        "herm_inv", shape,
+        lambda M: M.herm_inv(s, out=inv_buf, gate=(ps, ps, -1.0),
+                             rebuild=flags))
+    dcases["herm_inv unmasked"] = ("herm_inv", shape, cases["herm_inv"])
     device = {}
     for k, (wk, sh, fn) in dcases.items():
         ms = _device_ms(lambda: fn(K))
@@ -3223,15 +3374,15 @@ def phase_times_wide(dev, jobs_w):
     cases = {"herm_inv": lambda M: M.herm_inv(s),
              "herm_chol_solve": lambda M: M.herm_chol_solve(ms, rhs)}
     times = _time_pairs(f"blocked B={B}", cases)
-    # the warm start's masked blocked rebuild when no chain rebuilds: two
-    # base launches and four products that return at once, the blocks'
-    # copies and the select
-    none = torch.zeros((B,), dtype=torch.int32, device=dev)
+    # the warm start's masked blocked rebuild when no chain rebuilds (the
+    # gate mode with ps == psx): two base launches (the first computes the
+    # gate) and four products that return at once, the blocks' copies and
+    # the select
     inv_buf = I.KERNELS.herm_inv(s)
     masked_ms = _device_ms(
-        lambda: I.KERNELS.herm_inv(s, out=inv_buf, active=none))
-    say("times", f"device time blocked herm_inv n={n} B={B}, masked, none "
-        f"active: {masked_ms:.5f} ms")
+        lambda: I.KERNELS.herm_inv(s, out=inv_buf, gate=(ps, ps, 0.6)))
+    say("times", f"device time blocked herm_inv n={n} B={B}, gate mode, "
+        f"none rebuild: {masked_ms:.5f} ms")
     library = {"herm_inv": _time(lambda: torch.linalg.inv(s), 10),
                "herm_chol_solve": _time(lambda: torch.linalg.solve(ms, rhs),
                                         10)}
@@ -3365,6 +3516,8 @@ def main():
         mark("multiproc", t0)
         estimator_stats = phase_estimators(dev)
         mark("estimators", t0)
+        scripts_stats = phase_scripts(dev, out_root)
+        mark("scripts", t0)
         tm, tf, tw = times_process(out_root)
         mark("times", t0)
     finally:
@@ -3430,6 +3583,7 @@ def main():
         "complex": complex_stats,
         "multiproc": multiproc_stats,
         "estimators": estimator_stats,
+        "scripts": scripts_stats,
         "wideband": {
             "nfreqs": WIDE_NF, "runs": wb_stats, "launches": wb_launches,
             "blocked": tw["blocked"],

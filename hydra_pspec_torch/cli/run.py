@@ -7,6 +7,9 @@ Usage:
     python -m hydra_pspec_torch.cli.run --config config.yaml [flags]
     run-hydra-pspec-torch --config config.yaml [flags]
 
+In one process the chains run on every local card: :func:`main` with its
+default ``device="cuda"`` splits the rows over the
+``torch.cuda.device_count()`` cards, and ``device="cuda:1"`` keeps one.
 Over N processes (one per device, or several on one card), start each
 with ``--num_processes N --process_id i --coordinator host:port`` (process
 0's address, any free port): each reads and samples its block of
@@ -240,7 +243,7 @@ def output_dir(cfg: RunConfig, create: bool = True) -> Path:
 def run_jobs(cfg: RunConfig, jobs, nfreqs: int, n_baselines: int,
              t_load: float, out_dir: Path, device="cuda", t_start=None,
              global_baseline_ids=None, process_id: int = 0,
-             num_processes: int = 1):
+             num_processes: int = 1, mesh_devices=None):
     """Everything :func:`main` does after the load: the chains of ``jobs``
     through ``runner.run_baselines`` on ``device``, then ``rhat.json``
     (with more than one chain), ``timings.json`` (the true per-baseline
@@ -251,7 +254,9 @@ def run_jobs(cfg: RunConfig, jobs, nfreqs: int, n_baselines: int,
     their streams. ``process_id`` / ``num_processes``: ``jobs`` is this
     process's block of a run over that many processes, whose group is up
     (``dist.initialize_distributed``): R-hat and write seconds are
-    gathered over it, and process 0 alone writes the three files. Returns
+    gathered over it, and process 0 alone writes the three files.
+    ``mesh_devices``: the devices this process splits its rows over
+    (``runner.run_baselines``; default ``device`` alone). Returns
     ``(results, timings)`` of the runner."""
     if t_start is None:
         t_start = time.perf_counter() - t_load
@@ -265,7 +270,7 @@ def run_jobs(cfg: RunConfig, jobs, nfreqs: int, n_baselines: int,
         warm_ns=cfg.warm_ns, drift_max=cfg.drift_max,
         checkpoint_niter=cfg.checkpoint_Niter, resume=cfg.resume,
         run_dir=out_dir, process_id=process_id, num_processes=num_processes,
-        n_global_baselines=n_baselines,
+        n_global_baselines=n_baselines, mesh_devices=mesh_devices,
         global_baseline_ids=global_baseline_ids,
         verbose=cfg.verbose and is_rank0, profile_dir=cfg.profile_dir)
 
@@ -317,23 +322,27 @@ def run_jobs(cfg: RunConfig, jobs, nfreqs: int, n_baselines: int,
 def main(argv=None, device="cuda"):
     """The whole run: configuration, process group, output directory,
     load, chains and artifacts. ``device``: where the chains run (the
-    card unless the caller asks for ``"cpu"``; with more than one process,
-    this process's card, ``dist.rank_device``). Returns 0."""
+    card unless the caller asks for ``"cpu"``): ``"cuda"`` in one process
+    is every local card, the rows split over them; with more than one
+    process, this process's card; an index keeps that card
+    (``dist.local_devices``). Returns 0."""
     t_start = time.perf_counter()
     cfg, args = load_config(argv)
     check_supported(cfg)
     pid, nproc = args.process_id, args.num_processes
     started = dist.initialize_distributed(args.coordinator, nproc, pid)
     try:
-        device = dist.rank_device(device, pid)
+        devices = dist.local_devices(device, pid, nproc)
         out_dir = output_dir(cfg, create=pid == 0)
         # no rank writes under a directory that rank 0 is still renaming
         dist.barrier()
         jobs, nfreqs, n_baselines, t_load, gids = prepare_jobs(
             cfg, out_dir, pid, nproc)
         run_jobs(cfg, jobs, nfreqs, n_baselines, t_load, out_dir,
-                 device=device, t_start=t_start, global_baseline_ids=gids,
-                 process_id=pid, num_processes=nproc)
+                 device=devices[0], t_start=t_start,
+                 global_baseline_ids=gids, process_id=pid,
+                 num_processes=nproc,
+                 mesh_devices=devices if len(devices) > 1 else None)
     finally:
         if started:
             dist.shutdown()

@@ -220,47 +220,6 @@ resid_kernel(const float2* __restrict__ dw, const float2* __restrict__ sig,
     if (chit) chit[row] = acc_chit;
   }
 }
-// max that keeps a NaN: a NaN v replaces m, a NaN m stays (torch.amax)
-__device__ __forceinline__ float nan_max(float m, float v) {
-  return (m != m || m >= v) ? m : v;
-}
-
-// the NaN-keeping max over the block (blockDim.x a multiple of 32); every
-// thread gets it. `red` is 32 floats of shared memory.
-__device__ __forceinline__ float block_nan_max(float v, float* red) {
-  for (int o = 16; o > 0; o >>= 1)
-    v = nan_max(v, __shfl_xor_sync(0xffffffffu, v, o));
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  __syncthreads();  // red may still be read by a previous call
-  if (lane == 0) red[warp] = v;
-  __syncthreads();
-  float m = red[0];
-  for (int w = 1; w < (int)(blockDim.x >> 5); ++w) m = nan_max(m, red[w]);
-  return m;
-}
-
-constexpr int GATE_THREADS = 128;
-
-__global__ void __launch_bounds__(GATE_THREADS)
-warm_gate_kernel(const float* __restrict__ ps, const float* __restrict__ psx,
-                 float drift_max, int* __restrict__ rebuild, int n) {
-  __shared__ float red[32];
-  const long long o = (long long)blockIdx.x * n;
-  float top = -INFINITY;
-  for (int j = threadIdx.x; j < n; j += blockDim.x)
-    top = nan_max(top, psx[o + j]);
-  const float lift = __fmul_rn(1e-6f, block_nan_max(top, red));
-  float drift = -INFINITY;
-  for (int j = threadIdx.x; j < n; j += blockDim.x) {
-    const float p = ps[o + j], x = psx[o + j];
-    const float den = __fadd_rn(
-        __fadd_rn(__fmul_rn(0.5f, __fadd_rn(fabsf(p), fabsf(x))), lift),
-        FLT_MIN);
-    drift = nan_max(drift, __fdiv_rn(fabsf(__fsub_rn(p, x)), den));
-  }
-  drift = block_nan_max(drift, red);
-  if (threadIdx.x == 0) rebuild[blockIdx.x] = drift <= drift_max ? 0 : 1;
-}
 }  // namespace
 
 // ob == nullptr: keyed mode on (seed, sids, g), g read as *g_dev + g when
@@ -318,12 +277,5 @@ HK_API int hk_draw_resid(const float2* dw, const float2* sig, const float2* fa,
   resid_kernel<<<grid, ROW_THREADS, 0, stream>>>(
       dw, sig, fa, ninvf, w, da, a0, chi, noise, chit, amp, ws, n, m, t,
       ntimes, row_times);
-  return (int)cudaGetLastError();
-}
-
-HK_API int hk_warm_gate(const float* ps, const float* psx, float drift_max,
-                        int* rebuild, int batch, int n, cudaStream_t stream) {
-  warm_gate_kernel<<<batch, GATE_THREADS, 0, stream>>>(ps, psx, drift_max,
-                                                       rebuild, n);
   return (int)cudaGetLastError();
 }

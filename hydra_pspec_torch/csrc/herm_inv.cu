@@ -40,19 +40,82 @@
 //
 // active (optional, int32 per chain): the CTA of a chain whose flag is 0
 // returns before its first load and leaves that chain's output as it was.
-// The megachain warm start (ops/kernels/megachain.py) so rebuilds, in a
-// launch captured into a CUDA graph, only the chains its device-side drift
-// gate selects, writing them straight into the carried inverse.
+//
+// gate (optional, in place of active): the megachain warm start's drift
+// gate, the TPU kernel's pl.when at hydra_pspec_tpu/ops/pallas/
+// megachain.py:366-379, computed by each chain's CTA before its first
+// matrix load. The CTA reads its chain's bandpowers ps and psx (this and
+// the previous iteration, m floats each), takes the NaN-keeping largest
+// relative move
+//   max_j |ps_j - psx_j| / (0.5 (|ps_j| + |psx_j|) + 1e-6 max_j psx_j
+//                           + FLT_MIN)
+// with correctly rounded operations, writes its flag (1 = rebuild, also
+// for a NaN: NaN <= x is false) to rebuild, and returns when it is 0. A
+// maximum does not depend on the order of its terms, so the flags do not
+// depend on the block size. The warm start (ops/kernels/megachain.py) so
+// rebuilds, in a launch captured into a CUDA graph, only the chains whose
+// move is not provably small, straight into the carried inverse, and
+// needs no launch of its own for the gate (the gate's own work, 2m floats
+// read a chain, is far below the cost of any launch).
 #include "herm_chol.cuh"
 
 namespace {
 using namespace hchol;
 
+struct Gate {
+  const float* ps;    // (B, m) this iteration's bandpowers; null: no gate
+  const float* psx;   // (B, m) the previous iteration's
+  float drift_max;
+  int m;
+  int* rebuild;       // (B,) the flags written
+};
+
+// max that keeps a NaN: a NaN v replaces m, a NaN m stays (torch.amax)
+__device__ __forceinline__ float nan_max(float m, float v) {
+  return (m != m || m >= v) ? m : v;
+}
+
+// the NaN-keeping max over the block (blockDim.x a multiple of 32); every
+// thread gets it. `red` is 32 floats of shared memory.
+__device__ __forceinline__ float block_nan_max(float v, float* red) {
+  for (int o = 16; o > 0; o >>= 1)
+    v = nan_max(v, __shfl_xor_sync(FULL, v, o));
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  __syncthreads();  // red may still be read by a previous call
+  if (lane == 0) red[warp] = v;
+  __syncthreads();
+  float m = red[0];
+  for (int w = 1; w < (int)(blockDim.x >> 5); ++w) m = nan_max(m, red[w]);
+  return m;
+}
+
+// The gate of this block's chain: writes its flag, returns it (the same
+// value on every thread).
+__device__ bool drift_gate(const Gate& g) {
+  __shared__ float red[32];
+  const long long o = (long long)blockIdx.x * g.m;
+  float top = -INFINITY;
+  for (int j = threadIdx.x; j < g.m; j += blockDim.x)
+    top = nan_max(top, g.psx[o + j]);
+  const float lift = __fmul_rn(1e-6f, block_nan_max(top, red));
+  float drift = -INFINITY;
+  for (int j = threadIdx.x; j < g.m; j += blockDim.x) {
+    const float p = g.ps[o + j], x = g.psx[o + j];
+    const float den = __fadd_rn(
+        __fadd_rn(__fmul_rn(0.5f, __fadd_rn(fabsf(p), fabsf(x))), lift),
+        FLT_MIN);
+    drift = nan_max(drift, __fdiv_rn(fabsf(__fsub_rn(p, x)), den));
+  }
+  const bool go = !(block_nan_max(drift, red) <= g.drift_max);
+  if (threadIdx.x == 0) g.rebuild[blockIdx.x] = go ? 1 : 0;
+  return go;
+}
+
 template <int NB>
 __global__ void __launch_bounds__(THREADS)
 herm_inv_kernel(const float2* __restrict__ S, float2* __restrict__ out,
-                int n, const int* __restrict__ active) {
-  if (active && !active[blockIdx.x]) return;
+                int n, const int* __restrict__ active, Gate gate) {
+  if (gate.ps ? !drift_gate(gate) : active && !active[blockIdx.x]) return;
   extern __shared__ float2 sm[];
   constexpr int nb = NB, ld = ld_of<NB>();
   float2* A = sm;                     // (32 nb) x ld
@@ -156,7 +219,7 @@ constexpr size_t smem_of() {
 
 template <int NB>
 int launch(const float2* S, float2* out, int batch, int n, const int* active,
-           cudaStream_t stream) {
+           const Gate& gate, cudaStream_t stream) {
   // the shared-memory opt-in is no stream operation: it is set by the
   // launches outside a capture (a chunk graph's eager warm-up runs every
   // launch of the chunk before it is captured)
@@ -167,18 +230,23 @@ int launch(const float2* S, float2* out, int batch, int n, const int* active,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                (int)smem_of<NB>());
   if (err != cudaSuccess) return (int)err;
-  herm_inv_kernel<NB><<<batch, THREADS, smem_of<NB>(), stream>>>(S, out, n,
-                                                                  active);
+  herm_inv_kernel<NB><<<batch, THREADS, smem_of<NB>(), stream>>>(
+      S, out, n, active, gate);
   return (int)cudaGetLastError();
 }
 }  // namespace
 
+// ps == nullptr: no gate (active, if given, selects the chains)
 HK_API int hk_herm_inv(const float2* S, float2* out, int batch, int n,
-                       const int* active, cudaStream_t stream) {
-  if (n < 1 || n > TB * MAX_TILES) return (int)cudaErrorInvalidValue;
+                       const int* active, const float* ps, const float* psx,
+                       float drift_max, int m, int* rebuild,
+                       cudaStream_t stream) {
+  if (n < 1 || n > TB * MAX_TILES || (ps && (!psx || !rebuild || m < 1)))
+    return (int)cudaErrorInvalidValue;
+  const Gate gate{ps, psx, drift_max, m, rebuild};
   const int nb = (n + TB - 1) / TB;
-  return nb == 1 ? launch<1>(S, out, batch, n, active, stream)
-       : nb == 2 ? launch<2>(S, out, batch, n, active, stream)
-       : nb == 3 ? launch<3>(S, out, batch, n, active, stream)
-                 : launch<4>(S, out, batch, n, active, stream);
+  return nb == 1 ? launch<1>(S, out, batch, n, active, gate, stream)
+       : nb == 2 ? launch<2>(S, out, batch, n, active, gate, stream)
+       : nb == 3 ? launch<3>(S, out, batch, n, active, gate, stream)
+                 : launch<4>(S, out, batch, n, active, gate, stream);
 }

@@ -39,7 +39,7 @@ U = ctypes.c_uint
 # argument types of every C entry point (all return int: cudaError_t)
 SIGNATURES = {
     "hk_cgemm": [P, P, P, P, I, I, I, I, I, I, F, F, P, P],
-    "hk_herm_inv": [P, P, I, I, P, P],
+    "hk_herm_inv": [P, P, I, I, P, P, P, F, I, P, P],
     "hk_herm_chol_solve": [P, P, P, P, I, I, I, P],
     "hk_draw_rhs": [P, P, P, U, P, U, P, P, I, I, I, I, P, P],
     "hk_draw_system": [P, P, P, P, U, P, U, P, P, P, P, P, I, I, I, I, I,
@@ -50,7 +50,6 @@ SIGNATURES = {
     "hk_rng_fields": [U, P, U, P, P, I, I, I, I, I, P, P],
     "hk_bandpower": [P, P, P, I, U, P, U, P, I, P, P, I, P, P, P, I,
                      P, P, I, I, I, P],
-    "hk_warm_gate": [P, P, F, P, I, I, P],
     "hk_philox_raw": [P, P, P, I, P],
 }
 
@@ -60,7 +59,7 @@ SIGNATURES = {
 LAUNCHES = {"cgemm": 0, "herm_inv": 0, "herm_chol_solve": 0, "draw_rhs": 0,
             "draw_system": 0, "row_scale_sumsq": 0, "draw_resid": 0,
             "rng_fields": 0, "bandpower": 0, "philox_raw": 0,
-            "warm_gate": 0, "hermitian_solve": 0, "gcr_megastep": 0}
+            "hermitian_solve": 0, "gcr_megastep": 0}
 
 
 class _Library:

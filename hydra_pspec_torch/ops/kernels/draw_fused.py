@@ -18,10 +18,6 @@ draw the words of ``philox.omega_fields`` for each element in registers
 ``philox.omega_fields`` followed by the stored-mode op. A key's iteration
 may live on the device (a graph replay's counter, :mod:`graph`).
 
-``warm_gate`` is the megachain warm start's drift gate
-(``ops/pallas/megachain.py:366-381``): which chains rebuild their inverse,
-decided on the device.
-
 CPU tensors take the ``plain_*`` version beside each wrapper; it has the
 wrapper's signature and runs on any device.
 """
@@ -256,32 +252,3 @@ def draw_resid(dw, sig, fa, ninvf, w, da, a0, ntimes: int, *,
                 _build.ptr(amp), _build.ptr(ws), B, n, m, t, ntimes,
                 _build.ptr(row_times))
     return chi, noise, chit, amp, ws
-
-
-# --- the warm start's drift gate ---------------------------------------------
-
-def plain_warm_gate(ps, psx, drift_max: float):
-    """int32 (B,): 1 where chain b rebuilds its inverse, unless its largest
-    relative bandpower move from ``psx`` to ``ps`` is provably at most
-    ``drift_max`` (a NaN rebuilds: ``NaN <= x`` is False)."""
-    tiny = torch.finfo(F32).tiny
-    rel = torch.abs(ps - psx) / (
-        0.5 * (torch.abs(ps) + torch.abs(psx))
-        + 1e-6 * torch.amax(psx, dim=1, keepdim=True) + tiny)
-    drift = torch.amax(rel, dim=1)
-    return torch.logical_not(drift <= drift_max).to(torch.int32)
-
-
-def warm_gate(ps, psx, drift_max: float):
-    """The rebuild flags of the warm start from the bandpowers ``ps`` and
-    ``psx`` (B, n) float32 of this and the previous iteration."""
-    if _build.on_cpu(ps, psx):
-        return plain_warm_gate(ps, psx, drift_max)
-    B, n = ps.shape
-    dev = ps.device
-    _build.check(ps, "ps", F32, (B, n), dev)
-    _build.check(psx, "psx", F32, (B, n), dev)
-    rebuild = torch.empty((B,), dtype=torch.int32, device=dev)
-    _build.call("warm_gate", "hk_warm_gate", _build.ptr(ps), _build.ptr(psx),
-                float(drift_max), _build.ptr(rebuild), B, n)
-    return rebuild

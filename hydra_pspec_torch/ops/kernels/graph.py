@@ -10,8 +10,7 @@ chunk once with ``torch.cuda.graph`` and replays it: the host then issues
 one launch a chunk. What makes a chunk capturable:
 
 * nothing in it reads back to the host: the megachain warm start decides
-  its rebuilds on the device (``draw_fused.warm_gate``, ``herm_inv`` with
-  an ``active`` mask);
+  its rebuilds on the device (``herm_inv`` in gate mode);
 * no host-to-device copy: the caller makes every index and table tensor
   before (the chunk bodies of ``models/megachain.py`` and
   ``models/mega.py`` do);

@@ -21,11 +21,18 @@ that kernel on blocks of at most 128 and whose products are :mod:`cgemm`.
 The apply step ``x = A^-1 b`` and the refinement ``x += A^-1 (b - E x)``
 (``megastep.py:176-196``) run through :mod:`cgemm`.
 
-``active`` (int32 per chain) restricts the inverse to the flagged chains:
-the megachain warm start's rebuilds, chosen on the device. Up to 128 the
-other chains' CTAs return at once and their ``out`` is left as it was;
-above, the blocked inverse runs its launches on the flagged chains and
-per-chain selects write its quadrants into ``out``.
+``active`` (int32 per chain) restricts the inverse to the flagged chains.
+Up to 128 the other chains' CTAs return at once and their ``out`` is left
+as it was; above, the blocked inverse runs its launches on the flagged
+chains and per-chain selects write its quadrants into ``out``.
+
+``gate`` takes the place of ``active`` for the megachain warm start: the
+flags are its drift gate (``ops/pallas/megachain.py:366-379``), which each
+chain's CTA computes from the chain's bandpowers before its first load and
+writes to ``rebuild``, so the gate costs no launch of its own. Above 128
+the first base launch computes them and every later launch and product of
+the blocked inverse reads them as ``active``. The plain version is
+:func:`plain_warm_gate` followed by the masked :func:`plain_herm_inv`.
 """
 import functools
 
@@ -43,9 +50,27 @@ def _select(active, inv, out):
     return out.copy_(torch.where(active[:, None, None] != 0, inv, out))
 
 
-def plain_herm_inv(s: torch.Tensor, out=None, active=None) -> torch.Tensor:
+def plain_warm_gate(ps, psx, drift_max: float):
+    """int32 (B,): 1 where chain b rebuilds its inverse, unless its largest
+    relative bandpower move from ``psx`` to ``ps`` (B, m) is provably at
+    most ``drift_max`` (a NaN rebuilds: ``NaN <= x`` is False)."""
+    tiny = torch.finfo(torch.float32).tiny
+    rel = torch.abs(ps - psx) / (
+        0.5 * (torch.abs(ps) + torch.abs(psx))
+        + 1e-6 * torch.amax(psx, dim=1, keepdim=True) + tiny)
+    drift = torch.amax(rel, dim=1)
+    return torch.logical_not(drift <= drift_max).to(torch.int32)
+
+
+def plain_herm_inv(s: torch.Tensor, out=None, active=None, gate=None,
+                   rebuild=None) -> torch.Tensor:
     """The same function with ordinary torch ops, on any device: Cholesky,
-    triangular inverse, ``L^-H L^-1``."""
+    triangular inverse, ``L^-H L^-1``; with ``gate``, the flags of
+    :func:`plain_warm_gate` as ``active``."""
+    if gate is not None:
+        active = plain_warm_gate(*gate)
+        if rebuild is not None:
+            rebuild.copy_(active)
     l, _ = torch.linalg.cholesky_ex(s)
     eye = torch.eye(s.shape[-1], dtype=s.dtype, device=s.device)
     x = torch.linalg.solve_triangular(l, eye.expand_as(s), upper=False)
@@ -59,7 +84,7 @@ def plain_herm_inv(s: torch.Tensor, out=None, active=None) -> torch.Tensor:
 
 
 def blocked_herm_inv(s: torch.Tensor, *, base, mm, base_n: int = BASE_N,
-                     out=None, active=None):
+                     out=None, active=None, gate=None, rebuild=None):
     """Inverse of each (n, n) Hermitian PD matrix of ``s`` (B, n, n) by the
     2 x 2 block Schur recursion of ``ops/pallas/spd_inv.py::_spd_inv_into``
     (:57-99) in complex Hermitian form, split at :func:`split_at`:
@@ -71,10 +96,20 @@ def blocked_herm_inv(s: torch.Tensor, *, base, mm, base_n: int = BASE_N,
     :func:`cgemm` contract. The blocks are copied contiguous, and ``T^H``
     too (``mm`` has no op on B). Both bases read only the lower triangle
     of the Schur complement (their Cholesky), so its rounding away from
-    Hermitian symmetry is never seen. ``out``/``active``: as
-    :func:`herm_inv`, each quadrant written into ``out`` by a per-chain
-    select (``base`` and ``mm`` may themselves skip the other chains)."""
+    Hermitian symmetry is never seen. ``out``/``active``/``gate``/
+    ``rebuild``: as :func:`herm_inv`, each quadrant written into ``out``
+    by a per-chain select (``base`` and ``mm`` may themselves skip the
+    other chains). With ``gate`` the first ``base`` call (the top-left
+    leaf) gets ``herm_inv``'s positional arguments ``(block, None, None,
+    gate, rebuild)`` and writes the flags, which then select."""
     n = s.shape[-1]
+    if gate is not None:
+        if rebuild is None:
+            rebuild = torch.empty((s.shape[0],), dtype=torch.int32,
+                                  device=s.device)
+        first = iter([(None, None, gate, rebuild)])
+        base0, active = base, rebuild
+        base = lambda m: base0(m, *next(first, ()))
     if n <= base_n:
         inv = base(s)
         if out is None:
@@ -104,15 +139,21 @@ def blocked_herm_inv(s: torch.Tensor, *, base, mm, base_n: int = BASE_N,
     return out
 
 
-def herm_inv(s: torch.Tensor, out=None, active=None) -> torch.Tensor:
+def herm_inv(s: torch.Tensor, out=None, active=None, gate=None,
+             rebuild=None) -> torch.Tensor:
     """Inverse of each (n, n) Hermitian PD matrix of ``s`` (B, n, n), any
     n: one kernel launch for n <= :data:`BASE_N`, else
     :func:`blocked_herm_inv` over such launches and :func:`cgemm` products
     (each counted as its own launch). ``active`` (optional int32 (B,)):
     only the flagged chains are inverted into ``out``; the others keep
-    their ``out``."""
-    if _build.on_cpu(s, out, active):
-        return plain_herm_inv(s, out, active)
+    their ``out``. ``gate`` (optional, not with ``active``): ``(ps, psx,
+    drift_max)``, ``ps`` and ``psx`` float32 (B, m): the flags are the
+    warm start's drift gate computed in the launch (module docstring),
+    written to ``rebuild`` (int32 (B,), allocated when not given)."""
+    if gate is not None and active is not None:
+        raise ValueError("herm_inv takes active or gate, not both")
+    if _build.on_cpu(s, out, active, *(gate or ())[:2], rebuild):
+        return plain_herm_inv(s, out, active, gate, rebuild)
     if s.dim() != 3 or s.shape[1] != s.shape[2]:
         raise ValueError(f"herm_inv takes (B, n, n); got {tuple(s.shape)}")
     if out is not None:
@@ -120,17 +161,33 @@ def herm_inv(s: torch.Tensor, out=None, active=None) -> torch.Tensor:
     batch, n, _ = s.shape
     if active is not None:
         _build.check(active, "active", torch.int32, (batch,), s.device)
+    ps = psx = None
+    drift_max, m = 0.0, 0
+    if gate is not None:
+        ps, psx, drift_max = gate
+        _build.check(ps, "ps", torch.float32, (batch, None), s.device)
+        m = ps.shape[1]
+        _build.check(psx, "psx", torch.float32, (batch, m), s.device)
+        if rebuild is None:
+            rebuild = torch.empty((batch,), dtype=torch.int32,
+                                  device=s.device)
+        _build.check(rebuild, "rebuild", torch.int32, (batch,), s.device)
     if n > BASE_N:
         base, mm = herm_inv, cgemm
-        if active is not None:   # the launches skip the other chains
-            base = functools.partial(herm_inv, active=active)
-            mm = functools.partial(cgemm, active=active)
-        return blocked_herm_inv(s, base=base, mm=mm, out=out, active=active)
+        mask = rebuild if gate is not None else active
+        if mask is not None:   # the launches skip the other chains
+            # (the gate's first base launch computes the mask)
+            base = lambda m, *rest: herm_inv(m, *rest) if rest else \
+                herm_inv(m, active=mask)
+            mm = functools.partial(cgemm, active=mask)
+        return blocked_herm_inv(s, base=base, mm=mm, out=out, active=active,
+                                gate=gate, rebuild=rebuild)
     _build.check(s, "s", torch.complex64)
     if out is None:
         out = torch.empty_like(s)
     _build.call("herm_inv", "hk_herm_inv", _build.ptr(s), _build.ptr(out),
-                batch, n, _build.ptr(active))
+                batch, n, _build.ptr(active), _build.ptr(ps),
+                _build.ptr(psx), float(drift_max), m, _build.ptr(rebuild))
     return out
 
 

@@ -14,8 +14,9 @@ on the device:
   (:349-397), decided per chain on the device, as the TPU kernel decides
   it with ``pl.when``: NS refresh ``X <- X (2I - S X)`` on every chain,
   then the exact inverse over it for the chains whose relative bandpower
-  move is not provably small (NaN-safe; the ``warm_gate`` kernel), and
-  for all at the chunk's first iteration. Nothing reads back to the host,
+  move is not provably small (NaN-safe; the gate is computed inside the
+  masked ``herm_inv`` launch), and for all at the chunk's first
+  iteration. Nothing reads back to the host,
   so a chunk can be captured as one CUDA graph (:mod:`graph`);
 * :func:`megastep.draw_body`;
 * the bandpower conditional (:func:`sample_bandpowers`).
@@ -112,10 +113,10 @@ class _WarmStart:
 
     The NS products run on every chain; a chain's products depend on that
     chain alone, so refreshing one that then rebuilds changes no kept bit.
-    ``warm_gate`` flags the chains to rebuild, and ``herm_inv`` with that
-    mask writes their exact inverse over the refreshed one (the other
-    chains' blocks return at once). The chunk's first iteration (k == 0,
-    static in a graph) rebuilds every chain."""
+    ``herm_inv`` in gate mode decides in each chain's block which chains
+    rebuild and writes their exact inverse over the refreshed one (the
+    other chains' blocks return at once). The chunk's first iteration
+    (k == 0, static in a graph) rebuilds every chain."""
 
     def __init__(self, warm_ns: int, drift_max: float, impl: Impl):
         self.impl = impl
@@ -133,8 +134,7 @@ class _WarmStart:
             for _ in range(self.warm_ns):
                 ex = mm(s, inv)
                 inv = mm(inv, ex, x=inv, alpha=-1.0, beta=2.0)
-            rebuild = self.impl.warm_gate(ps, self.psx, self.drift_max)
-            inv = herm_inv(s, out=inv, active=rebuild)
+            inv = herm_inv(s, out=inv, gate=(ps, self.psx, self.drift_max))
         self.inv = inv
         self.psx = ps
         return inv

@@ -14,7 +14,8 @@ GPU, which a one-card machine needs to run more than one process.
 
 Inside one process, ``runner.run_baselines(mesh_devices=...)`` splits the
 (baseline x chain) rows into contiguous blocks (:func:`shard_rows`), one
-per device. The JAX package pads the batch to a multiple of the device
+per device; the CLI in one process hands it every local card
+(:func:`local_devices`). The JAX package pads the batch to a multiple of the device
 count (``mesh.pad_batch``, ``partition.padded_baseline_slots``), because
 SPMD needs equal global shards; the port has no global array, so it pads
 nothing: a block is as long as the rule makes it.
@@ -67,6 +68,22 @@ def rank_device(device, process_id: int) -> torch.device:
         device = torch.device("cuda", index)
     torch.cuda.set_device(device)
     return device
+
+
+def local_devices(device, process_id: int, num_processes: int):
+    """This process's devices, the first made current: in a run of one
+    process on ``"cuda"`` without an index, every local card (the JAX
+    CLI's ``jax.devices()``, ``hydra_pspec_tpu/runner.py:341-344``), over
+    which the runner splits its rows; otherwise the one device of
+    :func:`rank_device` (an explicit index, the CPU, or one card a
+    process)."""
+    device = torch.device(device)
+    count = torch.cuda.device_count() if device.type == "cuda" else 0
+    if num_processes <= 1 and device.index is None and count > 1:
+        devices = [torch.device("cuda", i) for i in range(count)]
+        torch.cuda.set_device(devices[0])
+        return devices
+    return [rank_device(device, process_id)]
 
 
 def barrier():

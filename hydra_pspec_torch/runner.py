@@ -64,9 +64,13 @@ A chain's bits depend on (seed, global chain id, iteration) only, with
 one exception: ``all_unflagged`` is decided per batch (``models/mega.py``,
 ROADMAP.md Queue 3), so an unflagged shard split off a batch with flagged
 chains can differ from the whole batch in the last bits; bit identity
-holds for batches of one flag state. The time-flags path runs on one
-device (``mesh_devices`` with more than one raises, ROADMAP.md Queue 1);
-it keeps a serial loop and ``np.save``, as the JAX package's does.
+holds for batches of one flag state. The time-flags path splits each
+signature's (baseline x chain) rows over the devices the same way, whole
+chains to a shard (a grouped chain's G rows stay together; the JAX
+runner's chain-whole padding, ``runner.py:861-920``), on the megachain
+and real engines; the complex engine's signatures, one baseline each, run
+on the first device, as in the JAX package. It keeps a serial loop and
+``np.save``, as the JAX package's does.
 """
 import contextlib
 import time
@@ -292,8 +296,9 @@ def run_baselines(
     ``n_global_baselines`` in all; it runs on ``device`` and checkpoints
     under the tag ``-p{process_id}`` (module docstring). ``mesh_devices``:
     the devices the rows are split over in this process (default
-    ``[device]``); more than one runs the plain path's shards (module
-    docstring), one per device, and refuses ``randomness``. ``randomness``:
+    ``[device]``); more than one runs a shard per device (module
+    docstring), on the plain and the time-flags paths, and refuses
+    ``randomness``. ``randomness``:
     optional callable ``(iteration, k_total) -> dict`` of external
     randomness per chunk in the JAX package's layout (``oa_re``, ``oa_im``,
     ``ob_re``, ``ob_im`` in the engine's omega layout, ``gam``, ``u_pb``,
@@ -330,26 +335,21 @@ def run_baselines(
                        n_global_baselines)
     # per-process checkpoints (``runner.py:430`` of the JAX package)
     ck_tag = f"-p{process_id}" if num_processes > 1 else ""
+    if randomness is not None and len(devices) > 1:
+        raise ValueError("external randomness runs on one device")
     if any(j.flags_tf is not None for j in jobs):
-        if len(devices) > 1:
-            raise NotImplementedError(
-                "time flags over more than one device in a process are not "
-                "ported (ROADMAP.md, Queue 1 item 5); run one process per "
-                "device")
         if engine == "complex" and num_processes > 1:
             raise NotImplementedError(
                 "time flags on the complex float64 engine run in one "
                 "process only (as in the JAX package)")
         return _run_baselines_tflags(
-            jobs, ps_prior, niter, device=devices[0], seed=seed,
+            jobs, ps_prior, niter, devices=devices, seed=seed,
             nchains=nchains, write_niter=write_niter, store_cr=store_cr,
             engine=engine, warm_ns=warm_ns, drift_max=drift_max,
             checkpoint=checkpoint, resume=resume, run_dir=run_dir,
             gids=gids, ck_tag=ck_tag, randomness=randomness,
             verbose=verbose, map_estimate=map_estimate, jitter=jitter,
             solver=solver)
-    if randomness is not None and len(devices) > 1:
-        raise ValueError("external randomness runs on one device")
     nbl = len(jobs)
     nfreqs = jobs[0].d.shape[-1]
     meta = [(ib, ic) for ib in range(nbl) for ic in range(nchains)]
@@ -601,15 +601,31 @@ def _per_row(ps, G):
     return ps[:, None].expand(-1, G, -1).reshape(-1, ps.shape[1])
 
 
-def _run_baselines_tflags(jobs, ps_prior, niter, *, device, seed, nchains,
+class _TflagsShard:
+    """One device's contiguous block ``rows`` of a flag signature's
+    (baseline x chain) rows: its chunk runner, state layout and state
+    (see :func:`_tflags_megachain`)."""
+
+    def __init__(self, rows, device, built, ps_host):
+        self.rows, self.device = rows, device
+        self.run, self.to_state, self.chain_ps = built
+        self.ps = self.to_state(ps_host[rows.start:rows.stop])
+
+
+def _run_baselines_tflags(jobs, ps_prior, niter, *, devices, seed, nchains,
                           write_niter, store_cr, engine, warm_ns, drift_max,
                           checkpoint, resume, run_dir, gids, ck_tag,
                           randomness, verbose, map_estimate, jitter, solver):
     """The grouped time-flags path, one flag signature after another
-    (``runner.py:775-1063`` of the JAX package, on this process's device),
-    on the megachain or the real engine; on the complex engine one
-    baseline after another (``runner.py:1120-1199``), each with its own
-    checkpoint tag ``-tf{s}`` followed by the process's ``ck_tag``."""
+    (``runner.py:775-1063`` of the JAX package), on the megachain or the
+    real engine, each signature's rows split over ``devices`` in
+    contiguous blocks of whole chains (:func:`dist.shard_rows`), each
+    block run on its device and the blocks joined in row order before the
+    flush and the checkpoint; on the complex engine one baseline after
+    another (``runner.py:1120-1199``) on the first device. Each signature
+    has its own checkpoint tag ``-tf{s}`` followed by the process's
+    ``ck_tag``; it holds the joined state, so a run checkpointed over some
+    devices resumes over any."""
     nbl = len(jobs)
     flags_of = [np.zeros(j.d.shape, dtype=bool) if j.flags_tf is None
                 else np.asarray(j.flags_tf, dtype=bool) for j in jobs]
@@ -620,9 +636,9 @@ def _run_baselines_tflags(jobs, ps_prior, niter, *, device, seed, nchains,
     if run_dir is None and jobs[0].out_dir is not None:
         run_dir = Path(jobs[0].out_dir).parent
     prior_host = np.asarray(ps_prior, dtype=np.float64)
-    bins = rb.prior_bins(rb.bounded_bins(prior_host), device)
     results_by_row = {}
     start_iters = []
+    used = []
     write_time = t_build = t_process = 0.0
     for si, ibs in enumerate(sig_members.values()):
         meta = [(ib, ic) for ib in ibs for ic in range(nchains)]
@@ -634,28 +650,44 @@ def _run_baselines_tflags(jobs, ps_prior, niter, *, device, seed, nchains,
                               dtype=np.int64)
         ps_host = np.stack([_initial_ps_host(jobs[ib].S_initial, nfreqs)
                             for ib, _ in meta])
+        job, per_bl = jobs[ibs[0]], None
         if engine == "complex":
-            job = jobs[ibs[0]]
-            groups = tflags.build_grouped_operators(
-                job.d, flags_of[ibs[0]], job.fgmodes, job.Ninv,
-                device=device)
-            run, to_state, chain_ps = _tflags_complex(
-                groups, sid_host, device, seed, store_cr, randomness,
-                map_estimate, jitter, prior_host)
+            blocks = [(range(len(meta)), devices[0])]
         else:
-            groups = _stacked_groups_real(jobs, flags_of, ibs, meta)
-            if engine == "real":
-                run, to_state, chain_ps = _tflags_real(
-                    groups, sid_host, device, seed, store_cr, randomness,
-                    map_estimate, jitter, solver, bins)
-            else:
-                run, to_state, chain_ps = _tflags_megachain(
-                    groups, sid_host, device, seed, store_cr, randomness,
-                    warm_ns, drift_max, prior_host)
-        ps_state = to_state(ps_host)
-        del groups
-        if device.type == "cuda":
-            torch.cuda.synchronize(device)
+            blocks = [(rows, dev) for dev, rows in zip(
+                devices, shard_rows(len(meta), len(devices))) if len(rows)]
+            per_bl = {ib: tflags.build_grouped_operators_real(
+                jobs[ib].d, flags_of[ib], jobs[ib].fgmodes, jobs[ib].Ninv)
+                for ib in ibs}
+        shards = []
+        for rows, dev in blocks:
+            sids = sid_host[rows.start:rows.stop]
+            with _on(dev):
+                if engine == "complex":
+                    groups = tflags.build_grouped_operators(
+                        job.d, flags_of[ibs[0]], job.fgmodes, job.Ninv,
+                        device=dev)
+                    built = _tflags_complex(
+                        groups, sids, dev, seed, store_cr, randomness,
+                        map_estimate, jitter, prior_host)
+                else:
+                    groups = _stacked_groups_real(
+                        per_bl, [meta[r] for r in rows])
+                    if engine == "real":
+                        built = _tflags_real(
+                            groups, sids, dev, seed, store_cr, randomness,
+                            map_estimate, jitter, solver, rb.prior_bins(
+                                rb.bounded_bins(prior_host), dev))
+                    else:
+                        built = _tflags_megachain(
+                            groups, sids, dev, seed, store_cr, randomness,
+                            warm_ns, drift_max, prior_host)
+                shards.append(_TflagsShard(rows, dev, built, ps_host))
+            del groups, built
+        del per_bl
+        _sync([sh.device for sh in shards])
+        if len(shards) > len(used):
+            used = [sh.device for sh in shards]
         t_build += time.perf_counter() - t0
 
         # --- resume: each signature carries its own checkpoint -----------
@@ -672,7 +704,10 @@ def _run_baselines_tflags(jobs, ps_prior, niter, *, device, seed, nchains,
                                       store_cr)
                 if prefix is not None:
                     start_iter = ck["iteration"]
-                    ps_state = to_state(ck["ps"])
+                    for sh in shards:
+                        with _on(sh.device):
+                            sh.ps = sh.to_state(
+                                ck["ps"][sh.rows.start:sh.rows.stop])
                     if verbose:
                         print(f"[tflags] resuming signature {si} from "
                               f"iteration {start_iter}")
@@ -685,8 +720,14 @@ def _run_baselines_tflags(jobs, ps_prior, niter, *, device, seed, nchains,
         done = start_iter
         while done < niter:
             n = min(write_niter, niter - done)
-            ps_state, samples = run(ps_state, n, done)
-            host_chunks.append(_to_host(samples, store_cr))
+            samples = []
+            for sh in shards:   # the chunk on every shard, then the fetches
+                with _on(sh.device):
+                    sh.ps, out = sh.run(sh.ps, n, done)
+                samples.append(out)
+                del out
+            host_chunks.append(_join_rows(
+                [(_to_host(x, store_cr), None) for x in samples])[0])
             del samples
             done += n
             if verbose:
@@ -699,7 +740,9 @@ def _run_baselines_tflags(jobs, ps_prior, niter, *, device, seed, nchains,
                 if checkpoint and run_dir is not None:
                     hio.save_checkpoint(
                         run_dir, iteration=done,
-                        ps=chain_ps(ps_state)[:, :nfreqs].cpu().numpy(),
+                        ps=np.concatenate([
+                            sh.chain_ps(sh.ps)[:, :nfreqs].cpu().numpy()
+                            for sh in shards]),
                         key_data=np.asarray([seed], dtype=np.int64),
                         extra={"niter": niter, "engine": engine,
                                "nchains": nchains, "tflags": True},
@@ -709,7 +752,7 @@ def _run_baselines_tflags(jobs, ps_prior, niter, *, device, seed, nchains,
         rows = _collect(jobs, meta, host_chunks, nchains, store_cr, nfreqs,
                         row_write_sec, prefix)
         results_by_row.update(zip(meta, rows))
-        del host_chunks, run, to_state, ps_state
+        del host_chunks, shards
 
     results = [results_by_row[(ib, ic)]
                for ib in range(nbl) for ic in range(nchains)]
@@ -721,18 +764,15 @@ def _run_baselines_tflags(jobs, ps_prior, niter, *, device, seed, nchains,
         "start_iter": min(start_iters),
         "batch": nbl * nchains,
         "engine": engine,
-        "device": str(device),
+        "device": ", ".join(str(d) for d in used),
     }
     return results, timings
 
 
-def _stacked_groups_real(jobs, flags_of, ibs, meta):
-    """A signature's per-group real operators, stacked over its (baseline,
-    chain) rows."""
-    per_bl = {ib: tflags.build_grouped_operators_real(
-                  jobs[ib].d, flags_of[ib], jobs[ib].fgmodes, jobs[ib].Ninv)
-              for ib in ibs}
-    first = per_bl[ibs[0]]
+def _stacked_groups_real(per_bl, meta):
+    """A signature's per-group real operators (``per_bl``: each baseline's
+    groups), stacked over the (baseline, chain) rows ``meta``."""
+    first = next(iter(per_bl.values()))
     return [tflags.TimeGroupReal(
                 ops=rgibbs.stack_chain_operators(
                     [per_bl[ib][g].ops for ib, _ in meta]),

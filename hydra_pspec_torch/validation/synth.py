@@ -133,12 +133,34 @@ class Problem:
     flag_channels: str | None
 
     def dps_true(self):
-        """The truth spectrum from the EoR-only component, as
-        scripts/validate_posterior.py:181-185 takes it from vis-eor.uvh5:
-        mean over times of |centred FFT(s)|^2."""
-        ds = np.fft.fftshift(np.fft.fft(np.fft.ifftshift(self.s, axes=1),
-                                        axis=1), axes=1)
-        return (np.abs(ds) ** 2).mean(axis=0)
+        """The truth spectrum from the EoR-only component
+        (:func:`delay_spectrum`)."""
+        return delay_spectrum(self.s)
+
+
+def delay_spectrum(s):
+    """The truth spectrum of an EoR-only component ``s`` (ntimes, nf), as
+    scripts/validate_posterior.py:181-185 takes it from vis-eor.uvh5:
+    mean over times of |centred FFT(s)|^2."""
+    ds = np.fft.fftshift(np.fft.fft(np.fft.ifftshift(s, axes=1), axis=1),
+                         axes=1)
+    return (np.abs(ds) ** 2).mean(axis=0)
+
+
+def eor_component(b, ntimes=NT, seed=SEED, nf=NF):
+    """The EoR-only component s (ntimes, nf) of baseline ``b`` of
+    ``make_jobs(..., ntimes=ntimes, seed=seed, nf=nf)``: the truth of its
+    visibilities (their vis-eor.uvh5)."""
+    for s, _, _, _ in _draw(b + 1, ntimes, False, seed, nf):
+        pass
+    return s
+
+
+def eor_covariance(nf=NF):
+    """F^H diag(ps_truth / n^2) F: the signal covariance of the truth (the
+    reference's eor-cov.npy)."""
+    f = fourier_matrix(nf)
+    return f.conj().T @ (ps_truth(nf)[:, None] / nf**2 * f)
 
 
 def synthetic_problem(seed=SEED, flag_channels=None, ntimes=NT, nf=NF):
@@ -146,9 +168,8 @@ def synthetic_problem(seed=SEED, flag_channels=None, ntimes=NT, nf=NF):
     ``flag_channels`` (a :func:`parse_flags` spec or None), the prior of
     :func:`make_prior` and the EoR covariance of the truth."""
     s, d, ninv, fg = next(_draw(1, ntimes, False, seed, nf))
-    f = fourier_matrix(nf)
-    eor_cov = f.conj().T @ (ps_truth(nf)[:, None] / nf**2 * f)
     return Problem(d=d, w=parse_flags(flag_channels, nf), ninv=ninv,
-                   fgmodes=fg, eor_cov=eor_cov, prior=make_prior(nf=nf),
+                   fgmodes=fg, eor_cov=eor_covariance(nf),
+                   prior=make_prior(nf=nf),
                    s=s, ps_truth=ps_truth(nf), seed=seed,
                    flag_channels=flag_channels)

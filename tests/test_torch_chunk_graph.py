@@ -2,8 +2,9 @@
 the CPU against what it replaces (port only, no JAX).
 
 * The warm start without a host sync (``ops/kernels/megachain.py::
-  _WarmStart``: NS products on every chain, ``warm_gate``, the masked
-  exact inverse) equals the composition it replaced (its ``.tolist()``
+  _WarmStart``: NS products on every chain, then the exact inverse in
+  ``herm_inv``'s gate mode) equals the composition it replaced (its
+  ``.tolist()``
   decision on the host, kept below as ``_host_warm_start``) bit for bit on
   the plain versions, with every chain rebuilding, none, and a mix; a NaN
   bandpower forces a rebuild.
@@ -30,6 +31,7 @@ from hydra_pspec_torch.models import tflags as ttf
 from hydra_pspec_torch.ops import philox
 from hydra_pspec_torch.ops.kernels import _build
 from hydra_pspec_torch.ops.kernels import draw_fused as tdf
+from hydra_pspec_torch.ops.kernels import herm_inv as thi
 from hydra_pspec_torch.ops.kernels import rng_bandpower as trb
 from hydra_pspec_torch.ops.kernels.graph import ChunkGraph
 from hydra_pspec_torch.ops.kernels.impl import PLAIN
@@ -107,7 +109,7 @@ def _warm_case(drift_max, nan_at=None):
         want = _host_warm_start(state, systems[k], pss[k], k, 2, drift_max)
         assert torch.equal(got, want), (drift_max, k)
         if k:
-            flags = PLAIN.warm_gate(pss[k], pss[k - 1], drift_max)
+            flags = thi.plain_warm_gate(pss[k], pss[k - 1], drift_max)
             exact = PLAIN.herm_inv(systems[k])
             on = flags.bool()
             assert torch.equal(got[on], exact[on])
@@ -131,17 +133,41 @@ def test_warm_start_without_host_sync(mode):
 
 
 def test_warm_gate_contract():
-    """The gate's flags are int32 per chain, 1 for a NaN anywhere in the
-    chain's row (old or new), 0 for an unmoved chain."""
+    """``herm_inv``'s gate mode: its flags are int32 per chain, 1 for a NaN
+    anywhere in the chain's row (old or new), 0 for an unmoved chain; with
+    every chain moved, none, a mix and a NaN, the gate mode writes the
+    flags of ``plain_warm_gate`` and the inverse of the composition it
+    replaced (the gate, then the masked inverse) bit for bit."""
     ps = torch.rand((4, 8)) + 0.5
     new = ps.clone()
     new[1, 2] = float("nan")
     old = ps.clone()
     old[2, 7] = float("nan")
     new[3] *= 2.0
-    flags = PLAIN.warm_gate(new, old, 0.5)
+    flags = thi.plain_warm_gate(new, old, 0.5)
     assert flags.dtype == torch.int32 and flags.tolist() == [0, 1, 1, 1]
-    assert tdf.warm_gate(new, old, 0.5).tolist() == [0, 1, 1, 1]
+    systems, pss = _warm_inputs()
+    s, carried = systems[1], PLAIN.herm_inv(systems[0])
+    nan = pss[1].clone()
+    nan[3, 5] = float("nan")
+    for psn, dmax, want in ((pss[1], -1.0, [1] * B), (pss[1], 10.0, [0] * B),
+                            (pss[1], 0.15, None), (nan, 10.0, [0, 0, 0, 1,
+                                                             0, 0, 0, 0])):
+        rebuild = torch.full((B,), -1, dtype=torch.int32)
+        got = thi.herm_inv(s, out=carried.clone(), gate=(psn, pss[0], dmax),
+                           rebuild=rebuild)
+        active = thi.plain_warm_gate(psn, pss[0], dmax)
+        composed = thi.plain_herm_inv(s, out=carried.clone(), active=active)
+        assert torch.equal(rebuild, active) and torch.equal(got, composed)
+        assert torch.equal(got, PLAIN.herm_inv(s, out=carried.clone(),
+                                               gate=(psn, pss[0], dmax)))
+        if want is None:
+            assert 0 < int(active.sum()) < B, active.tolist()
+        else:
+            assert active.tolist() == want, (dmax, active.tolist())
+    with pytest.raises(ValueError, match="active or gate"):
+        thi.herm_inv(s, out=carried.clone(), active=flags,
+                     gate=(pss[1], pss[0], 0.5))
 
 
 # --- the keyed twins with the iteration on the device ----------------------
@@ -269,8 +295,8 @@ def test_launch_counts_of_a_capture_and_its_replays():
     before = dict(_build.LAUNCHES)
     with _build.counted() as rec:
         _build.LAUNCHES["cgemm"] += 3
-        _build.LAUNCHES["warm_gate"] += 1
-    assert rec.launches == {"cgemm": 3, "warm_gate": 1}
+        _build.LAUNCHES["herm_inv"] += 1
+    assert rec.launches == {"cgemm": 3, "herm_inv": 1}
     assert _build.LAUNCHES == before
     _build.add_launches(rec.launches)
     _build.add_launches(rec.launches)

@@ -97,7 +97,8 @@ def test_contract_launch_arguments(card_branch):
     x = tss.herm_chol_solve(s, b)
     assert inv.shape == s.shape and x.shape == b.shape
     (k1, e1, a1), (k2, e2, a2) = card_branch
-    assert (k1, e1, a1[2:]) == ("herm_inv", "hk_herm_inv", (B, 120, None))
+    assert (k1, e1, a1[2:]) == ("herm_inv", "hk_herm_inv",
+                                (B, 120, None, None, None, 0.0, 0, None))
     assert (k2, e2) == ("herm_chol_solve", "hk_herm_chol_solve")
     assert a2[2] is None and a2[4:] == (B, 120, 203)
 
@@ -119,6 +120,41 @@ def test_contract_blocked_route(card_branch, monkeypatch):
     base_n = [a[3] if k == "herm_inv" else a[5]
               for k, _, a in card_branch if k != "cgemm"]
     assert base_n == [128, 128, 128, 52]
+
+
+def test_contract_gate_mode(card_branch, monkeypatch):
+    """The drift gate in the ``herm_inv`` launch: up to 128 one launch with
+    the bandpowers, ``drift_max``, their width and the flags' buffer, and
+    no ``active``; blocked at n = 256 the first base launch takes the gate
+    and the second base launch and the four products read its flags as
+    ``active``. ``active`` and ``gate`` together, and bandpowers of the
+    wrong shape, are refused."""
+    s = _fake(_c64(_spd(120, 11)))
+    ps, psx = _fake(torch.rand(B, 120)), _fake(torch.rand(B, 120))
+    rebuild = _fake(torch.zeros(B, dtype=torch.int32))
+    out = _fake(torch.zeros_like(s))
+    assert thi.herm_inv(s, out=out, gate=(ps, psx, 0.6),
+                        rebuild=rebuild) is out
+    (kernel, entry, args), = card_branch
+    assert (kernel, entry) == ("herm_inv", "hk_herm_inv")
+    assert args[2:] == (B, 120, None, ps.data_ptr(), psx.data_ptr(),
+                        0.6, 120, rebuild.data_ptr())
+    with pytest.raises(ValueError, match="active or gate"):
+        thi.herm_inv(s, out=out, active=rebuild, gate=(ps, psx, 0.6))
+    with pytest.raises(ValueError, match="psx"):
+        thi.herm_inv(s, out=out, gate=(ps, _fake(torch.rand(B, 7)), 0.6))
+    card_branch.clear()
+    monkeypatch.setattr(_build, "check", lambda *args, **kw: None)
+    ps, psx = torch.rand(1, 256), torch.rand(1, 256)
+    flags = torch.zeros(1, dtype=torch.int32)
+    thi.herm_inv(_c64(_spd(256, 12, batch=1)), out=torch.zeros(
+        1, 256, 256, dtype=torch.complex64), gate=(ps, psx, 0.3),
+        rebuild=flags)
+    herm = [a for k, _, a in card_branch if k == "herm_inv"]
+    assert [k for k, _, _ in card_branch].count("cgemm") == 4
+    assert herm[0][4:] == (None, ps.data_ptr(), psx.data_ptr(), 0.3, 256,
+                           flags.data_ptr())
+    assert herm[1][4:] == (flags.data_ptr(), None, None, 0.0, 0, None)
 
 
 @pytest.mark.parametrize("what", ["not_square", "rhs_rows", "dtype"])

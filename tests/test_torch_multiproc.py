@@ -230,7 +230,8 @@ def test_mesh_devices_equal_one_device(tmp_path, monkeypatch, engine):
 
 def test_runner_process_policy(tmp_path, capsys):
     """A process's block runs on its own with its global ids and its own
-    checkpoint tag; what is refused is refused; the dry run splits the
+    checkpoint tag; what is refused is refused, and time flags over two
+    devices in a process equal one device; the dry run splits the
     megachain path over three devices; ``entry()``'s step runs on the CPU,
     with the iteration as a number and as a device counter."""
     jobs = _jobs(tmp_path / "a")
@@ -250,10 +251,13 @@ def test_runner_process_policy(tmp_path, capsys):
     with pytest.raises(ValueError, match="global_baseline_ids"):
         trunner.run_baselines(block, _prior(), 2, global_baseline_ids=[1, 3],
                               n_global_baselines=3, **kw)
-    tjobs = _jobs(None, flags_tf=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        trunner.run_baselines(tjobs, _prior(), 2, mesh_devices=["cpu"] * 2,
-                              **kw)
+    tjobs = _jobs(None, flags_tf=True)   # time flags over two devices run
+    res_one, _ = trunner.run_baselines(tjobs, _prior(), 2, **kw)
+    res_two, tim = trunner.run_baselines(tjobs, _prior(), 2,
+                                         mesh_devices=["cpu"] * 2, **kw)
+    assert tim["device"] == "cpu, cpu"
+    for a, b in zip(res_one, res_two):
+        assert np.array_equal(a.signal_cr, b.signal_cr)
     with pytest.raises(NotImplementedError, match="one process"):
         trunner.run_baselines(tjobs, _prior(), 2, engine="complex",
                               num_processes=2, global_baseline_ids=[0, 1, 2],

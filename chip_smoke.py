@@ -7,23 +7,30 @@ Phases, one printed line each (any failure raises; exit code non-zero):
      as nvidia-smi prints them, on a line of its own;
   2. build the hand-written kernels from hydra_pspec_torch/csrc with nvcc;
   3. each kernel against its plain torch version on the card, at the main
-     path's shapes (B=8, n=128, t=256, m=16), with the tolerance stated;
+     path's shapes (B=8, n=120, t=204, m=12: the layout at the data's own
+     widths, models/mega.py), with the tolerance stated;
      Philox bits against the twin; normal and Gamma moments (bandpower at
      alpha = 202 and, on its own table, 1099); rng_fields also at the
      real engine's layouts (n = 120 and 180 channels, t = 203 times);
      draw_rhs and draw_system in keyed mode (the omegas drawn in the
      kernel) bit-identical to their stored mode fed rng_fields' fields,
-     plain and grouped, and with the iteration read from a device counter
+     plain (t = 204), grouped (t = 80 at the port's layout, 128 at the JAX
+     package's), at n = 180 (the wide band), at odd n and t (121 x 203, the
+     kernels' 8-byte paths) and at the JAX package's layout (n = 128,
+     t = 256), and with the iteration read from a device counter
      (as in a graph replay) bit-identical to it given by value, bandpower
-     too; herm_inv (also blocked at n = 256) and cgemm with an active mask
+     too; herm_inv (also blocked at n = 180) and cgemm with an active mask
      (flagged chains bit-identical to the unmasked launch, the others'
      outputs untouched); herm_inv's gate mode (the warm start's drift
-     gate computed in the launch) at B=100, n=128 and blocked at n=256
+     gate computed in the launch) at B=100, n=120, 128 and blocked at
+     n=180, 256
      against its plain version, the plain gate and the masked inverse:
      flags and rebuilt inverses torch.equal, with an unmoved row, a NaN
      row and a row whose drift is exactly drift_max; the grouped
      time-flags variants (per-row time counts, pooled bandpower) at the
-     tflags path's shapes (8 chains x G=4 rows, t=128); the Hermitian
+     tflags path's shapes (8 chains x G=3 rows, t=80), and at the JAX
+     package's layout (G=4 with a dummy row of zero operators, t=128:
+     exact zeros and the exact identity there); the Hermitian
      factor-solve (herm_chol_solve) at B=8, n=120, K=203, the herm_inv
      solve entry (hermitian_solve) and the single-step entry
      (gcr_megastep) against their plain compositions; the two 32 x 32
@@ -33,10 +40,10 @@ Phases, one printed line each (any failure raises; exit code non-zero):
      == b), and an equilibrated system of condition ~1e5 under the
      residual gates, with their launches counted; cgemm at every
      product shape of the paths (C aliasing X included); the blocked
-     herm_inv at B=8, n=256 and herm_chol_solve at B=8, n=180, K=203;
+     herm_inv at B=8, n=180 and herm_chol_solve at B=8, n=180, K=203;
   4. chain phase: run_chunk_megachain with numpy-made randomness, K=3,
      B=8, kernels against the plain path, at the CPU pin's tolerances; the
-     same for a grouped chain (8 chains x G=4);
+     same for a grouped chain (8 chains x G=3);
   5. main path: runner.run_baselines, 100 baselines x 1 chain at
      203 times x 120 channels, 12 Legendre foreground modes, 7-bin prior,
      200 iterations, on data drawn from the model (chi^2 should be 1);
@@ -52,11 +59,17 @@ Phases, one printed line each (any failure raises; exit code non-zero):
      CUDA graph replay (ChunkGraph) against the eager kernel path, under
      torch.cuda.set_sync_debug_mode("error"), torch.equal on every output
      and the same launches, for plain full (drift_max 0.6) and lean (0.3:
-     a mix of chains rebuild), the mega engine, grouped 100 chains x G=4
-     and the wide band (n = 256, the blocked masked rebuild); a second
+     a mix of chains rebuild), the mega engine, grouped 100 chains x G=3
+     and the wide band (n = 180, the blocked masked rebuild); a second
      replay from iteration 38 equal to the eager chunk there; warm-up,
      capture and instantiate seconds, the graph pool's bytes and the
      chains each iteration rebuilt;
+  layout: the main path (100 baselines), the time-flags signatures A
+     (3 flag patterns) and B (2), the mega engine and the wide band
+     (180 channels), each a chunk on the Philox streams at the port's
+     layout (data's own widths, G = the pattern count) and at the JAX
+     package's (128-lane and 8-sublane pads, G a power of two): every
+     real lane of every sample output torch.equal at the two layouts;
   7. tflags: the same data with time-dependent RFI flags (two signatures,
      3 and 2 flag patterns) and RFI of amplitude 1e4 in the flagged
      entries, through run_baselines' grouped time-flags path: chi^2 on the
@@ -88,7 +101,7 @@ Phases, one printed line each (any failure raises; exit code non-zero):
      Phase I sub-bands), where the blocked herm_inv and herm_chol_solve
      run, from S_initial = I as everywhere, 400 iterations with the gates
      over the last 200 (the noise-dominated delay bins burn in slowly):
-     megachain at n = 256, 100 baselines with files and checkpoint (chi^2
+     megachain at n = 180, 100 baselines with files and checkpoint (chi^2
      within 2 % and by 50-iteration window, every main kernel launched,
      the first 10 baselines alone bit-identical); a dense Ninv on the
      real engine, 20 baselines (whitened chi^2 within 2 %, two
@@ -149,11 +162,11 @@ Phases, one printed line each (any failure raises; exit code non-zero):
      started by this one: a profiler session earlier in a process and the
      large runs after it make later windows lose device activities): one
      chain iteration and each kernel at B=100, one grouped
-     chain iteration and the grouped kernels at 100 chains x G=4, one real
+     chain iteration and the grouped kernels at 100 chains x G=3, one real
      iteration (dense noise, pallas and pallas2) and one mega iteration at
      B=100 (megachain, grouped, mega and the wide band each eagerly and as
      a graph replay of a 5-iteration chunk, in turns), the masked herm_inv
-     launch with no chain active (n = 128, and blocked at n = 256) and
+     launch with no chain active (n = 120, and blocked at n = 180) and
      herm_inv's gate mode with no chain and with every chain rebuilding,
      the factor-solve at B=100, n=120, K=203 and K=1 (the factor
      and one tile, with its own bound), kernels against the
@@ -164,13 +177,19 @@ Phases, one printed line each (any failure raises; exit code non-zero):
      at B=100 on the eager path and over 3 graph replays of 5 (each
      kernel's device time per iteration, the device's busy share, the
      longest idle gaps); the wide band's megachain iteration
-     (n = 256) and the blocked herm_inv (n = 256) and herm_chol_solve
+     (n = 180) and the blocked herm_inv (n = 180) and herm_chol_solve
      (n = 180, K = 203) against their plain versions and library calls;
      device times (profiler) of bandpower (alpha 202 and 1099, and 100
-     chains x G=4) and of the omega passes in two layouts (stored
+     chains x G=3) and of the omega passes in two layouts (stored
      rng_fields fields; keyed draw_rhs and draw_system) beside their
      bounds, and of rng_fields at the real engine's shape (n = 120,
-     t = 203).
+     t = 203); the main, grouped-A and wide iterations as graph replays at
+     the port's layout and at the JAX package's, in turns (port, JAX, JAX,
+     port), and the keyed passes' device times at both layouts; the keyed
+     passes' SASS instructions a drawn lane (cuobjdump -sass of the built
+     library, where the toolkit has it), which bound them. Every bound
+     counts the data's own widths: n = nfreqs, m = nmodes, and each row's
+     true times.
 The megachain and mega paths draw their omegas in draw_rhs and draw_system
 and must launch no rng_fields; the real paths launch it. Through
 run_baselines those two engines run each chunk as a CUDA graph; the launch
@@ -213,8 +232,18 @@ RFI = 1.0e4                   # added to every flagged entry of d
 HBM_BYTES_S, FP32_OPS_S = 3.35e12, 67e12   # H100 SXM data sheet
 # operations of one Philox4x32-10 call (10 rounds of two 32x32 -> 64-bit
 # products, xors and key additions) and of one Box-Muller pair with its
-# scale (log, sqrt, cos, sin, conversions, products)
+# scale (log, sqrt, cos, sin, conversions, products): the floor that
+# rng_fields is bounded by, and the keyed passes where the toolkit has no
+# cuobjdump (:func:`sass_draw_slots` counts theirs in the compiled code)
 PHILOX_OPS, BOX_MULLER_OPS = 110, 10
+# issue slots a lane of each SASS instruction class takes against one
+# FP32 FMA (a warp instruction per scheduler per clock, 128 lanes an SM):
+# the 32 x 32 -> 64-bit integer products at half that rate, the special
+# function unit (16 lanes an SM a clock) at an eighth
+SLOT_WEIGHT = {"IMAD.WIDE": 2, "IMAD.HI": 2, "MUFU": 8}
+# the keyed passes' draw: issue slots a drawn lane, set by sass_draw_slots
+# in the times process (None: not counted, PHILOX_OPS + BOX_MULLER_OPS)
+DRAW_SLOTS = {}
 
 N_MAP, N_PALLAS2, PALLAS2_NITER = 10, 10, 50
 N_TF_REAL, N_TF_SUB, TF_REAL_NITER = 20, 5, 100
@@ -222,7 +251,8 @@ MEGA_HALF, MEGA_NITER = 10, 100   # 21 bounded prior bins
 LONG_NT, N_LONG, LONG_NITER = 1100, 10, 50
 N_MEGA_EQ, MEGA_EQ_NITER = 10, 20
 # the wide band: HERA Phase I sub-bands of ~15-18 MHz at 97.66 kHz (HERA
-# Collaboration 2022, ApJ 925, 221); megachain pads 180 channels to n = 256
+# Collaboration 2022, ApJ 925, 221); megachain runs at n = 180 (the JAX
+# package's layout pads it to 256)
 WIDE_NF = 180
 # from S_initial = I the noise-dominated delay bins of 180 channels burn in
 # slowly: chi^2 climbs to its equilibrium over ~400 iterations, so the wide
@@ -309,30 +339,34 @@ HOME_PATH = dict({k: "main" for k in MAIN_KERNELS},
 NOT_ON_KEYED_PATHS = ("rng_fields",)
 
 # every cgemm product of the paths, per chain: (what, M, K, N, op, A shared,
-# X) with X None, "x" (its own tensor) or "out" (C aliases X). The plain
-# megachain iteration (ops/kernels/megastep.py:58-75, megachain.py:112-113,
-# herm_inv.py apply_refine), the real engine (n = 120, t = 203), the wide
-# band (n = 256) and the blocked inverse and factor-solve at n = 180
-# (blocks of 128 and 52; the n = 256 blocks are the NS shape)
+# X) with X None, "x" (its own tensor) or "out" (C aliases X), at the
+# port's layout (n = 120, t = 204, m = 12). The plain megachain iteration
+# (ops/kernels/megastep.py:58-75, megachain.py:112-113, herm_inv.py
+# apply_refine), F rc at t = 203 (is the even t worth its pad lane?) and
+# at the JAX package's layout (n = 128, t = 256), the real engine (n =
+# 120, t = 203), the wide band (n = 180) and the blocked inverse and
+# factor-solve at n = 180 (blocks of 128 and 52)
 CGEMM_SHAPES = (
-    ("ba = Fg^H rc", 16, 128, 256, "H", False, None),
-    ("rc -= G ba", 128, 16, 256, "N", False, "out"),
-    ("frc = F rc", 128, 128, 256, "N", True, None),
-    ("NS ex = S inv", 128, 128, 128, "N", False, None),
-    ("NS 2 inv - inv ex", 128, 128, 128, "N", False, "x"),
-    ("x = inv xs", 128, 128, 256, "N", False, None),
-    ("r = xs - S x", 128, 128, 256, "N", False, "x"),
-    ("x += inv r", 128, 128, 256, "N", False, "out"),
-    ("sig = F^H sk / n", 128, 128, 256, "H", True, None),
-    ("ma = mi ba", 16, 16, 256, "N", False, None),
-    ("da = G^H sig - ma", 16, 128, 256, "H", False, "out"),
-    ("fa = Fg da", 128, 16, 256, "N", False, None),
+    ("ba = Fg^H rc", 12, 120, 204, "H", False, None),
+    ("rc -= G ba", 120, 12, 204, "N", False, "out"),
+    ("frc = F rc", 120, 120, 204, "N", True, None),
+    ("frc = F rc, t = 203", 120, 120, 203, "N", True, None),
+    ("frc = F rc, JAX layout", 128, 128, 256, "N", True, None),
+    ("NS ex = S inv", 120, 120, 120, "N", False, None),
+    ("NS 2 inv - inv ex", 120, 120, 120, "N", False, "x"),
+    ("x = inv xs", 120, 120, 204, "N", False, None),
+    ("r = xs - S x", 120, 120, 204, "N", False, "x"),
+    ("x += inv r", 120, 120, 204, "N", False, "out"),
+    ("sig = F^H sk / n", 120, 120, 204, "H", True, None),
+    ("ma = mi ba", 12, 12, 204, "N", False, None),
+    ("da = G^H sig - ma", 12, 120, 204, "H", False, "out"),
+    ("fa = Fg da", 120, 12, 204, "N", False, None),
     ("real F rc", 120, 120, 203, "N", True, None),
     ("real b_a = Fg^H rc", 12, 120, 203, "H", False, None),
     ("real rc - G b_a", 120, 12, 203, "N", False, "x"),
     ("real sig = F^H sk", 120, 120, 203, "H", True, None),
-    ("wide F rc (n=256)", 256, 256, 256, "N", True, None),
-    ("wide NS (n=256)", 256, 256, 256, "N", False, None),
+    ("wide F rc (n=180)", 180, 180, 204, "N", True, None),
+    ("wide NS (n=180)", 180, 180, 180, "N", False, None),
     ("blocked T = A11^-1 A12", 128, 128, 52, "N", False, None),
     ("blocked S = A22 - A12^H T", 52, 128, 52, "H", False, "x"),
     ("blocked TS = T S^-1", 128, 52, 52, "N", False, None),
@@ -381,13 +415,13 @@ def phase_env():
 
 # --- synthetic data from the model: hydra_pspec_torch/validation/synth.py ---
 
-def build_ops(jobs, device):
+def build_ops(jobs, device, layout="port"):
     from hydra_pspec_torch.models import mega, rgibbs
 
     ops = rgibbs.stack_chain_operators(
         [rgibbs.build_chain_operators(j.d, j.w, j.fgmodes, j.Ninv)
          for j in jobs])
-    return mega.from_chain_operators(ops, device)
+    return mega.from_chain_operators(ops, device, layout=layout)
 
 
 def real_system(jobs, device):
@@ -422,7 +456,8 @@ def rfi_windows():
 
 def tflag_signatures():
     """Signature A: channels 40-43 flagged over times 60-139 (a satellite
-    pass) and channel 90 over times 150-202: 3 patterns, G = 4, and the
+    pass) and channel 90 over times 150-202: 3 patterns (G = 3; 4 at the
+    JAX package's layout), and the
     unflagged group (times 0-59 and 140-149) is not contiguous. Signature
     B: channel 17 over times 100-202: 2 patterns, G = 2."""
     a = np.zeros((NT, NF), dtype=bool)
@@ -444,9 +479,10 @@ def make_tflags_jobs(jobs, n_sig_a):
     return out
 
 
-def grouped_setup(jobs, flags, nchains_each, device):
+def grouped_setup(jobs, flags, nchains_each, device, layout="port"):
     """The grouped layout of ``jobs`` (one chain each, or one job's
-    operators repeated ``nchains_each`` times) under ``flags``."""
+    operators repeated ``nchains_each`` times) under ``flags``, at
+    ``layout``."""
     from hydra_pspec_torch.models import megachain, rgibbs, tflags
 
     per = [tflags.build_grouped_operators_real(j.d, flags, j.fgmodes, j.Ninv)
@@ -456,7 +492,7 @@ def grouped_setup(jobs, flags, nchains_each, device):
                       [p[g].ops for p in per for _ in range(nchains_each)]),
                   idx=per[0][g].idx)
               for g in range(len(per[0]))]
-    return megachain.build_tflags_mega_setup(groups, device)
+    return megachain.build_tflags_mega_setup(groups, device, layout)
 
 
 def grouped_ids(setup, nchains, device):
@@ -596,21 +632,23 @@ def check_herm_tiles(dev, cmp):
 def check_gate_mode(dev, cmp):
     """herm_inv's gate mode (the warm start's drift gate computed in the
     launch) at B = N_BASELINES against its plain version, plain_warm_gate
-    followed by the masked inverse: at n = 128 (one launch) and n = 256
-    (the blocked route, whose first base launch computes the gate), for
+    followed by the masked inverse: at n = 120 and 128 (one launch) and
+    n = 180 and 256 (the blocked route, whose first base launch computes
+    the gate), for
     drift_max 0.6, 0.3, 0.05 and the exact drift of one row, with an
     unmoved row (never rebuilds) and a NaN row (always rebuilds). The
     flags written are torch.equal to plain_warm_gate's (the row at exactly
     drift_max does not rebuild), each rebuilt chain is torch.equal to the
     unmasked kernel launch and within 1e-3 of the plain inverse, every
     other chain keeps its carried inverse bit for bit; one herm_inv launch
-    at n = 128, two and four cgemm at n = 256."""
+    at n <= 128, two and four cgemm above."""
     from hydra_pspec_torch.ops.kernels import _build
     from hydra_pspec_torch.ops.kernels import herm_inv as hi
 
     B = N_BASELINES
     gen = torch.Generator(device=dev).manual_seed(SEED + 14)
-    for n, launches in ((128, {"herm_inv": 1}),
+    for n, launches in ((NF, {"herm_inv": 1}), (128, {"herm_inv": 1}),
+                        (WIDE_NF, {"herm_inv": 2, "cgemm": 4}),
                         (256, {"herm_inv": 2, "cgemm": 4})):
         s = equilibrated_spd(B, n, dev, gen)
         full, want = hi.herm_inv(s), hi.plain_herm_inv(s)
@@ -774,6 +812,54 @@ def phase_kernels(dev, jobs8, jobs_w8, errs):
          "g on the device == g")
     same("draw_system", K.draw_system(mops.pt, ps, frc, None, nt, nf,
                                       key=dkey), sk_, "g on the device == g")
+
+    def keyed_passes(what, nid, nih, pt, ps_, frc_, nt_, nf_):
+        """draw_rhs and draw_system keyed and stored (fed rng_fields) at
+        these shapes: each against its plain version, keyed == stored."""
+        Bx, nx, tx = nid.shape
+        ids = torch.arange(Bx, dtype=torch.int32, device=dev)
+        oa_, ob_ = K.rng_fields(SEED, ids, 7, nx, tx, nt_, nf_)
+        kx = df.OmegaKey(SEED, ids, 7)
+        r_s = K.draw_rhs(nid, nih, ob_, nt_)
+        r_k = K.draw_rhs(nid, nih, None, nt_, key=kx)
+        cmp("draw_rhs", r_k, P.draw_rhs(nid, nih, None, nt_, key=kx), 1e-5,
+            f"{what} keyed vs plain")
+        same("draw_rhs", r_k, r_s, f"{what} keyed == stored")
+        s_s = K.draw_system(pt, ps_, frc_, oa_, nt_, nf_)
+        s_k = K.draw_system(pt, ps_, frc_, None, nt_, nf_, key=kx)
+        cmp("draw_system", s_k,
+            P.draw_system(pt, ps_, frc_, None, nt_, nf_, key=kx), 1e-5,
+            f"{what} keyed vs plain")
+        same("draw_system", s_k, s_s, f"{what} keyed == stored")
+
+    # the passes at the JAX package's layout (n = 128, t = 256), at the
+    # wide band's (n = 180) and at odd n and t (the 8-byte paths)
+    jm, jd = build_ops(jobs8, dev, "jax")
+    psj = mega.pad_ps(np.tile(ps_truth(), (B, 1)), jd, dev)
+    keyed_passes(f"JAX layout n={jm.nid.shape[1]} t={jm.nid.shape[2]}",
+                 jm.nid, jm.nih, jm.pt, psj,
+                 P.cgemm(jm.f, P.draw_rhs(jm.nid, jm.nih, None, nt,
+                                          key=df.OmegaKey(SEED, sids, 7))),
+                 nt, nf)
+    del jm
+    wm, wd = build_ops(jobs_w8, dev)
+    psw = mega.pad_ps(np.tile(ps_truth(WIDE_NF), (B, 1)), wd, dev)
+    keyed_passes(f"wide n={wm.nid.shape[1]} t={wm.nid.shape[2]}", wm.nid,
+                 wm.nih, wm.pt, psw,
+                 P.cgemm(wm.f, P.draw_rhs(wm.nid, wm.nih, None, nt,
+                                          key=df.OmegaKey(SEED, sids, 7))),
+                 nt, WIDE_NF)
+    del wm
+    gen = torch.Generator(device=dev).manual_seed(SEED + 15)
+    no, to = 121, NT                       # odd n and t
+    rn = lambda *sh: torch.randn(sh, dtype=torch.complex64, device=dev,
+                                 generator=gen)
+    a = rn(B, no, no)
+    pto = ((a + a.mH) / 2 + no * torch.eye(no, device=dev)).contiguous()
+    keyed_passes(f"odd n={no} t={to}", rn(B, no, to),
+                 torch.rand((B, no), device=dev, generator=gen), pto,
+                 10 * torch.rand((B, no), device=dev, generator=gen),
+                 rn(B, no, to), to, no)
     s = sys_p[0]
     inv_k, inv_p = K.herm_inv(s), P.herm_inv(s)
     cmp("herm_inv", inv_k, inv_p, 1e-3, "vs Cholesky inverse")
@@ -865,76 +951,89 @@ def phase_kernels(dev, jobs8, jobs_w8, errs):
         1e-5, "external randomness")
     require(torch.all(kp[:, nf:] == 0), "pad bins of ps not zero")
 
-    # grouped time-flags variants, at the tflags path's layout
-    gs = grouped_setup(jobs8, tflag_signatures()[0], 1, dev)
-    gm, G = gs.mops, len(gs.group_times)
-    Bg, _, tg = gm.nid.shape
-    ntot = gs.dims.ntimes
-    rt, sids_r, sidc_r = grouped_ids(gs, Bg // G, dev)
-    what = f"grouped G={G} B={Bg} t={tg}"
-    oa, ob = K.rng_fields(SEED, sids_r, 7, n, tg, ntot, nf, rt)
-    cmp("rng_fields", (oa, ob),
-        P.rng_fields(SEED, sids_r, 7, n, tg, ntot, nf, rt), 1e-5, what)
-    for r, c in enumerate(rt.tolist()):
-        require(torch.all(oa[r, :, c:] == 0) and torch.all(ob[r, :, c:] == 0),
-                f"grouped omegas of row {r} not zero beyond its {c} times")
-    rc = K.draw_rhs(gm.nid, gm.nih, ob, ntot, rt)
-    cmp("draw_rhs", rc, P.draw_rhs(gm.nid, gm.nih, ob, ntot, rt), 1e-5, what)
-    frc = P.cgemm(gm.f, rc)
-    psg = mega.pad_ps(np.tile(ps_truth(), (Bg, 1)), gs.dims, dev)
-    sys_k = K.draw_system(gm.pt, psg, frc, oa, ntot, nf, rt)
-    sys_p = P.draw_system(gm.pt, psg, frc, oa, ntot, nf, rt)
-    cmp("draw_system", sys_k, sys_p, 1e-5, what)
-    gkey = df.OmegaKey(SEED, sids_r, 7)
-    same("draw_rhs", K.draw_rhs(gm.nid, gm.nih, None, ntot, rt, gkey), rc,
-         f"grouped G={G} keyed")
-    same("draw_system", K.draw_system(gm.pt, psg, frc, None, ntot, nf, rt,
-                                      gkey), sys_k, f"grouped G={G} keyed")
-    s, xs, dd, dinv = sys_p
-    require(torch.all(sys_k[3][G - 1::G] == 1.0),
-            "dummy rows: dinv is not 1")
-    inv = K.herm_inv(s)
-    eye = torch.eye(n, dtype=s.dtype, device=dev)
-    dummy_err = float(torch.abs(inv[G - 1::G] - eye).max())
-    say("kernels", f"herm_inv         dummy rows (S = I): max|S^-1 - I| "
-        f"{dummy_err:.1e} == 0")
-    require(dummy_err == 0.0, "herm_inv of the identity is not exact")
-    x = P.cgemm(P.herm_inv(s), xs)
-    sk, beta = P.row_scale_sumsq(x, dinv, dd)
-    require(torch.all(beta[G - 1::G] == 0), "dummy rows: beta is not 0")
-    sig = P.cgemm(gm.f, sk, op="H", alpha=1.0 / nf)
-    da = P.cgemm(gm.g, sig, op="H", x=P.cgemm(gm.mi, P.cgemm(gm.fg, rc,
-                                                            op="H")),
-                 alpha=-1.0)
-    fa = P.cgemm(gm.fg, da)
-    for lean in (False, True):
-        kw = dict(want_chi=not lean, want_chit=lean, want_amp=not lean,
-                  want_ws=True, row_times=rt)
-        args = (gm.dw, sig, fa, gm.ninv_full, gm.w, da, gm.a0, ntot)
-        got = K.draw_resid(*args, **kw)
-        cmp("draw_resid", got, P.draw_resid(*args, **kw), 1e-5,
-            f"{what} {'lean' if lean else 'full'}")
-        require(torch.all(got[1][G - 1::G] == 0),
-                "dummy rows: noise_nu is not 0")
-    gtab = megachain.make_chain_tables(gm, dev)
-    for g in range(4):
-        kp, kg = K.bandpower(beta, prior, gtab.tlog, gtab.q, seed=SEED,
-                             sids=sidc_r, g=g, alpha=ntot - 1, gam_out=True,
-                             group=G)
-        pp, pg = P.bandpower(beta, prior, gtab.tlog, gtab.q, seed=SEED,
-                             sids=sidc_r, g=g, alpha=ntot - 1, gam_out=True,
-                             group=G)
-        cmp("bandpower", (kg, kp), (pg, pp), 1e-5, f"{what} g={g}")
-        same = all(torch.equal(v[c * G + r], v[c * G])
-                   for v in (kp, kg) for c in range(Bg // G)
-                   for r in range(G))
-        require(same, "grouped bandpower: the rows of a chain differ")
-    u = torch.rand((Bg, 128), generator=torch.Generator(device=dev)
-                   .manual_seed(4), device=dev)
-    cmp("bandpower",
-        K.bandpower(beta, prior, gtab.tlog, gtab.q, gam=kg, u_pb=u, group=G),
-        P.bandpower(beta, prior, gtab.tlog, gtab.q, gam=kg, u_pb=u, group=G),
-        1e-5, f"{what} external randomness")
+    # grouped time-flags variants, at the tflags path's layout (G = 3,
+    # t = 80) and at the JAX package's (G = 4 with a dummy row of zero
+    # operators, t = 128), where the dummy rows must come out exact
+    for layout in ("port", "jax"):
+        gs = grouped_setup(jobs8, tflag_signatures()[0], 1, dev, layout)
+        dummy = len(gs.group_times) - len(gs.group_idx)
+        gm, G = gs.mops, len(gs.group_times)
+        Bg, ng, tg = gm.nid.shape
+        ntot = gs.dims.ntimes
+        rt, sids_r, sidc_r = grouped_ids(gs, Bg // G, dev)
+        what = f"grouped {layout} G={G} B={Bg} t={tg}"
+        oa, ob = K.rng_fields(SEED, sids_r, 7, ng, tg, ntot, nf, rt)
+        cmp("rng_fields", (oa, ob),
+            P.rng_fields(SEED, sids_r, 7, ng, tg, ntot, nf, rt), 1e-5, what)
+        for r, c in enumerate(rt.tolist()):
+            require(torch.all(oa[r, :, c:] == 0)
+                    and torch.all(ob[r, :, c:] == 0),
+                    f"grouped omegas of row {r} not zero beyond its {c} "
+                    f"times")
+        rc = K.draw_rhs(gm.nid, gm.nih, ob, ntot, rt)
+        cmp("draw_rhs", rc, P.draw_rhs(gm.nid, gm.nih, ob, ntot, rt), 1e-5,
+            what)
+        frc = P.cgemm(gm.f, rc)
+        psg = mega.pad_ps(np.tile(ps_truth(), (Bg, 1)), gs.dims, dev)
+        sys_k = K.draw_system(gm.pt, psg, frc, oa, ntot, nf, rt)
+        sys_p = P.draw_system(gm.pt, psg, frc, oa, ntot, nf, rt)
+        cmp("draw_system", sys_k, sys_p, 1e-5, what)
+        gkey = df.OmegaKey(SEED, sids_r, 7)
+        same("draw_rhs", K.draw_rhs(gm.nid, gm.nih, None, ntot, rt, gkey), rc,
+             f"{what} keyed")
+        same("draw_system", K.draw_system(gm.pt, psg, frc, None, ntot, nf, rt,
+                                          gkey), sys_k, f"{what} keyed")
+        s, xs, dd, dinv = sys_p
+        if dummy:
+            require(torch.all(sys_k[3][G - 1::G] == 1.0),
+                    "dummy rows: dinv is not 1")
+            inv = K.herm_inv(s)
+            eye = torch.eye(ng, dtype=s.dtype, device=dev)
+            dummy_err = float(torch.abs(inv[G - 1::G] - eye).max())
+            say("kernels", f"herm_inv         dummy rows (S = I): max|S^-1 "
+                f"- I| {dummy_err:.1e} == 0")
+            require(dummy_err == 0.0, "herm_inv of the identity is not "
+                    "exact")
+        x = P.cgemm(P.herm_inv(s), xs)
+        sk, beta = P.row_scale_sumsq(x, dinv, dd)
+        require(not dummy or torch.all(beta[G - 1::G] == 0),
+                "dummy rows: beta is not 0")
+        sig = P.cgemm(gm.f, sk, op="H", alpha=1.0 / nf)
+        da = P.cgemm(gm.g, sig, op="H", x=P.cgemm(gm.mi, P.cgemm(gm.fg, rc,
+                                                                op="H")),
+                     alpha=-1.0)
+        fa = P.cgemm(gm.fg, da)
+        for lean in (False, True):
+            kw = dict(want_chi=not lean, want_chit=lean, want_amp=not lean,
+                      want_ws=True, row_times=rt)
+            args = (gm.dw, sig, fa, gm.ninv_full, gm.w, da, gm.a0, ntot)
+            got = K.draw_resid(*args, **kw)
+            cmp("draw_resid", got, P.draw_resid(*args, **kw), 1e-5,
+                f"{what} {'lean' if lean else 'full'}")
+            require(not dummy or torch.all(got[1][G - 1::G] == 0),
+                    "dummy rows: noise_nu is not 0")
+        gtab = megachain.make_chain_tables(gm, dev)
+        for g in range(4):
+            kp, kg = K.bandpower(beta, prior, gtab.tlog, gtab.q, seed=SEED,
+                                 sids=sidc_r, g=g, alpha=ntot - 1,
+                                 gam_out=True, group=G)
+            pp, pg = P.bandpower(beta, prior, gtab.tlog, gtab.q, seed=SEED,
+                                 sids=sidc_r, g=g, alpha=ntot - 1,
+                                 gam_out=True, group=G)
+            cmp("bandpower", (kg, kp), (pg, pp), 1e-5, f"{what} g={g}")
+            rows_same = all(torch.equal(v[c * G + r], v[c * G])
+                            for v in (kp, kg) for c in range(Bg // G)
+                            for r in range(G))
+            require(rows_same,
+                    "grouped bandpower: the rows of a chain differ")
+        u = torch.rand((Bg, 128), generator=torch.Generator(device=dev)
+                       .manual_seed(4), device=dev)
+        cmp("bandpower",
+            K.bandpower(beta, prior, gtab.tlog, gtab.q, gam=kg, u_pb=u,
+                        group=G),
+            P.bandpower(beta, prior, gtab.tlog, gtab.q, gam=kg, u_pb=u,
+                        group=G),
+            1e-5, f"{what} external randomness")
 
     # the real engine's factor-solve at its shapes (n = 120, K = 203)
     from hydra_pspec_torch.ops.kernels import herm_inv as hi
@@ -973,9 +1072,9 @@ def phase_kernels(dev, jobs8, jobs_w8, errs):
             K.cgemm(a, b, op=op, x=x, alpha=alpha, beta=beta, out=x)
             require(torch.equal(x, got), f"cgemm {what}: out=x differs")
 
-    # the blocked paths: herm_inv at the wide band's padded megachain
-    # system (n = 256: blocks of 128 and 128), herm_chol_solve at the real
-    # engine's wide band (n = 180, K = 203: blocks of 128 and 52)
+    # the blocked paths: herm_inv at the wide band's megachain system
+    # (n = 180: blocks of 128 and 52), herm_chol_solve at the real engine's
+    # wide band (n = 180, K = 203: blocks of 128 and 52)
     wm, wdims = build_ops(jobs_w8, dev)
     Bw, nw, tw = wm.nid.shape
     wsids = torch.arange(Bw, dtype=torch.int32, device=dev)
@@ -1186,7 +1285,7 @@ def graph_case(label, dev, make_body, ps, drift_max=None):
 
 def phase_graph(dev, jobs, jobs_w):
     """The chunk graph at B = 100 against the eager kernel path: plain
-    full and lean, grouped 100 x G=4, the wide band (n = 256) and the mega
+    full and lean, grouped 100 x G=3, the wide band (n = 180) and the mega
     engine."""
     from hydra_pspec_torch.models import mega, megachain
     from hydra_pspec_torch.ops.kernels import rng_bandpower as rb
@@ -1236,6 +1335,104 @@ def phase_graph(dev, jobs, jobs_w):
         f"wide n={wm.nid.shape[1]} full B={B} drift_max=0.3", dev,
         chain(wm, wdims, nf=WIDE_NF, drift_max=0.3), psw, 0.3)
     return out
+
+
+# --- layout phase ------------------------------------------------------------
+
+LAYOUT_K = 10   # iterations of each path's chunk at both layouts
+
+
+def _real_lanes(ps_final, sample, nf, every=1):
+    """A chunk's outputs on the real lanes only, cloned: the state's real
+    bins (of every ``every``-th row: a chain's first in the grouped mode)
+    and the sample's fields, which the engines trim to the true widths."""
+    out = {"ps_final": ps_final[::every, :nf].clone()}
+    for k, v in sample._asdict().items():
+        if v is not None:
+            out[k] = v.clone()
+    return out
+
+
+def phase_layout(dev, jobs, jobs_w):
+    """The main path (full and lean), the time-flags signatures A and B,
+    the mega engine and the wide band, each a chunk of LAYOUT_K iterations
+    on the Philox streams from global iteration GRAPH_ITER0 (warm start
+    drift_max 0.6 on megachain; chunk graphs, as the runner runs them), at
+    the port's layout and at the JAX package's: every real lane of every
+    output torch.equal."""
+    from hydra_pspec_torch.models import mega, megachain
+    from hydra_pspec_torch.ops.kernels import rng_bandpower as rb
+
+    stats = {}
+
+    def chain_at(jobs_, nf, lean=False):
+        def run(layout):
+            mops, dims = build_ops(jobs_, dev, layout)
+            B = mops.nid.shape[0]
+            ps = mega.pad_ps(np.tile(ps_truth(nf), (B, 1)), dims, dev)
+            ps_f, smp = megachain.run_chunk_megachain(
+                mops, megachain.make_chain_tables(mops, dev), dims, ps,
+                LAYOUT_K, megachain.prior_static_from(make_prior(nf=nf),
+                                                      dims),
+                seed=SEED, sids=torch.arange(B, dtype=torch.int32,
+                                             device=dev),
+                iter0=GRAPH_ITER0, warm_ns=3, drift_max=0.6,
+                store_cr=not lean)
+            return _real_lanes(ps_f, smp, nf), (dims.n, dims.t, dims.m)
+        return run
+
+    def grouped_at(flags):
+        def run(layout):
+            gs = grouped_setup(jobs, flags, 1, dev, layout)
+            G = len(gs.group_times)
+            Bg = gs.mops.nid.shape[0]
+            _, sids_r, sidc_r = grouped_ids(gs, Bg // G, dev)
+            psg = mega.pad_ps(np.tile(ps_truth(), (Bg, 1)), gs.dims, dev)
+            ps_f, smp = megachain.run_chunk_megachain(
+                gs.mops, megachain.make_chain_tables(gs.mops, dev), gs.dims,
+                psg, LAYOUT_K, megachain.prior_static_from(make_prior(),
+                                                           gs.dims),
+                seed=SEED, sids=sids_r, sidc=sidc_r, iter0=GRAPH_ITER0,
+                warm_ns=3, drift_max=0.6, group_times=gs.group_times,
+                group_idx=gs.group_idx)
+            return (_real_lanes(ps_f, smp, NF, every=G),
+                    (gs.dims.n, gs.dims.t, gs.dims.m, G))
+        return run
+
+    def mega_at(layout):
+        mops, dims = build_ops(jobs, dev, layout)
+        B = mops.nid.shape[0]
+        tables = megachain.make_chain_tables(mops, dev)
+        ps = mega.pad_ps(np.tile(ps_truth(), (B, 1)), dims, dev)
+        ps_f, smp = mega.run_chain_mega(
+            mops, dims, ps, rb.prior_bins(rb.bounded_bins(make_prior()),
+                                          dev),
+            LAYOUT_K, tables.tlog, tables.q, seed=SEED,
+            sids=torch.arange(B, dtype=torch.int32, device=dev),
+            iter0=GRAPH_ITER0)
+        return _real_lanes(ps_f, smp, NF), (dims.n, dims.t, dims.m)
+
+    sig_a, sig_b = tflag_signatures()
+    cases = {"main": chain_at(jobs, NF),
+             "main lean": chain_at(jobs, NF, True),
+             "tflags A": grouped_at(sig_a), "tflags B": grouped_at(sig_b),
+             "mega": mega_at, "wide": chain_at(jobs_w, WIDE_NF)}
+    for label, run in cases.items():
+        (a, shape_a), (b, shape_b) = run("port"), run("jax")
+        diff = {k: float(torch.abs(a[k] - b[k]).max()) for k in a
+                if not torch.equal(a[k], b[k])}
+        stats[label] = {"equal": not diff, "max_abs_diff": diff,
+                        "fields": sorted(a), "port": shape_a,
+                        "jax": shape_b}
+        say("layout", f"{label:9s} port (n, t, m[, G]) {shape_a}, JAX "
+            f"{shape_b}: {LAYOUT_K} iterations, every real lane of "
+            f"{sorted(a)} torch.equal: {not diff}"
+            + (f"; max |diff| {diff}" if diff else ""))
+        del a, b
+        torch.cuda.empty_cache()
+    bad = {k: v["max_abs_diff"] for k, v in stats.items() if not v["equal"]}
+    require(not bad, f"layout: real lanes differ between layouts: {bad}")
+    return stats
 
 
 # --- 5. main path -----------------------------------------------------------
@@ -1643,7 +1840,7 @@ def phase_tflags(dev, jobs_plain, out_root):
     stats = {"build_s": tim["scatter"], "process_s": tim["process"],
              "flush_s": tim["write"], "wall_s": wall,
              "baseline_iters_per_s": rate}
-    say("tflags", f"{len(jobs)} baselines ({n_a} signature A, G=4; "
+    say("tflags", f"{len(jobs)} baselines ({n_a} signature A, G=3; "
         f"{len(jobs) - n_a} signature B, G=2) x {NITER} iterations: wall "
         f"{wall:.2f} s, host build+transfer {tim['scatter']:.2f} s, process "
         f"{tim['process']:.2f} s (flush {tim['write']:.2f} s)")
@@ -1927,7 +2124,7 @@ def phase_fallback(dev, jobs_plain, out_root):
 # --- the wide band ------------------------------------------------------------
 
 def phase_wideband(dev, out_root):
-    """The model-drawn data at 203 times x 180 channels: megachain (n = 256,
+    """The model-drawn data at 203 times x 180 channels: megachain (n = 180,
     blocked herm_inv on the warm start's rebuilds), a dense Ninv on the
     real engine (blocked herm_chol_solve), solver="pallas2" and the mega
     engine (blocked herm_inv every iteration). Each run with the launch
@@ -2181,7 +2378,8 @@ def phase_complex(dev, jobs_main, out_root):
     tf_wall = time.perf_counter() - t0
     chi2_tf = float(np.mean([r.chisq[50:][:, ~j.flags_tf].mean()
                              for j, r in zip(tf_jobs, res_tf)]))
-    say("complex", f"time flags (signature A, G = 4), {N_COMPLEX_TF} "
+    say("complex", f"time flags (signature A, 3 flag patterns), "
+        f"{N_COMPLEX_TF} "
         f"baselines x {COMPLEX_NITER} on the complex path: wall "
         f"{tf_wall:.2f} s; chi^2 over unflagged entries, iterations "
         f"51-{COMPLEX_NITER}: {chi2_tf:.5f} (gate within {CHI2_GATE})")
@@ -2644,49 +2842,59 @@ def phase_estimators(dev):
 # --- 9. times ----------------------------------------------------------------
 
 def work(name, B, n, t, m, ntimes, valid=None, chains=None, alpha=None):
-    """(bytes, operations) one call of kernel ``name`` needs at these
-    shapes: each input read once, each output written once (complex64 8
-    bytes, float32 4); operations are real flops, with an integer or
-    transcendental step counted as one operation. ``valid``: time lanes
-    drawn in all rows (default B * ntimes); ``chains``: Gamma draws (the
-    grouped bandpower draws once per chain). The solves take ``t`` as
-    their right-hand-side count K. ``draw_rhs`` and ``draw_system`` are
-    the keyed mode of the main path (no omega field read; a Philox call
-    and a Box-Muller pair per drawn lane instead); ``*_stored`` their
-    stored mode."""
-    cfield, vec = 8 * B * n * t, 4 * B * n
+    """(bytes, operations) one call of kernel ``name`` needs at the data's
+    own widths: ``n`` channels, ``m`` modes and the real time lanes of the
+    rows (``B * ntimes``, or ``valid``: in the grouped mode each row has its
+    own count), never a layout's pad lanes. Each input is read once and
+    each output written once (complex64 8 bytes, float32 4); operations
+    are real flops, with an integer or transcendental step counted as one,
+    and, for the keyed passes' draw, two for each SASS issue slot a drawn
+    lane takes (:data:`DRAW_SLOTS`; a slot is the time of one FMA, two
+    flops at the FP32 peak). ``chains``: Gamma draws (the grouped bandpower
+    draws once per chain). The solves take ``t`` as their right-hand-side
+    count K. ``draw_rhs`` and ``draw_system`` are the keyed mode of the
+    main path (no omega field read; a Philox call and a Box-Muller pair per
+    drawn lane instead); ``*_stored`` their stored mode."""
     lanes = B * ntimes if valid is None else valid
-    draw = n * lanes * (PHILOX_OPS + BOX_MULLER_OPS)   # one omega field
+    cfield, mfield, vec = 8 * n * lanes, 8 * m * lanes, 4 * B * n
+
+    def draw(kernel):   # the omega draws of a keyed pass
+        slots = DRAW_SLOTS.get(kernel)
+        return n * lanes * (PHILOX_OPS + BOX_MULLER_OPS if slots is None
+                            else 2 * slots)
+
     if name == "herm_chol_solve":  # Cholesky n^3/6 + two sweeps n^2 K cMACs
-        return 8 * B * n * n + 2 * cfield, 8 * B * (n ** 3 // 6 + n * n * t)
+        return (8 * B * n * n + 2 * 8 * B * n * t,
+                8 * B * (n ** 3 // 6 + n * n * t))
     if name == "hermitian_solve":  # herm_inv + apply + refine (3 n^2 K)
-        return 8 * B * n * n + 2 * cfield, B * (4 * n ** 3 + 24 * n * n * t)
+        return (8 * B * n * n + 2 * 8 * B * n * t,
+                B * (4 * n ** 3 + 24 * n * n * t))
     if name == "gcr_megastep":     # the draw's products and inverse
         ins = (8 * B * n * n + 4 * cfield + 2 * 8 * B * n * m
-               + 8 * B * m * m + 8 * B * m * t + 8 * n * n + 4 * vec)
-        outs = cfield + 8 * B * m * t + 4 * B * n * t + 3 * vec
-        return ins + outs, B * (4 * n ** 3 + 8 * (5 * n * n * t
-                                                  + 4 * n * m * t
-                                                  + m * m * t))
-    if name == "cgemm":        # F rc: shared (n, n) times (B, n, t)
-        return 8 * n * n + 2 * cfield, 8 * n * n * t * B
+               + 8 * B * m * m + mfield + 8 * n * n + 4 * vec)
+        outs = cfield + mfield + 4 * n * lanes + 3 * vec
+        return ins + outs, (B * 4 * n ** 3
+                            + 8 * (5 * n * n + 4 * n * m + m * m) * lanes)
+    if name == "cgemm":        # F rc: shared (n, n) times (B, n, lanes)
+        return 8 * n * n + 2 * cfield, 8 * n * n * lanes
     if name == "herm_inv":     # Cholesky, L^-1, L^-H L^-1: n^3/2 cMACs
         return 2 * 8 * B * n * n, 4 * n ** 3 * B
     if name == "draw_rhs":
-        return 2 * cfield + vec, 4 * B * n * t + draw
+        return 2 * cfield + vec, 4 * n * lanes + draw("draw_rhs")
     if name == "draw_rhs_stored":
-        return 3 * cfield + vec, 4 * B * n * t
+        return 3 * cfield + vec, 4 * n * lanes
     if name in ("draw_system", "draw_system_stored"):
         keyed = name == "draw_system"
         return (2 * 8 * B * n * n + (2 if keyed else 3) * cfield + 3 * vec,
-                6 * B * n * n + 6 * B * n * t + (draw if keyed else 0))
+                6 * B * n * n + 6 * n * lanes
+                + (draw("draw_system") if keyed else 0))
     if name == "row_scale_sumsq":
-        return 2 * cfield + 3 * vec, 8 * B * n * t
+        return 2 * cfield + 3 * vec, 8 * n * lanes
     if name == "draw_resid":   # full: chi and amps, no w sig
-        return (3 * cfield + 2 * vec + 3 * 8 * B * m * t + 4 * B * n * t
-                + vec), 10 * B * n * t + 2 * B * m * t
+        return (3 * cfield + 2 * vec + 3 * mfield + 4 * n * lanes
+                + vec), 10 * n * lanes + 2 * m * lanes
     if name == "rng_fields":   # a Philox call, two Box-Muller pairs a lane
-        return 2 * cfield, draw + n * lanes * BOX_MULLER_OPS
+        return 2 * cfield, n * lanes * (PHILOX_OPS + 2 * BOX_MULLER_OPS)
     if name == "herm_inv_gate":   # the gate alone: two (B, n) rows read,
         return 2 * vec + 4 * B, 10 * B * n   # a flag a chain written
     if name == "bandpower":    # ceil(alpha/4) Philox calls + logs per bin
@@ -2830,9 +3038,11 @@ def _time_chain(label, run, kit):
     return chain
 
 
-def iteration_bound(chain, bounds, share=1.0):
+def iteration_bound(chain, bounds, share=1.0, widths=None):
     """Sum over the kernels of launches per iteration x bound, each cgemm
-    launch priced at its own shape (:func:`cgemm_bound`). A launch with an
+    launch priced at its own shape (:func:`cgemm_bound`) counted at the
+    data's own widths: ``widths`` maps a layout width to the true one (the
+    time width to the rows' mean true time count). A launch with an
     ``active`` mask (the warm start's rebuild) does the work of the chains
     it flags: ``share`` of them, measured on the run's data."""
     masked = chain.get("masked_per_iteration", {})
@@ -2841,8 +3051,10 @@ def iteration_bound(chain, bounds, share=1.0):
            if k not in ENTRIES and k != "cgemm"}   # entries: their kernels
     missing = [k for k in per if k not in bounds]
     require(not missing, f"no bound for {missing}")
+    own = lambda d: (widths or {}).get(d, d)
     products = sum(c * (share if is_masked else 1.0)
-                   * cgemm_bound(B, M, K, N, shared, with_x)[0]
+                   * cgemm_bound(B, own(M), own(K), own(N), shared,
+                                 with_x)[0]
                    for B, M, K, N, _, shared, with_x, is_masked, c
                    in chain["cgemm_shapes"])
     return sum(v * bounds[k][0] for k, v in per.items()) + products
@@ -2960,6 +3172,145 @@ def time_cgemm_shapes(dev, B=N_BASELINES):
     return rows
 
 
+def _sass_bodies(lib):
+    """{function name: its main body's basic blocks, each a list of SASS
+    opcodes} of the library's kernels, from ``cuobjdump -sass``: each
+    function's instructions up to its last unpredicated EXIT (code after
+    it is out of line), cut into blocks at every label and after every
+    branch and exit."""
+    exe = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not Path(exe).exists():
+        return None
+    res = subprocess.run([exe, "-sass", str(lib)], capture_output=True,
+                         text=True, check=True)
+    funcs, cur = {}, None
+    for line in res.stdout.splitlines():
+        head = line.strip()
+        if head.startswith("Function : "):
+            cur = funcs.setdefault(head.split(":", 1)[1].strip(), [])
+            continue
+        if cur is None:
+            continue
+        if head.startswith(".L") and head.endswith(":"):
+            cur.append((None, False))          # a label: a block starts
+            continue
+        parts = line.split("*/", 1)
+        if len(parts) < 2 or not parts[0].strip().startswith("/*"):
+            continue
+        words = parts[1].split(";")[0].split()
+        if not words:
+            continue
+        pred = words[0].startswith("@")
+        op = words[1] if pred and len(words) > 1 else words[0]
+        if not op.startswith("NOP"):
+            cur.append((op, pred))
+    bodies = {}
+    for name, ins in funcs.items():
+        last = max((i for i, (op, pred) in enumerate(ins)
+                    if op == "EXIT" and not pred), default=len(ins) - 1)
+        blocks = [[]]
+        for op, _ in ins[:last + 1]:
+            if op is None:
+                blocks.append([])
+                continue
+            blocks[-1].append(op)
+            if op.startswith(("BRA", "EXIT", "RET")):
+                blocks.append([])
+        bodies[name] = [b for b in blocks if b]
+    return bodies
+
+
+# the draw's arithmetic: Philox's products and xors, Box-Muller's floating
+# point and special functions; moves, shifts, selects, compares,
+# conversions, addressing and branches are issued too, and not counted
+DRAW_ARITH = ("IMAD.WIDE", "IMAD.HI", "LOP3", "FFMA", "FMUL", "FADD", "MUFU")
+
+
+def _slots(ops):
+    """Issue slots a lane of these instructions takes (:data:`SLOT_WEIGHT`)."""
+    def weight(op):
+        for pre, w in SLOT_WEIGHT.items():
+            if op.startswith(pre):
+                return w
+        return 1
+    return sum(weight(op) for op in ops)
+
+
+def sass_draw_slots():
+    """The keyed passes' draw in the compiled code, a drawn lane: the SASS
+    of the keyed kernel's main body minus its stored twin's, over LANES,
+    the four lanes a thread takes (what the four unrolled Philox calls
+    share counted once). Two counts: every instruction of the difference
+    (``static``: more than a lane issues, since it holds code the draws
+    never run, such as sinf's and cosf's reduction of large arguments),
+    and the issue slots of the draw's arithmetic (:data:`DRAW_ARITH`,
+    weighted by :data:`SLOT_WEIGHT`) outside the blocks that touch local
+    memory (that reduction's): a floor of what a lane issues, which sets
+    :data:`DRAW_SLOTS` and so the keyed passes' bound. Empty when the
+    toolkit has no cuobjdump (the bounds then take PHILOX_OPS +
+    BOX_MULLER_OPS)."""
+    from hydra_pspec_torch.ops.kernels import _build
+
+    bodies = _sass_bodies(_build.build())
+    if bodies is None:
+        say("times", "no cuobjdump in the toolkit: the keyed passes' draw "
+            "is counted as PHILOX_OPS + BOX_MULLER_OPS operations, a floor")
+        return {}
+    lanes = 4   # LANES of csrc/draw_fused.cu
+    flat = lambda blocks: [op for b in blocks for op in b]
+    arith = lambda blocks: [op for b in blocks
+                            if not any(op.startswith(("STL", "LDL"))
+                                       for op in b)
+                            for op in b if op.startswith(DRAW_ARITH)]
+    out = {}
+    for kernel, stem in (("draw_rhs", "10rhs_kernel"),
+                         ("draw_system", "13system_kernel")):
+        keyed = [v for k, v in bodies.items() if f"{stem}ILb1ELb1E" in k]
+        stored = [v for k, v in bodies.items() if f"{stem}ILb0ELb1E" in k]
+        require(len(keyed) == 1 and len(stored) == 1,
+                f"SASS of {kernel}: {len(keyed)} keyed, {len(stored)} "
+                f"stored bodies")
+        k_ops, s_ops = flat(keyed[0]), flat(stored[0])
+        floor = (_slots(arith(keyed[0])) - _slots(arith(stored[0]))) / lanes
+        classes = collections.Counter(op.split(".")[0] for op in k_ops)
+        classes.subtract(collections.Counter(op.split(".")[0]
+                                             for op in s_ops))
+        out[kernel] = {
+            "static_per_drawn_lane": (len(k_ops) - len(s_ops)) / lanes,
+            "floor_slots_per_drawn_lane": floor,
+            "keyed_body": len(k_ops), "stored_body": len(s_ops),
+            "by_class_per_lane": {k: v / lanes for k, v in
+                                  classes.most_common() if v}}
+        DRAW_SLOTS[kernel] = floor
+        say("times", f"SASS {kernel:11s} keyed body {len(k_ops)} "
+            f"instructions, stored {len(s_ops)}: "
+            f"{out[kernel]['static_per_drawn_lane']:.1f} instructions a "
+            f"drawn lane, of which the draw's arithmetic takes {floor:.1f} "
+            f"issue slots (the bound's floor); by class "
+            f"{dict(list(out[kernel]['by_class_per_lane'].items())[:12])}")
+    return out
+
+
+def _time_layouts(label, cases, kit):
+    """One iteration's time as a graph replay of a ``kit``-iteration chunk
+    at each layout of ``cases`` ({layout: (body, ps)}), in turns port,
+    jax, jax, port."""
+    from hydra_pspec_torch.ops.kernels.graph import ChunkGraph
+
+    graphs = {k: (ChunkGraph(body, ps, kit), ps)
+              for k, (body, ps) in cases.items()}
+    turns = {k: [] for k in cases}
+    for k in ("port", "jax", "jax", "port"):
+        cg, ps = graphs[k]
+        turns[k].append(_time(lambda: cg.replay(ps, 0), 3) / kit)
+    say("times", f"one chain iteration, {label}, graph replay at the port's "
+        f"layout {turns['port']} ms, at the JAX package's {turns['jax']} ms "
+        f"(port, JAX, JAX, port)")
+    del graphs
+    torch.cuda.empty_cache()
+    return turns
+
+
 GRAPH_REPLAYS = 3   # graph replays in the profiler window
 
 
@@ -3018,12 +3369,13 @@ def phase_times(dev, jobs):
     mops, dims = build_ops(jobs, dev)
     B, n, t = mops.nid.shape
     m = mops.fg.shape[2]
-    nf, nt = dims.nfreqs, dims.ntimes
+    nf, nt, nm = dims.nfreqs, dims.ntimes, dims.nmodes
     sids = torch.arange(B, dtype=torch.int32, device=dev)
     ps = mega.pad_ps(np.tile(ps_truth(), (B, 1)), dims, dev)
     tables = megachain.make_chain_tables(mops, dev)
     static = megachain.prior_static_from(make_prior(), dims)
     prior = rb.prior_bins(static, dev)
+    sass = sass_draw_slots()
 
     kit = 5
     chain = _time_chain(f"B={B}", lambda impl: megachain.run_chunk_megachain(
@@ -3032,6 +3384,14 @@ def phase_times(dev, jobs):
     body = megachain.chunk_body(mops, tables, dims, static, seed=SEED,
                                 sids=sids, warm_ns=3, drift_max=0.6)
     cg = _time_graph(f"B={B}", chain, body, ps, kit, drift_max=0.6)
+    # the same chunk at the JAX package's layout (n = 128, t = 256, m = 16)
+    jm, jd = build_ops(jobs, dev, "jax")
+    jps = mega.pad_ps(np.tile(ps_truth(), (B, 1)), jd, dev)
+    jbody = megachain.chunk_body(
+        jm, megachain.make_chain_tables(jm, dev), jd, static, seed=SEED,
+        sids=sids, warm_ns=3, drift_max=0.6)
+    layouts_ms = {"plain": _time_layouts(f"B={B}", {
+        "port": (body, ps), "jax": (jbody, jps)}, kit)}
     profile = device_profile(lambda: megachain.run_chunk_megachain(
         mops, tables, dims, ps, PROFILE_ITERS, static, seed=SEED, sids=sids,
         warm_ns=3, drift_max=0.6, graph=False), PROFILE_ITERS,
@@ -3089,7 +3449,8 @@ def phase_times(dev, jobs):
         "cgemm": _time(lambda: torch.matmul(mops.f, rc), 10),
         "herm_inv": _time(lambda: torch.linalg.inv(s), 10),
     }
-    shape = dict(B=B, n=n, t=t, m=m, ntimes=nt, alpha=nt - 1)
+    # the data's own widths: n = nfreqs, m = nmodes, the true times
+    shape = dict(B=B, n=nf, t=nt, m=nm, ntimes=nt, alpha=nt - 1)
     bounds = {k: bound(k, **shape) for k in cases}
     for k, (b_ms, by) in bounds.items():
         say("times", f"{k:16s} B={B}: bound {b_ms:.4f} ms ({by}), kernel "
@@ -3134,6 +3495,15 @@ def phase_times(dev, jobs):
         lambda M: M.herm_inv(s, out=inv_buf, gate=(ps, ps, -1.0),
                              rebuild=flags))
     dcases["herm_inv unmasked"] = ("herm_inv", shape, cases["herm_inv"])
+    # the keyed passes at the JAX package's layout: the same real work
+    jkey = df.OmegaKey(SEED, sids, 0)
+    jrc = P.draw_rhs(jm.nid, jm.nih, None, nt, key=jkey)
+    jfrc = P.cgemm(jm.f, jrc)
+    dcases["draw_rhs JAX layout"] = ("draw_rhs", shape, lambda M: M.draw_rhs(
+        jm.nid, jm.nih, None, nt, key=jkey))
+    dcases["draw_system JAX layout"] = (
+        "draw_system", shape, lambda M: M.draw_system(jm.pt, jps, jfrc, None,
+                                                      nt, nf, key=jkey))
     device = {}
     for k, (wk, sh, fn) in dcases.items():
         ms = _device_ms(lambda: fn(K))
@@ -3149,8 +3519,9 @@ def phase_times(dev, jobs):
                for k, v in layouts.items()}
     for k, v in layouts.items():
         say("times", f"omega passes, layout {k}: {v:.5f} ms device time")
+    del jm, jrc, jfrc
 
-    # the grouped time-flags layout: 100 chains x G=4 of signature A
+    # the grouped time-flags layout: 100 chains x G=3 of signature A
     gs = grouped_setup(jobs[:1], tflag_signatures()[0], B, dev)
     gm, G = gs.mops, len(gs.group_times)
     Bg, _, tg = gm.nid.shape
@@ -3166,9 +3537,24 @@ def phase_times(dev, jobs):
             gm, gtab, gs.dims, psg, kit, gstatic, seed=SEED, sids=sids_r,
             sidc=sidc_r, warm_ns=3, drift_max=0.6, impl=impl, graph=False,
             **gkw), kit)
-    _time_graph(f"{Bg // G} chains x G={G}", gchain, megachain.chunk_body(
+    gbody = megachain.chunk_body(
         gm, gtab, gs.dims, gstatic, seed=SEED, sids=sids_r, sidc=sidc_r,
-        warm_ns=3, drift_max=0.6, **gkw), psg, kit, drift_max=0.6)
+        warm_ns=3, drift_max=0.6, **gkw)
+    _time_graph(f"{Bg // G} chains x G={G}", gchain, gbody, psg, kit,
+                drift_max=0.6)
+    # the same at the JAX package's layout (G = 4 with a dummy row, t = 128)
+    gj = grouped_setup(jobs[:1], tflag_signatures()[0], B, dev, "jax")
+    Gj = len(gj.group_times)
+    rtj, sids_j, sidc_j = grouped_ids(gj, Bg // G, dev)
+    psgj = mega.pad_ps(np.tile(ps_truth(), (Bg // G * Gj, 1)), gj.dims, dev)
+    layouts_ms["grouped"] = _time_layouts(
+        f"{Bg // G} chains of signature A", {
+            "port": (gbody, psg),
+            "jax": (megachain.chunk_body(
+                gj.mops, megachain.make_chain_tables(gj.mops, dev), gj.dims,
+                gstatic, seed=SEED, sids=sids_j, sidc=sidc_j, warm_ns=3,
+                drift_max=0.6, group_times=gj.group_times,
+                group_idx=gj.group_idx), psgj)}, kit)
     oa, ob = P.rng_fields(SEED, sids_r, 0, n, tg, ntot, nf, rt)
     rc = P.draw_rhs(gm.nid, gm.nih, ob, ntot, rt)
     frc = P.cgemm(gm.f, rc)
@@ -3191,13 +3577,32 @@ def phase_times(dev, jobs):
             alpha=ntot - 1, group=G),
     }
     gtimes = _time_pairs(f"grouped B={Bg} t={tg}", gcases)
-    gshape = dict(B=Bg, n=n, t=tg, m=m, ntimes=ntot, alpha=ntot - 1,
+    # each row's own time count: the lanes of all rows, rt.sum()
+    gshape = dict(B=Bg, n=nf, t=tg, m=nm, ntimes=ntot, alpha=ntot - 1,
                   valid=int(rt.sum()), chains=Bg // G)
     gbounds = {k: bound(k, **gshape) for k in cases}
     for k in gcases:
         b_ms, by = gbounds[k]
         say("times", f"{k:16s} grouped B={Bg}: bound {b_ms:.4f} ms ({by}), "
             f"kernel at {100 * b_ms / gtimes[k][0]:.1f} % of it")
+    # the keyed passes' device times, grouped, at both layouts
+    gjm = gj.mops
+    gjkey = df.OmegaKey(SEED, sids_j, 0)
+    gjfrc = P.cgemm(gjm.f, P.draw_rhs(gjm.nid, gjm.nih, None, ntot, rtj,
+                                      gjkey))
+    for k, fn in (
+            ("draw_rhs grouped", gcases["draw_rhs"]),
+            ("draw_system grouped", gcases["draw_system"]),
+            ("draw_rhs grouped JAX layout", lambda M: M.draw_rhs(
+                gjm.nid, gjm.nih, None, ntot, rtj, gjkey)),
+            ("draw_system grouped JAX layout", lambda M: M.draw_system(
+                gjm.pt, psgj, gjfrc, None, ntot, nf, rtj, gjkey))):
+        ms = _device_ms(lambda: fn(K))
+        b_ms, by = gbounds[k.split()[0]]
+        device[k] = {"ms": ms, "bound_ms": b_ms, "bound_by": by}
+        say("times", f"device time {k:30s}: {ms:.5f} ms, bound {b_ms:.5f} "
+            f"ms ({by}), {100 * b_ms / ms:.1f} % of it")
+    del gj, gjm, gjfrc
     ms = _device_ms(lambda: gcases["bandpower"](K))
     b_ms, by = gbounds["bandpower"]
     device[f"bandpower grouped G={G}"] = {"ms": ms, "bound_ms": b_ms,
@@ -3209,11 +3614,14 @@ def phase_times(dev, jobs):
                 gchain=gchain, gtimes=gtimes, gbounds=gbounds,
                 gbatch=(Bg // G, G), profile=profile, cgemm_rows=cgemm_rows,
                 device=device, omega_layouts=layouts,
-                graph_profile=gprofile, iter_bounds={
+                graph_profile=gprofile, layouts_ms=layouts_ms, sass=sass,
+                iter_bounds={
                     "plain": iteration_bound(chain, bounds,
-                                             chain["rebuild_share"]),
+                                             chain["rebuild_share"],
+                                             {t: nt}),
                     "grouped": iteration_bound(gchain, gbounds,
-                                               gchain["rebuild_share"])})
+                                               gchain["rebuild_share"],
+                                               {tg: int(rt.sum()) / Bg})})
 
 
 def phase_times_fallback(dev, jobs, dense_jobs, tm):
@@ -3283,7 +3691,8 @@ def phase_times_fallback(dev, jobs, dense_jobs, tm):
                "hermitian_solve": _time(lambda: torch.linalg.solve(s_u, rhs),
                                         10)}
     solve_shape = dict(B=B, n=NF, t=NT, m=NM, ntimes=NT, alpha=NT - 1)
-    main_shape = dict(B=B, n=n, t=t, m=m, ntimes=nt, alpha=nt - 1)
+    main_shape = dict(B=B, n=nf, t=nt, m=dims.nmodes, ntimes=nt,
+                      alpha=nt - 1)
     bounds = {"herm_chol_solve": bound("herm_chol_solve", **solve_shape),
               "hermitian_solve": bound("hermitian_solve", **solve_shape),
               "gcr_megastep": bound("gcr_megastep", **main_shape),
@@ -3303,7 +3712,8 @@ def phase_times_fallback(dev, jobs, dense_jobs, tm):
             "herm_chol_solve", "hermitian_solve", "herm_inv")}
     iter_bounds = {f"real_{k}": iteration_bound(v, rb_)
                    for k, v in real.items()}
-    iter_bounds["mega"] = iteration_bound(mega_it, tm["bounds"])
+    iter_bounds["mega"] = iteration_bound(mega_it, tm["bounds"], 1.0,
+                                          {t: nt})
     for k, v in dict(tm["iter_bounds"], **iter_bounds).items():
         it_ms = {"plain": tm["chain"], "grouped": tm["gchain"],
                  "real_pallas": real["pallas"],
@@ -3324,10 +3734,10 @@ def phase_times_fallback(dev, jobs, dense_jobs, tm):
 
 
 def phase_times_wide(dev, jobs_w):
-    """The wide band at B=100: one megachain iteration at n = 256 and its
-    bound, the blocked herm_inv at n = 256 and the blocked herm_chol_solve
-    at n = 180, K = 203 against their plain versions, bounds and library
-    calls."""
+    """The wide band at B=100: one megachain iteration at n = 180 and its
+    bound, as a graph replay also at the JAX package's layout (n = 256),
+    the blocked herm_inv and herm_chol_solve at n = 180 (K = 203) against
+    their plain versions, bounds and library calls."""
     from hydra_pspec_torch.models import mega, megachain
     from hydra_pspec_torch.ops.kernels import _build
     from hydra_pspec_torch.ops.kernels import herm_inv as hi
@@ -3349,15 +3759,21 @@ def phase_times_wide(dev, jobs_w):
         lambda impl: megachain.run_chunk_megachain(
             mops, tables, dims, ps, kit, static, seed=SEED, sids=sids,
             warm_ns=3, drift_max=0.6, impl=impl, graph=False), kit)
-    _time_graph(f"wide band n={n} B={B}", chain, megachain.chunk_body(
-        mops, tables, dims, static, seed=SEED, sids=sids, warm_ns=3,
-        drift_max=0.6), ps, kit, drift_max=0.6)
-    shape = dict(B=B, n=n, t=t, m=m, ntimes=nt, alpha=nt - 1)
+    body = megachain.chunk_body(mops, tables, dims, static, seed=SEED,
+                                sids=sids, warm_ns=3, drift_max=0.6)
+    _time_graph(f"wide band n={n} B={B}", chain, body, ps, kit,
+                drift_max=0.6)
+    shape = dict(B=B, n=nf, t=nt, m=dims.nmodes, ntimes=nt, alpha=nt - 1)
     bounds = {k: bound(k, **shape) for k in MAIN_KERNELS if k != "cgemm"}
-    # each herm_inv launch of the blocked inverse is one base block (its
-    # products are priced by their own shapes)
-    bounds["herm_inv"] = bound("herm_inv", **dict(shape, n=hi.BASE_N))
-    it_bound = iteration_bound(chain, bounds, chain["rebuild_share"])
+    # each herm_inv launch of the blocked inverse is one base block, of
+    # n1 = split_at(n) or n - n1 channels (its products are priced by their
+    # own shapes)
+    n1 = ss.split_at(nf, hi.BASE_N)
+    b1, by = bound("herm_inv", **dict(shape, n=n1))
+    b2, _ = bound("herm_inv", **dict(shape, n=nf - n1))
+    bounds["herm_inv"] = ((b1 + b2) / 2, by)
+    it_bound = iteration_bound(chain, bounds, chain["rebuild_share"],
+                               {t: nt})
     best, gbest = min(chain["kernels"]), min(chain["graph"])
     say("times", f"iteration bound wide: {it_bound:.4f} ms; eager "
         f"iteration {best:.4f} ms, {100 * it_bound / best:.1f} % of it; graph "
@@ -3387,7 +3803,7 @@ def phase_times_wide(dev, jobs_w):
                "herm_chol_solve": _time(lambda: torch.linalg.solve(ms, rhs),
                                         10)}
     blocked = {}
-    for k, sh in (("herm_inv", dict(shape, n=n)),
+    for k, sh in (("herm_inv", dict(shape, n=nf)),
                   ("herm_chol_solve", dict(shape, n=nf, t=NT))):
         b_ms, by = bound(k, **sh)
         _build.reset_launches()
@@ -3402,8 +3818,18 @@ def phase_times_wide(dev, jobs_w):
             f"ms ({by}), kernel at {100 * b_ms / times[k][0]:.1f} % of it; "
             f"library call {library[k]:.4f} ms; launches a call {per_call}")
     _build.reset_launches()
+    # the replayed iteration at the JAX package's layout (n = 256), after
+    # the profiler windows: windows after graph captures in a process have
+    # lost device activities
+    jm, jd = build_ops(jobs_w, dev, "jax")
+    jps = mega.pad_ps(np.tile(ps_truth(nf), (B, 1)), jd, dev)
+    layouts_ms = _time_layouts(f"wide band B={B}", {
+        "port": (body, ps),
+        "jax": (megachain.chunk_body(
+            jm, megachain.make_chain_tables(jm, dev), jd, static, seed=SEED,
+            sids=sids, warm_ns=3, drift_max=0.6), jps)}, kit)
     return dict(chain=chain, iter_bound=it_bound, blocked=blocked,
-                masked_none_active_ms=masked_ms)
+                masked_none_active_ms=masked_ms, layouts_ms=layouts_ms)
 
 
 def times_process(out_root):
@@ -3494,6 +3920,7 @@ def main():
         del results
         mark("main, invariance", t0)
         graphs = phase_graph(dev, jobs, jobs_w)
+        layout_stats = phase_layout(dev, jobs, jobs_w)
         tf_launches, tf_stats = phase_tflags(dev, jobs, out_root / "tflags")
         mark("graph, tflags", t0)
         fb_launches, fb_stats, dense = phase_fallback(
@@ -3555,6 +3982,7 @@ def main():
                              "eager_beside_graph": v.get(
                                  "eager_beside_graph")}
                          for k, v in its.items()},
+        "layout": layout_stats,
         "graph": {"checked": graphs,
                   "timed": {k: v["graph_capture"] for k, v in its.items()
                             if "graph_capture" in v},
@@ -3568,6 +3996,9 @@ def main():
                            "masked_none_active_ms":
                                tw["masked_none_active_ms"]}},
         "iteration_bound_ms": dict(tm["iter_bounds"], **tf["iter_bounds"]),
+        "graph_iteration_ms_by_layout": dict(tm["layouts_ms"],
+                                             wide=tw["layouts_ms"]),
+        "sass_draw": tm["sass"],
         "iteration_batch": {"plain": N_BASELINES, "grouped": tm["gbatch"],
                             "real": N_BASELINES, "mega": N_BASELINES},
         "herm_chol_solve_k1": tf["chol_k1"],

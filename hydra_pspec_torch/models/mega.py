@@ -1,12 +1,17 @@
-"""Chain constants in the padded, time-transposed mega layout, and the
+"""Chain constants in the time-transposed mega layout, and the
 single-step mega engine (port of ``hydra_pspec_tpu/models/mega.py``).
 
-The layout is the JAX package's: frequencies padded to a multiple of 128
-(``n``), times to a multiple of 128 (``t``), modes to a multiple of 8
-(``m``), and every per-time field transposed to ``(B, n, t)``. Where the
-JAX package keeps a ``(re, im)`` float32 pair, this package keeps one
-complex64 tensor. :meth:`MegaOperators.to_numpy` and
-:func:`from_jax_arrays` convert between the two.
+Every per-time field is transposed to ``(B, n, t)``. The layout keeps the
+data's own widths (:func:`layout_dims`): ``n`` is the channel count and
+``m`` the mode count, unpadded, and ``t`` the time count rounded up to
+even, the one pad a kernel of this package asks for (see
+:class:`MegaDims`). ``layout="jax"`` builds the JAX package's layout
+instead (widths padded to 128 lanes and 8 sublanes, the TPU's tiling):
+every pad is an exact zero in every sum the kernels take, so a run at
+either layout gives the same real lanes. Where the JAX package keeps a
+``(re, im)`` float32 pair, this package keeps one complex64 tensor.
+:meth:`MegaOperators.to_numpy` and :func:`from_jax_arrays` convert
+between the two.
 
 The mega engine (:func:`gibbs_step_mega`, :func:`run_chain_mega`) takes one
 iteration per call of the ``gcr_megastep`` entry: it serves more than 8
@@ -35,15 +40,38 @@ _REAL = ("nih", "ninv_full", "w")
 
 
 class MegaDims(NamedTuple):
-    """Static problem dims."""
+    """Static problem dims: the true widths and the layout's
+    (:func:`layout_dims`)."""
 
     nfreqs: int      # true Nfreqs
     ntimes: int      # true Ntimes
     nmodes: int      # true Nmodes
-    n: int           # padded freq dim (multiple of 128)
-    t: int           # padded time dim (multiple of 128)
-    m: int           # padded mode dim (multiple of 8)
+    # channel width: nfreqs, no pad (herm_inv takes any n, split above 128
+    # by blocked_herm_inv; cgemm zero-fills ragged tiles)
+    n: int
+    # time width: ntimes rounded up to even, so that every (n, t) row of a
+    # complex64 field starts on 16 bytes: cgemm's 16-byte cp.async copies
+    # of B and X, and the 16-byte lane pairs of draw_rhs and draw_system
+    t: int
+    # mode width: nmodes, no pad (cgemm takes any M and K)
+    m: int
     all_unflagged: bool
+
+
+LAYOUTS = ("port", "jax")
+
+
+def layout_dims(nfreqs: int, ntimes: int, nmodes: int,
+                layout: str = "port") -> tuple:
+    """``(n, t, m)`` of the layout for the true widths: ``"port"`` this
+    package's (:class:`MegaDims`), ``"jax"`` the JAX package's (multiples
+    of 128, 128 and 8)."""
+    if layout == "jax":
+        up = lambda x, k: -(-x // k) * k
+        return up(nfreqs, 128), up(ntimes, 128), up(nmodes, 8)
+    if layout != "port":
+        raise ValueError(f"layout must be one of {LAYOUTS}")
+    return nfreqs, ntimes + ntimes % 2, nmodes
 
 
 class MegaOperators(NamedTuple):
@@ -112,23 +140,23 @@ def _pad_np(x, shape):
 
 
 def from_chain_operators(ops: RChainOperators, device,
-                         t_pad: Optional[int] = None) -> tuple:
+                         t_pad: Optional[int] = None,
+                         layout: str = "port") -> tuple:
     """(a batch of) host chain operators -> (MegaOperators on ``device``,
-    MegaDims). ``t_pad`` forces the padded time width. Dense noise is
-    refused, as in the JAX package: it runs on the real engine."""
+    MegaDims) at ``layout`` (:func:`layout_dims`). ``t_pad`` forces the
+    time width. Dense noise is refused, as in the JAX package: it runs on
+    the real engine."""
     if ops.ni_dense is not None:
         raise NotImplementedError(
             "the mega layout takes diagonal noise; a dense Ninv runs on the "
             "real engine")
     B, T0, n0 = ops.d_w.shape
     m0 = ops.fg.shape[-1]
-    n = -(-n0 // 128) * 128
-    t = -(-T0 // 128) * 128
+    n, t, m = layout_dims(n0, T0, m0, layout)
     if t_pad is not None:
         if t_pad < t:
             raise ValueError(f"t_pad={t_pad} < required padded width {t}")
         t = t_pad
-    m = -(-m0 // 8) * 8
 
     c64 = lambda z: np.asarray(z).astype(np.complex64)
 
@@ -301,11 +329,13 @@ def run_chain_mega(mops: MegaOperators, dims: MegaDims, ps0_pad, prior,
                    graphs: Optional[dict] = None):
     """``niter`` mega steps from ``ps0_pad`` as one chunk (``mega.py:281-297``
     runs them as a Python loop). Randomness as :func:`rgibbs.run_chain`,
-    with the omegas in the padded ``(B, n, t)`` layout. ``chi_mask``
-    (optional (nfreqs,) 0/1, lean runs): the chi^2 mean over the masked
-    channels. ``graph``/``graphs``: as ``megachain.run_chunk_megachain``
-    (on the card with the streams the chunk is a :class:`ChunkGraph`,
-    and the sample holds views of its outputs until its next replay).
+    with the omegas in the layout's ``(B, n, t)`` (the runner cuts fields
+    drawn at the JAX package's widths to it: ``megachain.randomness_on``).
+    ``chi_mask`` (optional (nfreqs,) 0/1, lean runs): the chi^2 mean over
+    the masked channels. ``graph``/``graphs``: as
+    ``megachain.run_chunk_megachain`` (on the card with the streams the
+    chunk is a :class:`ChunkGraph`, and the sample holds views of its
+    outputs until its next replay).
     Returns ``(ps_pad_final, ChainSample)`` trimmed to the true widths."""
     body = lambda: mega_chunk_body(mops, dims, prior, tlog, q, seed=seed,
                                    sids=sids, randomness=randomness,

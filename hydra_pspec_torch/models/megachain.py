@@ -30,6 +30,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
+from ..ops import philox
 from ..ops.invgamma import make_invgamma_table
 from ..ops.kernels.graph import replay_chunk
 from ..ops.kernels.impl import KERNELS, Impl
@@ -37,8 +38,8 @@ from ..ops.kernels.megachain import TimeScatter, gcr_megachain
 from ..ops.kernels.rng_bandpower import (MAX_PRIOR_BINS, bounded_bins,
                                          prior_bins)
 from .mega import (MegaDims, MegaOperators, chain_sample, chi_mean,
-                   from_chain_operators, from_jax_arrays, ln_post,
-                   use_graph)
+                   from_chain_operators, from_jax_arrays, layout_dims,
+                   ln_post, use_graph)
 from .rgibbs import ChainSample
 
 MAX_TIME_GROUPS = 8
@@ -75,11 +76,14 @@ def prior_static_from(prior, dims: MegaDims):
 class TflagsMegaSetup(NamedTuple):
     """One flag signature in the grouped layout: each chain spans G
     consecutive rows (chain-major), row ``c*G + g`` carrying the operators
-    of time group g, every group padded to the same ``t_req`` time lanes.
-    G is the real group count rounded up to a power of two; the dummy
-    groups have zero operators and ``group_times`` 0, and so add exactly 0
-    to every pooled statistic. ``mops.igt`` is the table at alpha + 1 =
-    the TOTAL time count, the shape of the pooled conditional."""
+    of time group g, every group padded to the same ``t_req`` time lanes:
+    the largest group's time count, rounded as :func:`mega.layout_dims`
+    rounds it. G is the number of flag patterns. (At the JAX package's
+    layout G is rounded up to a power of two and the dummy groups have
+    zero operators and ``group_times`` 0, so they add exactly 0 to every
+    pooled statistic.) ``mops.igt`` is the table at alpha + 1 = the TOTAL
+    time count, the shape of the pooled conditional. A row's stream is
+    ``sid*G_key + g`` whatever G is (:func:`philox.grouped_stream_ids`)."""
 
     mops: MegaOperators   # (Bc*G, ...) rows, chain-major
     dims: MegaDims        # ntimes = TOTAL true times, t = t_req; flagged
@@ -102,19 +106,24 @@ def _interleave(per, G):
     return fields
 
 
-def build_tflags_mega_setup(groups, device) -> TflagsMegaSetup:
+def build_tflags_mega_setup(groups, device,
+                            layout: str = "port") -> TflagsMegaSetup:
     """``groups``: ``tflags.TimeGroupReal`` whose ``ops`` are stacked over
     the signature's (baseline, chain) batch, one entry per time group ->
-    the grouped layout on ``device`` (``models/megachain.py:107-156``)."""
+    the grouped layout on ``device`` (``models/megachain.py:107-156``):
+    G = the group count at ``layout="port"``; at ``"jax"`` G rounded up to
+    a power of two and each group padded to a multiple of 128 times."""
     g_real = len(groups)
-    G = 1
-    while G < g_real:
-        G *= 2
-    if G > MAX_TIME_GROUPS:
+    if g_real > MAX_TIME_GROUPS:
         raise ValueError(f"grouped megachain supports <= {MAX_TIME_GROUPS} "
                          f"time groups; got {g_real}")
-    t_req = max(-(-g.ops.d_w.shape[1] // 128) * 128 for g in groups)
-    per = [from_chain_operators(g.ops, device, t_pad=t_req) for g in groups]
+    G = philox.key_group(g_real) if layout == "jax" else g_real
+    ops0 = groups[0].ops
+    widths = lambda g: layout_dims(ops0.d_w.shape[2], g.ops.d_w.shape[1],
+                                   ops0.fg.shape[-1], layout)
+    t_req = max(widths(g)[1] for g in groups)
+    per = [from_chain_operators(g.ops, device, t_pad=t_req, layout=layout)
+           for g in groups]
     d0 = per[0][1]
     ntimes_total = sum(d.ntimes for _, d in per)
     mops = MegaOperators(**_interleave([m for m, _ in per], G),
@@ -165,19 +174,26 @@ def time_scatter(group_times, group_idx, dims: MegaDims,
                        dims.nfreqs, dims.nmodes)
 
 
-def randomness_on(randomness: dict, device) -> dict:
+def randomness_on(randomness: dict, device, dims: Optional[MegaDims] = None
+                  ) -> dict:
     """JAX-layout external randomness -> device tensors: complex64 ``oa``
     and ``ob`` (where given as ``_re``/``_im`` pairs), float32 ``gam`` and
-    ``u_pb``."""
+    ``u_pb``. With ``dims``, fields wider than its layout (the JAX
+    package's 128-lane pads) are cut to its ``(n, t)`` and ``gam`` to its
+    ``n``: the kernels read no lane beyond a row's true widths."""
     def t(x):
         if torch.is_tensor(x):
             return x.to(device=device, dtype=torch.float32)
         return torch.from_numpy(np.array(x, np.float32)).to(device)
-    out = dict(gam=t(randomness["gam"]), u_pb=t(randomness["u_pb"]))
+
+    n, tw = (None, None) if dims is None else (dims.n, dims.t)
+    cut = lambda x, *w: x[(...,) + tuple(slice(k) for k in w)].contiguous()
+    out = dict(gam=cut(t(randomness["gam"]), n), u_pb=t(randomness["u_pb"]))
     for name in ("oa", "ob"):
         if f"{name}_re" in randomness:
-            out[name] = torch.complex(t(randomness[f"{name}_re"]),
-                                      t(randomness[f"{name}_im"]))
+            out[name] = cut(torch.complex(t(randomness[f"{name}_re"]),
+                                          t(randomness[f"{name}_im"])),
+                            n, tw)
     return out
 
 
@@ -276,7 +292,8 @@ def run_chunk_megachain(
 
     ``group_times`` with more than one entry selects the grouped
     time-flags mode (:class:`TflagsMegaSetup`): ``mops``, ``ps_pad`` and
-    ``sids`` (row streams ``sid*G + g``) are per row, ``sidc`` the chain id
+    ``sids`` (row streams ``sid*G_key + g``,
+    :func:`philox.grouped_stream_ids`) are per row, ``sidc`` the chain id
     of each row, ``dims.ntimes`` the total time count and ``group_idx`` the
     real groups' time indices. The sample's batch axis is then CHAINS;
     ``ps_pad_final`` stays per row."""
@@ -291,7 +308,7 @@ def run_chunk_megachain(
             "accepted)")
     lean = not store_cr
     rnd = (None if randomness is None
-           else randomness_on(randomness, ps_pad.device))
+           else randomness_on(randomness, ps_pad.device, dims))
     make_body = lambda: chunk_body(
         mops, tables, dims, prior_static, seed=seed, sids=sids,
         randomness=rnd, refine=refine, lean=lean, warm_ns=warm_ns,
@@ -344,11 +361,13 @@ def auto_chunk(niter: int, batch: int, dims: MegaDims,
     warm-start resets (one exact rebuild per chunk); the same quantized
     policy is kept so both packages chunk a run alike."""
     target = max(100, 6400 // max(batch, 1))
+    # sized at the JAX package's layout, whatever this run's layout is, so
+    # that both packages (and every layout) chunk a run alike
+    n, t, m = layout_dims(dims.nfreqs, dims.t, dims.nmodes, "jax")
     if store_cr:
-        n, t, m = dims.n, dims.t, dims.m
         bytes_per = 4 * (3 * n * t + 2 * m * t + 3 * n)
     else:
-        bytes_per = 4 * 4 * dims.n
+        bytes_per = 4 * 4 * n
     cap = (1 << 30) // max(1, batch * bytes_per)
     k = min(target, max(100, cap), 1600, max(100, niter))
     return max(100, (k // 100) * 100)

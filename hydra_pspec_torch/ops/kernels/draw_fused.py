@@ -5,8 +5,17 @@ VPU phases of ``ops/pallas/megastep.py::_draw_body``: the right-hand side
 (:139-142), the equilibrated system and scaled RHS (:153-174), ``beta``
 (:199-201), the residual statistics (:221-234) and the lean ``chi_t``
 (``ops/pallas/megachain.py:427-434``). Each is a streaming pass over
-``(B, n, t)`` complex fields, bound by HBM bandwidth on the H100; one block
-per row, coalesced, row sums by a fixed-order block reduction.
+``(B, n, t)`` complex fields. ``row_scale_sumsq`` and ``draw_resid`` take
+one block a row, coalesced, row sums by a fixed-order block reduction.
+``draw_rhs`` and ``draw_system`` take four time lanes a thread over the
+flat (row, lane) space, in 16-byte pairs where ``t`` is even; keyed, they
+are bound by the instructions of the Philox and Box-Muller draws, which
+the four lanes of a thread share where they can. ``draw_system`` computes
+``dd`` and ``dinv`` once per chain: a chain's rows go to a cluster of
+blocks that share those values through distributed shared memory. Pad
+lanes (``j`` at or above a row's time count) are written as zeros without
+being read: the layout (``models/mega.py``) holds zeros in every input
+there, so the plain versions give zeros there too.
 
 The time mask is ``j < ntimes``; in the grouped time-flags mode the
 optional int32 ``row_times`` (B,) gives each row its own count instead.

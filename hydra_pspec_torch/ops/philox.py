@@ -29,7 +29,9 @@ draws exactly what the ungrouped real engine draws.
 
 Grouped time-flags mode (G > 1 flag-pattern time groups per chain, rows
 chain-major): the omegas of row ``c*G + g`` are keyed on the row stream
-``sid*G + g`` and zero beyond that row's time count; the Gamma and uniform
+``sid*G_key + g``, ``G_key`` the power of two at or above G
+(:func:`key_group`; the row layout of the JAX package, which rounds G up
+to it), and zero beyond that row's time count; the Gamma and uniform
 words of the chain's one bandpower draw are keyed on the chain stream
 ``sid + 2^30`` (:data:`CHAIN_STREAM_OFFSET`). Row ids stay below 2^30, so
 row and chain keys never meet (:func:`grouped_stream_ids`). G = 1 is plain
@@ -132,14 +134,25 @@ def _keys(seed: int, sids: torch.Tensor):
     return k0, k1
 
 
+def key_group(group: int) -> int:
+    """``G_key``: the power of two at or above ``group``, the stride of a
+    chain's row streams."""
+    g = 1
+    while g < group:
+        g *= 2
+    return g
+
+
 def grouped_stream_ids(sid_chain, group: int):
     """Per-row stream ids of chains ``sid_chain`` (global ids, host ints)
-    laid out as ``group`` chain-major rows each: ``(row ids sid*G + g,
-    chain id of each row)``, int32 numpy. Raises when a row id would reach
-    2^30, where row keys would meet the chain keys ``sid + 2^30``."""
+    laid out as ``group`` chain-major rows each: ``(row ids sid*G_key + g,
+    chain id of each row)``, int32 numpy, ``G_key`` = :func:`key_group`:
+    a row keeps its stream whether or not the layout rounds G up to
+    ``G_key`` with dummy rows. Raises when a row id would reach 2^30, where
+    row keys would meet the chain keys ``sid + 2^30``."""
     sid = np.asarray(sid_chain, dtype=np.int64)
-    rows = np.repeat(sid, group) * group + np.tile(np.arange(group),
-                                                   sid.size)
+    rows = (np.repeat(sid, group) * key_group(group)
+            + np.tile(np.arange(group), sid.size))
     if group > 1 and rows.size and int(rows.max()) >= CHAIN_STREAM_OFFSET:
         raise ValueError(f"row stream id {int(rows.max())} >= 2^30: row "
                          f"and chain streams would overlap")

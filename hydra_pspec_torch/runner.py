@@ -211,11 +211,13 @@ def _sync(devices):
             torch.cuda.synchronize(d)
 
 
-def _chunk_randomness(randomness, it, k, device, **kw):
-    """One chunk's external randomness on ``device``, or None."""
+def _chunk_randomness(randomness, it, k, device, dims=None, **kw):
+    """One chunk's external randomness on ``device``, or None; with the
+    mega engine's ``dims``, cut to its layout
+    (:func:`megachain.randomness_on`)."""
     if randomness is None:
         return None
-    return megachain.randomness_on(randomness(it, k, **kw), device)
+    return megachain.randomness_on(randomness(it, k, **kw), device, dims)
 
 
 def _complex_randomness(randomness, it, k, device, **kw):
@@ -304,9 +306,12 @@ def run_baselines(
     ``ob_re``, ``ob_im`` in the engine's omega layout, ``gam``, ``u_pb``,
     each with a leading K axis; on the complex engine ``oa``, ``ob``,
     ``gam`` and ``u`` as ``models/gibbs.py`` takes them), for pinning
-    against it; default is the Philox streams of ``seed``. On the time-flags path it is called as
+    against it (the megachain and mega engines cut fields drawn at the
+    JAX package's 128-lane widths to their own layout); default is the
+    Philox streams of ``seed``. On the time-flags path it is called as
     ``randomness(iteration, k_total, sids=row stream ids, sidc=chain id of
-    each row, group=G)`` on the megachain engine and ``randomness(
+    each row, group=G)`` on the megachain engine (G the group count, rows
+    keyed ``sid*G_key + g``) and ``randomness(
     iteration, k_total, sids=chain ids)`` on the real engine (omegas over
     all times), since each signature has its own rows.
 
@@ -391,7 +396,7 @@ def run_baselines(
                     randomness, done, n, sh.device),
                 map_estimate=map_estimate, jitter=jitter, store_cr=store_cr,
                 graph=overlap, graphs=graphs)
-        rnd = _chunk_randomness(randomness, done, n, sh.device)
+        rnd = _chunk_randomness(randomness, done, n, sh.device, sh.dims)
         if engine == "mega":
             return mega.run_chain_mega(
                 sh.ops, sh.dims, sh.ps, sh.bins, n, sh.tables.tlog,
@@ -802,7 +807,8 @@ def _tflags_complex(groups, sid_host, device, seed, store_cr, randomness,
 def _tflags_megachain(groups, sid_host, device, seed, store_cr, randomness,
                       warm_ns, drift_max, prior_host):
     """A signature on the grouped megachain mode: chain-major (chain, time
-    group) rows, row streams ``sid*G + g`` and chain streams ``sid``.
+    group) rows, row streams ``sid*G_key + g`` and chain streams ``sid``
+    (:func:`philox.grouped_stream_ids`).
     Returns ``(run(ps, n, done), to_state(host ps), chain_ps(state))``:
     the chunk runner, and the state layout (one row per (chain, group))."""
     setup = megachain.build_tflags_mega_setup(groups, device)

@@ -414,7 +414,8 @@ def case_mega_matches_jax(tmp_path, jax_root):
     jres, jfiles = jax_run("mega", str(jax_root))
     jobs = _jobs(trunner.BaselineJob, None)
     _, dims = tmega.from_chain_operators(trg.build_chain_operators(
-        jobs[0].d, jobs[0].w, jobs[0].fgmodes, jobs[0].Ninv), "cpu")
+        jobs[0].d, jobs[0].w, jobs[0].fgmodes, jobs[0].Ninv), "cpu",
+        layout="jax")
     jobs, (res, tim) = _run(tmp_path, "port", prior=_prior(11),
                             randomness=mega_randomness(11, dims))
     assert tim["engine"] == "mega"

@@ -84,7 +84,8 @@ def case_mega_operators():
         jl.append(jrg.build_chain_operators(d, w, fg, ninv))
         tl.append(trg.build_chain_operators(d, w, fg, ninv))
     jm, jd = jmega.from_chain_operators(jrg.stack_chain_operators(jl))
-    tm, td = tmega.from_chain_operators(trg.stack_chain_operators(tl), CPU)
+    tm, td = tmega.from_chain_operators(trg.stack_chain_operators(tl), CPU,
+                                        layout="jax")
     assert tuple(td) == tuple(jd)
     got = tm.to_numpy()
     for f in jm._fields:

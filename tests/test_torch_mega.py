@@ -56,7 +56,7 @@ def _problem():
     jm, jd = jmega.from_chain_operators(jrg.stack_chain_operators(
         [jrg.build_chain_operators(*x) for x in ins]))
     tm, td = tmega.from_chain_operators(trg.stack_chain_operators(
-        [trg.build_chain_operators(*x) for x in ins]), CPU)
+        [trg.build_chain_operators(*x) for x in ins]), CPU, layout="jax")
     ps = (np.abs(np.random.default_rng(217).standard_normal((B, NF))) * 10.0
           + 0.05).astype(np.float32)
     return jm, jd, tm, td, ps

@@ -8,8 +8,8 @@ the keyed kernels against their stored mode and the ``bandpower`` kernel
 against its plain version. The stored mode itself is pinned against the
 JAX package in tests/test_torch_megachain.py and tests/test_torch_mega.py.
 
-The problem is small: 12 times x 16 channels, 2 foreground modes, padded
-to n = t = 128 as the engines pad it."""
+The problem is small: 12 times x 16 channels, 2 foreground modes, at the
+engines' layout (the data's own widths, n = 16, t = 12)."""
 import functools
 
 import numpy as np

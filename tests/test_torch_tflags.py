@@ -128,7 +128,7 @@ def test_setup_matches_jax(three_groups):
                   "fg", "ni_d", "a0", "p_tilde", "g_mat", "maa_inv"):
             _equal(getattr(t.ops, f), _c(getattr(j.ops, f)), f)
 
-    tset = tmc.build_tflags_mega_setup(tgroups, CPU)
+    tset = tmc.build_tflags_mega_setup(tgroups, CPU, layout="jax")
     assert tuple(tset.dims) == tuple(jset.dims)
     assert tset.dims.ntimes == NT and not tset.dims.all_unflagged
     assert tset.group_times == tuple(jset.group_times)

@@ -1,6 +1,7 @@
 """Smoke run of the PyTorch/CUDA port (hydra_pspec_torch) on one NVIDIA GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --rows OUT [PARENT]   # the two row passes alone
 
 Phases, one printed line each (any failure raises; exit code non-zero):
   1. environment: torch/CUDA versions, and the card's name and power limit
@@ -41,6 +42,12 @@ Phases, one printed line each (any failure raises; exit code non-zero):
      residual gates, with their launches counted; cgemm at every
      product shape of the paths (C aliasing X included); the blocked
      herm_inv at B=8, n=180 and herm_chol_solve at B=8, n=180, K=203;
+     the two row passes, row_scale_sumsq and draw_resid, on random inputs
+     at t in ROW_TS (1, 2, 31, 80, 203, 204, 256, 257, 1100) x n in
+     ROW_NS (120, 121, 180), every variant (s1, s2 and y present and
+     absent; each optional output of draw_resid present and absent, on
+     ragged row_times and on ntimes alone) within 1e-5 of the largest
+     plain output, one line a (kernel, n, t);
   4. chain phase: run_chunk_megachain with numpy-made randomness, K=3,
      B=8, kernels against the plain path, at the CPU pin's tolerances; the
      same for a grouped chain (8 chains x G=3);
@@ -187,9 +194,17 @@ Phases, one printed line each (any failure raises; exit code non-zero):
      the port's layout and at the JAX package's, in turns (port, JAX, JAX,
      port), and the keyed passes' device times at both layouts; the keyed
      passes' SASS instructions a drawn lane (cuobjdump -sass of the built
-     library, where the toolkit has it), which bound them. Every bound
-     counts the data's own widths: n = nfreqs, m = nmodes, and each row's
-     true times.
+     library, where the toolkit has it), which bound them; the two row
+     passes' device times (in a third process, python3 chip_smoke.py
+     --rows OUT) at each path's shape (main B=100, t=204; grouped
+     100 x G=3, t=80; real 20 x t=203 and the grouped real engine's groups
+     of 15 and 53 times; each variant as its path launches it) beside
+     their bounds, torch.linalg.vector_norm beside the unscaled sums, and
+     the replaced kernels' times (PARENT_ROW_MS; --rows OUT PARENT times a
+     parent checkout's kernels in turns, parent, this, this, parent, and
+     holds this tree's outputs torch.equal to them at every case and at
+     every variant of phase 3's widths). Every bound counts the data's
+     own widths: n = nfreqs, m = nmodes, and each row's true times.
 The megachain and mega paths draw their omegas in draw_rhs and draw_system
 and must launch no rng_fields; the real paths launch it. Through
 run_baselines those two engines run each chunk as a CUDA graph; the launch
@@ -904,6 +919,7 @@ def phase_kernels(dev, jobs8, jobs_w8, errs):
         args = (mops.dw, sig, fa, mops.ninv_full, w, da, mops.a0, nt)
         cmp("draw_resid", K.draw_resid(*args, **kw),
             P.draw_resid(*args, **kw), 1e-5, "lean" if lean else "full")
+    check_row_widths(dev, cmp)
 
     tables = megachain.make_chain_tables(mops, dev)
     prior = rb.prior_bins(megachain.prior_static_from(make_prior(), dims),
@@ -2841,7 +2857,8 @@ def phase_estimators(dev):
 
 # --- 9. times ----------------------------------------------------------------
 
-def work(name, B, n, t, m, ntimes, valid=None, chains=None, alpha=None):
+def work(name, B, n, t, m, ntimes, valid=None, chains=None, alpha=None,
+         scales=2, want_y=True, lean=False, ws=False):
     """(bytes, operations) one call of kernel ``name`` needs at the data's
     own widths: ``n`` channels, ``m`` modes and the real time lanes of the
     rows (``B * ntimes``, or ``valid``: in the grouped mode each row has its
@@ -2854,7 +2871,10 @@ def work(name, B, n, t, m, ntimes, valid=None, chains=None, alpha=None):
     draws once per chain). The solves take ``t`` as their right-hand-side
     count K. ``draw_rhs`` and ``draw_system`` are the keyed mode of the
     main path (no omega field read; a Philox call and a Box-Muller pair per
-    drawn lane instead); ``*_stored`` their stored mode."""
+    drawn lane instead); ``*_stored`` their stored mode.
+    ``row_scale_sumsq`` reads ``scales`` row scales (0 to 2) and writes
+    ``y`` if ``want_y``; ``draw_resid`` writes chi and amps, or with
+    ``lean`` the row sums chi_t instead, and w sig with ``ws``."""
     lanes = B * ntimes if valid is None else valid
     cfield, mfield, vec = 8 * n * lanes, 8 * m * lanes, 4 * B * n
 
@@ -2889,10 +2909,13 @@ def work(name, B, n, t, m, ntimes, valid=None, chains=None, alpha=None):
                 6 * B * n * n + 6 * n * lanes
                 + (draw("draw_system") if keyed else 0))
     if name == "row_scale_sumsq":
-        return 2 * cfield + 3 * vec, 8 * n * lanes
-    if name == "draw_resid":   # full: chi and amps, no w sig
-        return (3 * cfield + 2 * vec + 3 * mfield + 4 * n * lanes
-                + vec), 10 * n * lanes + 2 * m * lanes
+        return ((2 if want_y else 1) * cfield + (scales + 1) * vec,
+                (2 * scales + 4) * n * lanes)
+    if name == "draw_resid":   # dw, sig, fa, ninvf, w read; noise written
+        nbytes = 3 * cfield + 3 * vec + (cfield if ws else 0) + (
+            vec if lean else 3 * mfield + 4 * n * lanes)
+        return nbytes, (10 * n * lanes + (2 * n * lanes if ws else 0)
+                        + (0 if lean else 2 * m * lanes))
     if name == "rng_fields":   # a Philox call, two Box-Muller pairs a lane
         return 2 * cfield, n * lanes * (PHILOX_OPS + 2 * BOX_MULLER_OPS)
     if name == "herm_inv_gate":   # the gate alone: two (B, n) rows read,
@@ -3359,6 +3382,269 @@ def device_profile(run, iters, what="eager kernel path"):
     return out
 
 
+# --- the two row passes at every path's shape ---------------------------
+
+# the widths phase 3 holds row_scale_sumsq and draw_resid at against their
+# plain versions: one lane, a pair, a short odd row, the grouped rows, the
+# real engine's odd 203, the main 204, one 256-wide tree, one lane over
+# it, the long night's 1100; channels 120, odd 121 and the wide band's 180
+ROW_TS, ROW_NS = (1, 2, 31, 80, 203, 204, 256, 257, 1100), (120, 121, 180)
+# device ms of the row kernels this design replaced (one 256-thread block a
+# row) at the cases of row_pass_cases, on an NVIDIA H100 80GB HBM3 at
+# 700.00 W as python3 chip_smoke.py --rows printed them; printed beside
+# this tree's when no parent checkout is given
+PARENT_ROW_MS = {
+    "row_scale_sumsq main s1 s2 y": 0.01882,
+    "draw_resid main full": 0.03076,
+    "draw_resid main lean": 0.02777,
+    "row_scale_sumsq grouped 100 x G=3 s1 s2 y": 0.04638,
+    "row_scale_sumsq grouped 100 x G=3 unscaled": 0.03461,
+    "draw_resid grouped 100 x G=3 full ws": 0.07044,
+    "draw_resid grouped 100 x G=3 lean ws": 0.07741,
+    "row_scale_sumsq real 20 x t=203 s1 y": 0.00408,
+    "row_scale_sumsq real 20 x t=203 unscaled": 0.00386,
+    "row_scale_sumsq real grouped 20 x t=15 s1 y": 0.00355,
+    "row_scale_sumsq real grouped 20 x t=15 unscaled": 0.00354,
+    "row_scale_sumsq real grouped 20 x t=53 s1 y": 0.00365,
+    "row_scale_sumsq real grouped 20 x t=53 unscaled": 0.00358,
+}
+
+
+def row_pass_variants(dev, n, t, B=5, m=12):
+    """[(what, kernel, call(M))] on random inputs at (B, n, t):
+    row_scale_sumsq with and without s1, s2 and y; draw_resid with each
+    optional output (chi, chit, amp, ws) present and absent, on ragged
+    row_times (0, t and counts between), and once on ntimes alone."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 1000 * n + t)
+    cx = lambda *s: torch.randn(s, dtype=torch.complex64, device=dev,
+                                generator=gen)
+    pos = lambda *s: torch.rand(s, device=dev, generator=gen) + 0.5
+    x, s1, s2 = cx(B, n, t), pos(B, n), pos(B, n)
+    out = []
+    for mask in range(8):
+        a, c, want_y = (s1 if mask & 1 else None), (s2 if mask & 2 else
+                                                     None), bool(mask & 4)
+        out.append((f"s1 {a is not None:d} s2 {c is not None:d} y "
+                    f"{want_y:d}", "row_scale_sumsq",
+                    lambda M, a=a, c=c, y=want_y: M.row_scale_sumsq(
+                        x, a, c, want_y=y)))
+    dw, sig, fa = cx(B, n, t), cx(B, n, t), cx(B, n, t)
+    ninvf, w = pos(B, n), (pos(B, n) > 0.8).float()
+    da, a0 = cx(B, m, t), cx(B, m, t)
+    rt = torch.randint(0, t + 1, (B,), device=dev, generator=gen,
+                       dtype=torch.int32)
+    rt[0], rt[-1] = t, 0
+    args = (dw, sig, fa, ninvf, w, da, a0, max(t - 1, 1))
+    for mask in range(17):
+        kw = dict(want_chi=bool(mask & 1), want_chit=bool(mask & 2),
+                  want_amp=bool(mask & 4), want_ws=bool(mask & 8),
+                  row_times=None if mask == 16 else rt)
+        what = ("ntimes = t - 1, all outputs" if mask == 16 else
+                " ".join(f"{k[5:]} {int(v)}" for k, v in kw.items()
+                         if k.startswith("want")))
+        if mask == 16:
+            kw.update(want_chi=True, want_chit=True, want_amp=True,
+                      want_ws=True)
+        out.append((what, "draw_resid",
+                    lambda M, kw=kw: M.draw_resid(*args, **kw)))
+    return out
+
+
+def check_row_widths(dev, cmp):
+    """Phase 3's widths: both row kernels against their plain versions,
+    every variant of :func:`row_pass_variants`, within 1e-5 of the
+    largest plain output, one line a (kernel, n, t)."""
+    from hydra_pspec_torch.ops.kernels import impl as I
+
+    for n in ROW_NS:
+        for t in ROW_TS:
+            for kernel in ("row_scale_sumsq", "draw_resid"):
+                err, ref = 0.0, 0.0
+                for _, k, fn in row_pass_variants(dev, n, t):
+                    if k != kernel:
+                        continue
+                    for g, w in zip(fn(I.KERNELS), fn(I.PLAIN)):
+                        if w is not None:
+                            err = max(err, float(torch.abs(g - w).max()))
+                            ref = max(ref, float(torch.abs(w).max()))
+                cmp(kernel, torch.tensor(err), torch.tensor(0.0), 1e-5,
+                    f"n={n} t={t} variants", ref)
+
+
+def row_pass_cases(dev, jobs):
+    """[(label, kernel, work kwargs, call(M), library call or None)] of
+    row_scale_sumsq and draw_resid at each path's shape, on random inputs:
+    the main path (B = 100, t = 204, 203 times); the grouped time-flags
+    path (100 chains x G = 3 rows of t = 80, signature A's 70 + 80 + 53
+    true times); the real engine (20 baselines, 203 times) and its grouped
+    mode's groups (rfi_windows' 11 flag patterns: ten of 15 times, one of
+    53). Each variant as its path launches it (scaled with y: beta; y not
+    kept: the bmask and the real residual sums; lean: chi_t)."""
+    from hydra_pspec_torch.models import mega
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 13)
+    cx = lambda *s: torch.randn(s, dtype=torch.complex64, device=dev,
+                                generator=gen)
+    pos = lambda *s: torch.rand(s, device=dev, generator=gen) + 0.5
+    gs = grouped_setup(jobs[:1], tflag_signatures()[0], N_BASELINES, dev)
+    G = len(gs.group_times)
+    rt = grouped_ids(gs, N_BASELINES, dev)[0]
+    Bg, _, tg = gs.mops.nid.shape
+    t_main = mega.layout_dims(NF, NT, NM)[1]
+    real_ts = sorted(set(np.unique(rfi_windows(), axis=0,
+                                   return_counts=True)[1].tolist()))
+    cases = []
+    shapes = [("main", N_BASELINES, t_main, NT, None, False),
+              (f"grouped {N_BASELINES} x G={G}", Bg, tg, gs.dims.ntimes, rt,
+               False),
+              (f"real {N_TF_REAL} x t={NT}", N_TF_REAL, NT, NT, None, True)]
+    shapes += [(f"real grouped {N_TF_REAL} x t={t}", N_TF_REAL, t, t, None,
+                True) for t in real_ts]
+    for label, B, t, ntimes, rows, real in shapes:
+        sh = dict(B=B, n=NF, t=t, m=NM, ntimes=ntimes,
+                  valid=None if rows is None else int(rows.sum()))
+        x, s1, s2 = cx(B, NF, t), pos(B, NF), pos(B, NF)
+        if real:   # the real engine's sk = dd u
+            cases.append((f"row_scale_sumsq {label} s1 y", "row_scale_sumsq",
+                          dict(sh, scales=1),
+                          lambda M, x=x, s1=s1: M.row_scale_sumsq(x, s1),
+                          None))
+        else:
+            cases.append((f"row_scale_sumsq {label} s1 s2 y",
+                          "row_scale_sumsq", sh,
+                          lambda M, x=x, s1=s1, s2=s2: M.row_scale_sumsq(
+                              x, s1, s2), None))
+        if label != "main":   # the bmask launch; the real residual sums
+            cases.append((f"row_scale_sumsq {label} unscaled",
+                          "row_scale_sumsq", dict(sh, scales=0, want_y=False),
+                          lambda M, x=x: M.row_scale_sumsq(x, want_y=False),
+                          lambda x=x: torch.linalg.vector_norm(x, dim=-1)))
+        if real:
+            continue
+        dw, sig, fa = cx(B, NF, t), cx(B, NF, t), cx(B, NF, t)
+        ninvf, w = pos(B, NF), (pos(B, NF) > 0.6).float()
+        da, a0 = cx(B, NM, t), cx(B, NM, t)
+        ws = rows is not None   # flagged: w sig for the bmask
+        for lean in (False, True):
+            kw = dict(want_chi=not lean, want_chit=lean, want_amp=not lean,
+                      want_ws=ws, row_times=rows)
+            cases.append((f"draw_resid {label} {'lean' if lean else 'full'}"
+                          f"{' ws' if ws else ''}", "draw_resid",
+                          dict(sh, lean=lean, ws=ws),
+                          lambda M, kw=kw, a=(dw, sig, fa, ninvf, w, da, a0,
+                                              ntimes): M.draw_resid(*a, **kw),
+                          None))
+    return cases
+
+
+def parent_library(root):
+    """The kernel library of the checkout at ``root`` (its own
+    ``_build.py``, built into its own ``_build/``), loaded beside this
+    tree's."""
+    import importlib.util
+
+    path = Path(root) / "hydra_pspec_torch" / "ops" / "kernels" / "_build.py"
+    spec = importlib.util.spec_from_file_location("parent_build", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod.library()
+
+
+class _LibraryOf:
+    """``with _LibraryOf(lib):`` the wrappers launch ``lib``'s entries (a
+    parent checkout's kernels: the C signatures are the same)."""
+
+    def __init__(self, lib):
+        from hydra_pspec_torch.ops.kernels import _build
+
+        self._build, self.lib = _build, lib
+
+    def __enter__(self):
+        self._own = self._build.library()
+        self._build._LIB.lib = self.lib
+
+    def __exit__(self, *exc):
+        self._build._LIB.lib = self._own
+
+
+def row_pass_times(dev, jobs, parent_lib=None):
+    """Device time (profiler) of each case of :func:`row_pass_cases`
+    beside its bound on the true lanes and, for the unscaled sums,
+    ``torch.linalg.vector_norm(x, dim=-1)`` (one PyTorch call of a
+    bandwidth-bound row reduction; it returns the root). With
+    ``parent_lib``, that library's kernels too, in turns parent, this,
+    this, parent, their outputs ``torch.equal`` to this tree's; without
+    it, :data:`PARENT_ROW_MS` beside."""
+    from hydra_pspec_torch.ops.kernels import impl as I
+
+    K = I.KERNELS
+    rows = {}
+    for label, kernel, wk, fn, lib_fn in row_pass_cases(dev, jobs):
+        b_ms, by = bound(kernel, **wk)
+        row = {"kernel": kernel, "bound_ms": b_ms, "bound_by": by}
+        if parent_lib is None:
+            row["ms"] = _device_ms(lambda: fn(K))
+            row["parent_ms"] = PARENT_ROW_MS.get(label)
+            row["parent_from"] = "PARENT_ROW_MS"
+        else:
+            with _LibraryOf(parent_lib):
+                p0 = _device_ms(lambda: fn(K))
+                want = fn(K)
+            c = [_device_ms(lambda: fn(K)) for _ in range(2)]
+            with _LibraryOf(parent_lib):
+                p1 = _device_ms(lambda: fn(K))
+            got = fn(K)
+            same = all((g is None and w is None) or torch.equal(g, w)
+                       for g, w in zip(got, want))
+            row.update(ms=sum(c) / 2, parent_ms=(p0 + p1) / 2,
+                       parent_turns=[p0, c[0], c[1], p1],
+                       parent_from="checkout", equal_parent=same)
+            require(same, f"{label}: outputs differ from the parent's")
+        row["share"] = b_ms / row["ms"]
+        if lib_fn is not None:
+            row["library_ms"] = _device_ms(lib_fn)
+        rows[label] = row
+        pm = row["parent_ms"]
+        say("times", f"device time {label:42s} {row['ms']:.5f} ms (parent "
+            f"{'not measured' if pm is None else f'{pm:.5f} ms'}), bound "
+            f"{b_ms:.5f} ms ({by}), {100 * row['share']:.1f} % of it"
+            + (f"; vector_norm {row['library_ms']:.5f} ms" if lib_fn else "")
+            + (f"; torch.equal parent: {row['equal_parent']}"
+               if "equal_parent" in row else ""))
+    return rows
+
+
+def rows_main(out, parent=None):
+    """``python3 chip_smoke.py --rows OUT [PARENT]``: the two row passes
+    alone, on one card: :func:`row_pass_times`, beside
+    :data:`PARENT_ROW_MS` or, with a PARENT checkout, against the parent's
+    kernels, after holding both kernels of this tree ``torch.equal`` to the
+    parent's at every variant of phase 3's widths. Results to OUT as
+    JSON."""
+    from hydra_pspec_torch.ops.kernels import _build
+    from hydra_pspec_torch.ops.kernels import impl as I
+
+    phase_env()
+    dev = torch.device("cuda", 0)
+    _build.library()
+    plib = None if parent is None else parent_library(parent)
+    if plib is not None:
+        for n in ROW_NS:
+            for t in ROW_TS:
+                for what, kernel, fn in row_pass_variants(dev, n, t):
+                    got = fn(I.KERNELS)
+                    with _LibraryOf(plib):
+                        want = fn(I.KERNELS)
+                    require(all((g is None and w is None) or torch.equal(g, w)
+                                for g, w in zip(got, want)),
+                            f"{kernel} n={n} t={t} {what}: differs from the "
+                            f"parent's")
+                say("kernels", f"row passes n={n} t={t}: every variant "
+                    f"torch.equal to the parent's kernels")
+    rows = row_pass_times(dev, make_jobs(1), plib)
+    Path(out).write_text(json.dumps(rows, indent=1))
+
+
 def phase_times(dev, jobs):
     from hydra_pspec_torch.models import mega, megachain
     from hydra_pspec_torch.ops.kernels import draw_fused as df
@@ -3564,6 +3850,7 @@ def phase_times(dev, jobs):
     da = torch.zeros_like(gm.a0)
     gkey = df.OmegaKey(SEED, sids_r, 0)
     gcases = {
+        "row_scale_sumsq": lambda M: M.row_scale_sumsq(x, dinv, dd),
         "draw_rhs": lambda M: M.draw_rhs(gm.nid, gm.nih, None, ntot, rt,
                                          gkey),
         "draw_system": lambda M: M.draw_system(gm.pt, psg, frc, None, ntot,
@@ -3845,6 +4132,16 @@ def times_process(out_root):
     return got["tm"], got["tf"], got["tw"]
 
 
+def rows_process(out_root):
+    """The two row passes' device times (:func:`rows_main`) in a process
+    of their own, like the timing phases: many profiler windows in one
+    process make its later windows lose device activities."""
+    out = Path(out_root) / "rows.json"
+    subprocess.run([sys.executable, str(Path(__file__).resolve()), "--rows",
+                    str(out)], check=True)
+    return json.loads(out.read_text())
+
+
 def times_main(out):
     """``python3 chip_smoke.py --times OUT``: the timing phases on the main
     path's, the dense and the wide band's jobs (made from the same seeds
@@ -3946,6 +4243,7 @@ def main():
         scripts_stats = phase_scripts(dev, out_root)
         mark("scripts", t0)
         tm, tf, tw = times_process(out_root)
+        rows = rows_process(out_root)
         mark("times", t0)
     finally:
         shutil.rmtree(out_root, ignore_errors=True)
@@ -3999,6 +4297,7 @@ def main():
         "graph_iteration_ms_by_layout": dict(tm["layouts_ms"],
                                              wide=tw["layouts_ms"]),
         "sass_draw": tm["sass"],
+        "row_passes": rows,
         "iteration_batch": {"plain": N_BASELINES, "grouped": tm["gbatch"],
                             "real": N_BASELINES, "mega": N_BASELINES},
         "herm_chol_solve_k1": tf["chol_k1"],
@@ -4033,6 +4332,8 @@ if __name__ == "__main__":
     elif sys.argv[1:2] == ["--multiproc"]:
         multiproc_worker(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4],
                          sys.argv[5])
+    elif sys.argv[1:2] == ["--rows"]:
+        rows_main(*sys.argv[2:4])
     elif sys.argv[1:2] == ["--multichip"]:
         multichip_main(int(sys.argv[2]))
     else:

@@ -18,10 +18,18 @@
 //
 // Bound on the H100. row_scale_sumsq and draw_resid stream (B, n, t)
 // complex fields at a few FLOP per 8-byte element: HBM bandwidth bound
-// (3.35 TB/s). Design: one block per row of n (or t) elements, consecutive
-// threads on consecutive elements (coalesced), row sums by a fixed-order
-// block reduction, so every result is deterministic and independent of the
-// batch.
+// (3.35 TB/s). Their rows are short (t = 204 on the main path, 53-80 in
+// the grouped time-flags mode, about 15 in the grouped real engine), so
+// one 256-thread block a row left most of each block idle and set their
+// time by block waves. Design: a row takes 4, 8 or 32 lanes of a warp
+// (from t alone), a thread LANES = 4 consecutive time lanes in 16-byte
+// pairs where t is even; several rows share a warp or a block, and a
+// row's sum is reduced by shuffles in the fixed tree of a 256-thread
+// block reduction (see the row passes below), so every result is
+// deterministic, independent of the batch, and the same bits as the
+// block-a-row kernels these replaced. draw_resid's amplitude rows
+// (amps = da + a0) take the flat (row, lane chunk) tiling of the same
+// launch.
 //
 // draw_rhs and draw_system, the two passes that draw the omegas, were
 // redesigned for the layout at the data's own widths (t = 204 on the main
@@ -80,7 +88,6 @@
 namespace cg = cooperative_groups;
 
 namespace {
-constexpr int ROW_THREADS = 256;
 constexpr int PASS_THREADS = 256;  // at most, draw_rhs and draw_system
 constexpr int LANES = 4;           // time lanes a thread
 constexpr int SYS_CLUSTER = 8;     // blocks of one chain in draw_system
@@ -340,69 +347,239 @@ bool aligned16(const void* p) {
   return p == nullptr || (reinterpret_cast<uintptr_t>(p) & 15u) == 0;
 }
 
-__global__ void __launch_bounds__(ROW_THREADS)
-scale_sumsq_kernel(const float2* __restrict__ x, const float* __restrict__ s1,
-                   const float* __restrict__ s2, float2* __restrict__ y,
-                   float* __restrict__ sums, int t) {
-  __shared__ float red[32];
-  const long long row = blockIdx.x;
-  const float a = s1 ? s1[row] : 1.f;
-  const float c = s2 ? s2[row] : 1.f;
-  float acc = 0.f;
-  for (int j = threadIdx.x; j < t; j += blockDim.x) {
-    const long long o = row * t + j;
-    const float2 v = x[o];
-    const float2 u = make_float2(c * (a * v.x), c * (a * v.y));
-    if (y) y[o] = u;
-    acc += abs2(u);
-  }
-  acc = block_sum(acc, red);
-  if (threadIdx.x == 0) sums[row] = acc;
+// --- the row passes: row_scale_sumsq and draw_resid ---------------------
+//
+// Each row's sum keeps the tree of the block reduction these passes had at
+// one 256-thread block a row, so the bits stay the same: virtual thread
+// v = j mod 256 adds its elements j ascending to 0.f; an xor butterfly at
+// offsets 16, 8, 4, 2, 1 within each segment of 32 virtual threads; the
+// 8 segments added in order to 0.f. Here R lanes of a warp take a row
+// (row_lanes: from t alone), in groups of 8 (G = R / 8 of them; R = 4
+// holds a row of at most 16 lanes). A thread holds LANES = 4 consecutive
+// virtual threads v = 32 s + 4 l8 + l of segment s (l8 its lane in the
+// group), so levels 16, 8 and 4 are shuffles at lane xor 4, 2 and 1 and
+// levels 2 and 1 are its registers; group g takes segments g, g + G, ...
+// (its slots h), and the segments' totals are gathered by shuffles and
+// added in order. An absent virtual thread holds +0.0 and every summand
+// is |.|^2 >= 0 or a masked 0, so a level or segment with no lanes is
+// skipped exactly: the tree over a short row is the tree over its own
+// lanes. Floating-point addition is commutative bit for bit, so each
+// level's pairs may be formed in either order. Each element's roundings
+// are written out as the one-block-a-row kernels compiled them (FMUL,
+// FFMA, FADD in their SASS), so no contraction can move a bit when a
+// thread adds a second element (t > 256).
+constexpr int ROW_BLOCK = 256;       // threads of a row-pass block
+constexpr unsigned FULL = 0xffffffffu;
+
+// |z|^2 as fmaf(x, x, y * y)
+__device__ __forceinline__ float abs2_rn(float2 z) {
+  return __fmaf_rn(z.x, z.x, __fmul_rn(z.y, z.y));
 }
 
-__global__ void __launch_bounds__(ROW_THREADS)
+// The four virtual threads' sums of a thread -> its segment's total, in
+// every lane of its group (levels at offsets 16, 8, 4 as shuffles; those
+// whose partner lies outside a row of R < 8 lanes hold absent threads)
+template <int R>
+__device__ __forceinline__ float segment_sum(float (&v)[LANES]) {
+#pragma unroll
+  for (int o = 4; o >= 1; o >>= 1) {
+    if (o < R) {
+#pragma unroll
+      for (int l = 0; l < LANES; ++l)
+        v[l] = __fadd_rn(v[l], __shfl_xor_sync(FULL, v[l], o));
+    }
+  }
+  return __fadd_rn(__fadd_rn(v[0], v[2]), __fadd_rn(v[1], v[3]));
+}
+
+template <int R>
+struct RowTile {
+  static constexpr int G = R < 8 ? 1 : R / 8;   // 8-lane groups a row
+  // segments (slots) a group takes; R < 8 lanes cover the first 4 R
+  // virtual threads of segment 0 alone
+  static constexpr int H = R < 8 ? 1 : 8 / G;
+};
+
+// body(h, j0) for each chunk of LANES lanes j0.. of this thread's row
+// (group g, lane l8): every slot's first chunk (j0 < 256), then, for
+// t > 256, the later chunks of each slot, each virtual thread ascending
+template <int R, typename Body>
+__device__ __forceinline__ void for_row_chunks(int t, int g, int l8,
+                                               Body&& body) {
+  constexpr int G = RowTile<R>::G, H = RowTile<R>::H;
+#pragma unroll
+  for (int h = 0; h < H; ++h) {
+    const int j0 = 32 * (g + G * h) + LANES * l8;
+    if (j0 < t) body(h, j0);
+  }
+  if (t > 256) {
+#pragma unroll
+    for (int h = 0; h < H; ++h)
+      for (int j0 = 32 * (g + G * h) + LANES * l8 + 256; j0 < t; j0 += 256)
+        body(h, j0);
+  }
+}
+
+// The row's total from its threads' virtual sums acc[h][l]: each slot's
+// segment total, then segments 0 .. nseg - 1 added in order to 0.f
+// (segment g + G h sits in slot h of group g, lane 8 g of the row's R)
+template <int R>
+__device__ __forceinline__ float row_total(
+    float (&acc)[RowTile<R>::H][LANES], int nseg, int base) {
+  constexpr int G = RowTile<R>::G, H = RowTile<R>::H;
+  float seg[H];
+#pragma unroll
+  for (int h = 0; h < H; ++h)
+    seg[h] = h * G < nseg ? segment_sum<R>(acc[h]) : 0.f;
+  float total = 0.f;
+#pragma unroll
+  for (int h = 0; h < H; ++h)
+#pragma unroll
+    for (int gg = 0; gg < G; ++gg)
+      if (h * G + gg < nseg)
+        total = __fadd_rn(total, G == 1 ? seg[h]
+                                        : __shfl_sync(FULL, seg[h],
+                                                      base + 8 * gg));
+  return total;
+}
+
+// segments of 32 virtual threads that hold lanes of a row of t
+__device__ __forceinline__ int row_segments(int t) {
+  return (min(t, 256) + 31) / 32;
+}
+
+// Four float lanes j0.. of a row at p, those below t (VEC: as two 8-byte
+// pairs; t even, so a pair that starts below t ends below it)
+template <bool VEC>
+__device__ __forceinline__ void store_floats(float* __restrict__ p,
+                                             const float (&v)[LANES], int j0,
+                                             int t) {
+#pragma unroll
+  for (int l = 0; l < LANES; l += VEC ? 2 : 1) {
+    if (j0 + l < t) {
+      if constexpr (VEC)
+        *reinterpret_cast<float2*>(p + l) = make_float2(v[l], v[l + 1]);
+      else
+        p[l] = v[l];
+    }
+  }
+}
+
+// y = s2 (s1 x) and sums = sum_t |y|^2 of rows rows, R lanes a row
+template <int R, bool VEC>
+__global__ void __launch_bounds__(ROW_BLOCK)
+scale_sumsq_kernel(const float2* __restrict__ x, const float* __restrict__ s1,
+                   const float* __restrict__ s2, float2* __restrict__ y,
+                   float* __restrict__ sums, int rows, int t) {
+  const int lane = threadIdx.x & 31, lr = lane & (R - 1);
+  const long long row =
+      ((long long)blockIdx.x * ROW_BLOCK + threadIdx.x) / R;
+  const bool live = row < rows;
+  float acc[RowTile<R>::H][LANES] = {};
+  if (live) {
+    const float a = s1 ? s1[row] : 1.f;
+    const float c = s2 ? s2[row] : 1.f;
+    for_row_chunks<R>(t, lr >> 3, lr & 7, [&](int h, int j0) {
+      const long long o0 = row * t + j0;
+      float2 v[LANES] = {}, u[LANES];
+      load_lanes<VEC>(v, x + o0, j0, t);
+#pragma unroll
+      for (int l = 0; l < LANES; ++l) {
+        u[l] = make_float2(__fmul_rn(c, __fmul_rn(a, v[l].x)),
+                           __fmul_rn(c, __fmul_rn(a, v[l].y)));
+        if (j0 + l < t) acc[h][l] = __fadd_rn(acc[h][l], abs2_rn(u[l]));
+      }
+      if (y) store_lanes<VEC>(y + o0, u, j0, t);
+    });
+  }
+  const float total = row_total<R>(acc, row_segments(t), lane & ~(R - 1));
+  if (live && lr == 0) sums[row] = total;
+}
+
+// Blocks below res_blocks: the residual rows b * n + i, R lanes a row:
+// res = dw - sig - fa, chi = |res|^2 ninvf, noise = sum_t |res|^2 w ninvf,
+// chit = sum over the row's times of chi, ws = w sig. The others: the
+// amplitude rows, amp = da + a0, LANES lanes a thread over the flat
+// (row, lane chunk) space (cpr chunks a row).
+template <int R, bool VEC>
+__global__ void __launch_bounds__(ROW_BLOCK)
 resid_kernel(const float2* __restrict__ dw, const float2* __restrict__ sig,
              const float2* __restrict__ fa, const float* __restrict__ ninvf,
              const float* __restrict__ w, const float2* __restrict__ da,
              const float2* __restrict__ a0, float* __restrict__ chi,
              float* __restrict__ noise, float* __restrict__ chit,
-             float2* __restrict__ amp, float2* __restrict__ ws, int n, int m,
-             int t, int ntimes, const int* __restrict__ row_times) {
-  __shared__ float red[32];
-  const int r = blockIdx.x, b = blockIdx.y;
-  const int ntb = row_times ? row_times[b] : ntimes;
-  if (r >= n) {  // amplitude rows: amps = da + a0
-    if (amp == nullptr) return;
-    const long long row = (long long)b * m + (r - n);
-    for (int j = threadIdx.x; j < t; j += blockDim.x) {
-      const long long o = row * t + j;
-      const float2 d = da[o], z = a0[o];
-      amp[o] = make_float2(d.x + z.x, d.y + z.y);
-    }
+             float2* __restrict__ amp, float2* __restrict__ ws, int rows,
+             int n, int t, int ntimes, const int* __restrict__ row_times,
+             unsigned res_blocks, long long amp_chunks, int cpr) {
+  if (blockIdx.x >= res_blocks) {   // amplitude rows: amps = da + a0
+    const long long c =
+        (long long)(blockIdx.x - res_blocks) * ROW_BLOCK + threadIdx.x;
+    if (c >= amp_chunks) return;
+    const long long arow = c / cpr;
+    const int j0 = (int)(c - arow * cpr) * LANES;
+    const long long o0 = arow * t + j0;
+    float2 d[LANES] = {}, z[LANES] = {}, r[LANES];
+    load_lanes<VEC>(d, da + o0, j0, t);
+    load_lanes<VEC>(z, a0 + o0, j0, t);
+#pragma unroll
+    for (int l = 0; l < LANES; ++l)
+      r[l] = make_float2(__fadd_rn(d[l].x, z[l].x),
+                         __fadd_rn(d[l].y, z[l].y));
+    store_lanes<VEC>(amp + o0, r, j0, t);
     return;
   }
-  const long long row = (long long)b * n + r;
-  const float nv = ninvf[row], wv = w[row];
-  const float wn = wv * nv;
-  float acc_noise = 0.f, acc_chit = 0.f;
-  for (int j = threadIdx.x; j < t; j += blockDim.x) {
-    const long long o = row * t + j;
-    const float2 s = sig[o], d = dw[o], f = fa[o];
-    const float rr = d.x - s.x - f.x, ri = d.y - s.y - f.y;
-    const float res2 = rr * rr + ri * ri;
-    const float c = res2 * nv;
-    if (chi) chi[o] = c;
-    if (ws) ws[o] = make_float2(wv * s.x, wv * s.y);
-    acc_noise += res2 * wn;
-    acc_chit += j < ntb ? c : 0.f;
+  const int lane = threadIdx.x & 31, lr = lane & (R - 1);
+  const long long row =
+      ((long long)blockIdx.x * ROW_BLOCK + threadIdx.x) / R;
+  const bool live = row < rows;
+  float acc_noise[RowTile<R>::H][LANES] = {};
+  float acc_chit[RowTile<R>::H][LANES] = {};
+  if (live) {
+    const int b = (int)(row / n);
+    const int ntb = row_times ? row_times[b] : ntimes;
+    const float nv = ninvf[row], wv = w[row];
+    const float wn = __fmul_rn(wv, nv);
+    for_row_chunks<R>(t, lr >> 3, lr & 7, [&](int h, int j0) {
+      const long long o0 = row * t + j0;
+      float2 d[LANES] = {}, s[LANES] = {}, f[LANES] = {}, sw[LANES];
+      float cv[LANES];
+      load_lanes<VEC>(d, dw + o0, j0, t);
+      load_lanes<VEC>(s, sig + o0, j0, t);
+      load_lanes<VEC>(f, fa + o0, j0, t);
+#pragma unroll
+      for (int l = 0; l < LANES; ++l) {
+        const float rr = __fsub_rn(__fsub_rn(d[l].x, s[l].x), f[l].x);
+        const float ri = __fsub_rn(__fsub_rn(d[l].y, s[l].y), f[l].y);
+        const float res2 = __fmaf_rn(rr, rr, __fmul_rn(ri, ri));
+        cv[l] = __fmul_rn(res2, nv);
+        sw[l] = make_float2(__fmul_rn(wv, s[l].x), __fmul_rn(wv, s[l].y));
+        if (j0 + l < t) {
+          acc_noise[h][l] = __fmaf_rn(res2, wn, acc_noise[h][l]);
+          acc_chit[h][l] =
+              __fadd_rn(acc_chit[h][l], j0 + l < ntb ? cv[l] : 0.f);
+        }
+      }
+      if (chi) store_floats<VEC>(chi + o0, cv, j0, t);
+      if (ws) store_lanes<VEC>(ws + o0, sw, j0, t);
+    });
   }
-  acc_noise = block_sum(acc_noise, red);
-  if (chit) acc_chit = block_sum(acc_chit, red);
-  if (threadIdx.x == 0) {
-    noise[row] = acc_noise;
-    if (chit) chit[row] = acc_chit;
+  const int nseg = row_segments(t), base = lane & ~(R - 1);
+  const float tn = row_total<R>(acc_noise, nseg, base);
+  const float tc = chit ? row_total<R>(acc_chit, nseg, base) : 0.f;
+  if (live && lr == 0) {
+    noise[row] = tn;
+    if (chit) chit[row] = tc;
   }
 }
+
+// Lanes of a warp a row takes in the row passes, from the row's length
+// alone (never the batch, so a subset of rows runs the same tile): 4 for
+// a row of at most 16 lanes, 8 for one segment, else 32 (measured on the
+// H100 at t = 15, 53, 80, 203 and 204 against 8 and 16 lanes: PERF.md)
+int row_lanes(int t) {
+  return t <= 4 * LANES ? 4 : t <= 32 ? 8 : 32;
+}
+
 }  // namespace
 
 // ob == nullptr: keyed mode on (seed, sids, g), g read as *g_dev + g when
@@ -468,7 +645,21 @@ HK_API int hk_draw_system(const float2* pt, const float* ps, const float2* frc,
 HK_API int hk_row_scale_sumsq(const float2* x, const float* s1,
                               const float* s2, float2* y, float* sums,
                               int rows, int t, cudaStream_t stream) {
-  scale_sumsq_kernel<<<rows, ROW_THREADS, 0, stream>>>(x, s1, s2, y, sums, t);
+  if (rows == 0) return (int)cudaGetLastError();
+  const int r = row_lanes(t);
+  const unsigned blocks =
+      (unsigned)(((long long)rows * r + ROW_BLOCK - 1) / ROW_BLOCK);
+  const bool vec = t % 2 == 0 && aligned16(x) && aligned16(y);
+  auto go = [&](auto kernel) {
+    kernel<<<blocks, ROW_BLOCK, 0, stream>>>(x, s1, s2, y, sums, rows, t);
+  };
+  if (r == 4)
+    vec ? go(scale_sumsq_kernel<4, true>) : go(scale_sumsq_kernel<4, false>);
+  else if (r == 8)
+    vec ? go(scale_sumsq_kernel<8, true>) : go(scale_sumsq_kernel<8, false>);
+  else
+    vec ? go(scale_sumsq_kernel<32, true>)
+        : go(scale_sumsq_kernel<32, false>);
   return (int)cudaGetLastError();
 }
 
@@ -478,9 +669,28 @@ HK_API int hk_draw_resid(const float2* dw, const float2* sig, const float2* fa,
                          float* chit, float2* amp, float2* ws, int batch,
                          int n, int m, int t, int ntimes,
                          const int* row_times, cudaStream_t stream) {
-  dim3 grid(n + m, batch);
-  resid_kernel<<<grid, ROW_THREADS, 0, stream>>>(
-      dw, sig, fa, ninvf, w, da, a0, chi, noise, chit, amp, ws, n, m, t,
-      ntimes, row_times);
+  const int rows = batch * n, r = row_lanes(t);
+  const int cpr = (t + LANES - 1) / LANES;
+  const long long amp_chunks = amp ? (long long)batch * m * cpr : 0;
+  const unsigned res_blocks =
+      (unsigned)(((long long)rows * r + ROW_BLOCK - 1) / ROW_BLOCK);
+  const unsigned blocks =
+      res_blocks + (unsigned)((amp_chunks + ROW_BLOCK - 1) / ROW_BLOCK);
+  if (blocks == 0) return (int)cudaGetLastError();
+  const bool vec = t % 2 == 0 && aligned16(dw) && aligned16(sig) &&
+                   aligned16(fa) && aligned16(da) && aligned16(a0) &&
+                   aligned16(amp) && aligned16(ws) &&
+                   (reinterpret_cast<uintptr_t>(chi) & 7u) == 0;
+  auto go = [&](auto kernel) {
+    kernel<<<blocks, ROW_BLOCK, 0, stream>>>(
+        dw, sig, fa, ninvf, w, da, a0, chi, noise, chit, amp, ws, rows, n, t,
+        ntimes, row_times, res_blocks, amp_chunks, cpr);
+  };
+  if (r == 4)
+    vec ? go(resid_kernel<4, true>) : go(resid_kernel<4, false>);
+  else if (r == 8)
+    vec ? go(resid_kernel<8, true>) : go(resid_kernel<8, false>);
+  else
+    vec ? go(resid_kernel<32, true>) : go(resid_kernel<32, false>);
   return (int)cudaGetLastError();
 }

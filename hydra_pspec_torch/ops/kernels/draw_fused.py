@@ -6,7 +6,9 @@ VPU phases of ``ops/pallas/megastep.py::_draw_body``: the right-hand side
 (:199-201), the residual statistics (:221-234) and the lean ``chi_t``
 (``ops/pallas/megachain.py:427-434``). Each is a streaming pass over
 ``(B, n, t)`` complex fields. ``row_scale_sumsq`` and ``draw_resid`` take
-one block a row, coalesced, row sums by a fixed-order block reduction.
+4, 8 or 32 lanes of a warp a row (from ``t`` alone) and four time lanes a
+thread; a row's sum is reduced by shuffles in the fixed tree of a
+256-thread block reduction, so the bits do not depend on the batch.
 ``draw_rhs`` and ``draw_system`` take four time lanes a thread over the
 flat (row, lane) space, in 16-byte pairs where ``t`` is even; keyed, they
 are bound by the instructions of the Philox and Box-Muller draws, which

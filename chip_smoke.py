@@ -2,6 +2,8 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --rows OUT [PARENT]   # the two row passes alone
+    python3 chip_smoke.py --herm OUT PARENT     # the Hermitian kernels
+                                                # against a parent's
 
 Phases, one printed line each (any failure raises; exit code non-zero):
   1. environment: torch/CUDA versions, and the card's name and power limit
@@ -20,12 +22,11 @@ Phases, one printed line each (any failure raises; exit code non-zero):
      kernels' 8-byte paths) and at the JAX package's layout (n = 128,
      t = 256), and with the iteration read from a device counter
      (as in a graph replay) bit-identical to it given by value, bandpower
-     too; herm_inv (also blocked at n = 180) and cgemm with an active mask
+     too; herm_inv (also at n = 180) and cgemm with an active mask
      (flagged chains bit-identical to the unmasked launch, the others'
      outputs untouched); herm_inv's gate mode (the warm start's drift
-     gate computed in the launch) at B=100, n=120, 128 and blocked at
-     n=180, 256
-     against its plain version, the plain gate and the masked inverse:
+     gate computed in the launch) at B=100, n=120, 128, 180 (one launch)
+     and blocked at n=256 against its plain version, the plain gate and the masked inverse:
      flags and rebuilt inverses torch.equal, with an unmoved row, a NaN
      row and a row whose drift is exactly drift_max; the grouped
      time-flags variants (per-row time counts, pooled bandpower) at the
@@ -39,9 +40,15 @@ Phases, one printed line each (any failure raises; exit code non-zero):
      widths (n in HERM_NS, K in HERM_KS) within 1e-3 of plain, exactly
      the identity on the identity (herm_inv(I) == I, herm_chol_solve(I, b)
      == b), and an equilibrated system of condition ~1e5 under the
-     residual gates, with their launches counted; cgemm at every
-     product shape of the paths (C aliasing X included); the blocked
-     herm_inv at B=8, n=180 and herm_chol_solve at B=8, n=180, K=203;
+     residual gates, with their launches counted; the same two above 128
+     (n in TRI_NS: one launch on the lower tiles, no cgemm; n in
+     BLOCKED_NS: the blocked route over it), the inverse with
+     max|S X - I| <= 1e-4, the factor-solve at K = 203 and 1 with
+     max|A x - b| <= 2e-4, both within 3e-3 of the plain results' mean
+     magnitude, the identity exactly at n = 180; cgemm at every
+     product shape of the paths (C aliasing X included); herm_inv at the
+     wide band's system, B=8, n=180 and herm_chol_solve at B=8, n=180,
+     K=203, one launch each;
      the two row passes, row_scale_sumsq and draw_resid, on random inputs
      at t in ROW_TS (1, 2, 31, 80, 203, 204, 256, 257, 1100) x n in
      ROW_NS (120, 121, 180), every variant (s1, s2 and y present and
@@ -67,7 +74,8 @@ Phases, one printed line each (any failure raises; exit code non-zero):
      torch.cuda.set_sync_debug_mode("error"), torch.equal on every output
      and the same launches, for plain full (drift_max 0.6) and lean (0.3:
      a mix of chains rebuild), the mega engine, grouped 100 chains x G=3
-     and the wide band (n = 180, the blocked masked rebuild); a second
+     and the wide band (n = 180, the masked rebuild on the lower tiles);
+     a second
      replay from iteration 38 equal to the eager chunk there; warm-up,
      capture and instantiate seconds, the graph pool's bytes and the
      chains each iteration rebuilt;
@@ -105,8 +113,8 @@ Phases, one printed line each (any failure raises; exit code non-zero):
      (run_baselines overlap=False) and to a run stopped at 100 and
      resumed; as information, whether chunks of 100 give the same files;
   wideband: the same model-drawn data at 203 times x 180 channels (HERA
-     Phase I sub-bands), where the blocked herm_inv and herm_chol_solve
-     run, from S_initial = I as everywhere, 400 iterations with the gates
+     Phase I sub-bands), where herm_inv and herm_chol_solve run one launch
+     each on the lower tiles, from S_initial = I as everywhere, 400 iterations with the gates
      over the last 200 (the noise-dominated delay bins burn in slowly):
      megachain at n = 180, 100 baselines with files and checkpoint (chi^2
      within 2 % and by 50-iteration window, every main kernel launched,
@@ -173,7 +181,7 @@ Phases, one printed line each (any failure raises; exit code non-zero):
      iteration (dense noise, pallas and pallas2) and one mega iteration at
      B=100 (megachain, grouped, mega and the wide band each eagerly and as
      a graph replay of a 5-iteration chunk, in turns), the masked herm_inv
-     launch with no chain active (n = 120, and blocked at n = 180) and
+     launch with no chain active (n = 120) and
      herm_inv's gate mode with no chain and with every chain rebuilding,
      the factor-solve at B=100, n=120, K=203 and K=1 (the factor
      and one tile, with its own bound), kernels against the
@@ -183,9 +191,14 @@ Phases, one printed line each (any failure raises; exit code non-zero):
      paths, each beside its bound; torch.profiler over 5 plain iterations
      at B=100 on the eager path and over 3 graph replays of 5 (each
      kernel's device time per iteration, the device's busy share, the
-     longest idle gaps); the wide band's megachain iteration
-     (n = 180) and the blocked herm_inv (n = 180) and herm_chol_solve
-     (n = 180, K = 203) against their plain versions and library calls;
+     longest idle gaps); the wide band: herm_inv (n = 180) and
+     herm_chol_solve (n = 180, K = 203 and 1) against their plain
+     versions, library calls and the parent's route (the blocked
+     compositions over launches of at most 128, parent_route), in turns;
+     the masked herm_inv with no chain rebuilding (device time, both
+     routes); the megachain iteration eagerly and as a graph replay, the
+     mega iteration as a graph replay and the dense real iteration, each
+     on both routes in turns (parent, this, this, parent);
      device times (profiler) of bandpower (alpha 202 and 1099, and 100
      chains x G=3) and of the omega passes in two layouts (stored
      rng_fields fields; keyed draw_rhs and draw_system) beside their
@@ -216,6 +229,7 @@ wideband runs; the last line is the device JSON object.
 import collections
 import dataclasses
 import filecmp
+import functools
 import json
 import math
 import os
@@ -309,6 +323,10 @@ HOST_SPANS = ("hydra:chunk", "hydra:fetch_wait", "hydra:staging",
 # right-hand sides: one, one over a tile, the reference's time count
 HERM_NS, HERM_KS = (1, 17, 32, 52, 96, 120, 127, 128), (1, 33, 203)
 ILL_COND = 1.0e5              # condition of the ill-conditioned case
+# above 128: one launch on the lower tiles up to 192 (one over a tile
+# boundary, a ragged fifth and sixth tile, the wide band's 180, full 192),
+# the blocked route over it above (192 + 64, 192 + 108)
+TRI_NS, BLOCKED_NS = (129, 140, 160, 180, 192), (256, 300)
 
 # kernel name -> (source, the TPU code it replaces)
 KERNELS = {
@@ -360,7 +378,8 @@ NOT_ON_KEYED_PATHS = ("rng_fields",)
 # apply_refine), F rc at t = 203 (is the even t worth its pad lane?) and
 # at the JAX package's layout (n = 128, t = 256), the real engine (n =
 # 120, t = 203), the wide band (n = 180) and the blocked inverse and
-# factor-solve at n = 180 (blocks of 128 and 52)
+# factor-solve at n = 256 (blocks of 192 and 64: the wide band at the JAX
+# package's layout, phase layout)
 CGEMM_SHAPES = (
     ("ba = Fg^H rc", 12, 120, 204, "H", False, None),
     ("rc -= G ba", 120, 12, 204, "N", False, "out"),
@@ -382,11 +401,11 @@ CGEMM_SHAPES = (
     ("real sig = F^H sk", 120, 120, 203, "H", True, None),
     ("wide F rc (n=180)", 180, 180, 204, "N", True, None),
     ("wide NS (n=180)", 180, 180, 180, "N", False, None),
-    ("blocked T = A11^-1 A12", 128, 128, 52, "N", False, None),
-    ("blocked S = A22 - A12^H T", 52, 128, 52, "H", False, "x"),
-    ("blocked TS = T S^-1", 128, 52, 52, "N", False, None),
-    ("blocked A11^-1 + TS T^H", 128, 52, 128, "N", False, "out"),
-    ("blocked b2 - A12^H Y", 52, 128, 203, "H", False, "x"),
+    ("blocked T = A11^-1 A12", 192, 192, 64, "N", False, None),
+    ("blocked S = A22 - A12^H T", 64, 192, 64, "H", False, "x"),
+    ("blocked TS = T S^-1", 192, 64, 64, "N", False, None),
+    ("blocked A11^-1 + TS T^H", 192, 64, 192, "N", False, "out"),
+    ("blocked b2 - A12^H Y", 64, 192, 203, "H", False, "x"),
 )
 
 
@@ -644,26 +663,87 @@ def check_herm_tiles(dev, cmp):
     _build.reset_launches()
 
 
+def check_tri_tiles(dev, cmp):
+    """herm_inv and herm_chol_solve above 128: at every n of TRI_NS one
+    launch and no cgemm, at BLOCKED_NS the blocked route (base launches of
+    at most 192 and cgemm products), at B = 8 against their plain
+    versions: the inverse with max|S X - I| <= 1e-4 and within 3e-3 of
+    the plain inverse's mean magnitude, the factor-solve at K = 203 and
+    K = 1 with max|A x - b| <= 2e-4 and within 3e-3 of the plain
+    solution's mean magnitude; at n = WIDE_NF the identity exactly
+    (herm_inv(I) == I, herm_chol_solve(I, b) == b)."""
+    from hydra_pspec_torch.ops.kernels import _build
+    from hydra_pspec_torch.ops.kernels import impl as I
+    from hydra_pspec_torch.ops.kernels import spd_solve as ss
+
+    K, P = I.KERNELS, I.PLAIN
+    gen = torch.Generator(device=dev).manual_seed(SEED + 15)
+
+    def launched(fn):
+        _build.reset_launches()
+        got = fn()
+        sync(dev)
+        return got, {k: v for k, v in _build.LAUNCHES.items() if v}
+
+    for n in TRI_NS + BLOCKED_NS:
+        splits = 0 if n <= ss.BASE_N else 1   # 192 + the rest
+        a = equilibrated_spd(8, n, dev, gen)
+        eye = torch.eye(n, dtype=a.dtype, device=dev)
+        inv, ran = launched(lambda: K.herm_inv(a))
+        want = P.herm_inv(a)
+        res = float(torch.abs(torch.matmul(a, inv) - eye).max())
+        say("kernels", f"herm_inv         n={n}: max|S X - I| {res:.3e} <= "
+            f"1e-4; launches {ran}")
+        require(res <= 1e-4, f"herm_inv n={n} residual")
+        require(ran == ({"herm_inv": 1} if not splits else
+                        {"herm_inv": 2, "cgemm": 4}),
+                f"herm_inv n={n}: launches {ran}")
+        cmp("herm_inv", inv, want, 3e-3, f"n={n} vs plain",
+            float(torch.abs(want).mean()))
+        for k in (NT, 1):
+            b = torch.randn((8, n, k), dtype=torch.complex64, generator=gen,
+                            device=dev)
+            x, ran = launched(lambda: K.herm_chol_solve(a, b))
+            want = P.herm_chol_solve(a, b)
+            res = float(torch.abs(torch.matmul(a, x) - b).max())
+            say("kernels", f"herm_chol_solve  n={n} K={k}: max|A x - b| "
+                f"{res:.3e} <= 2e-4; launches {ran}")
+            require(res <= 2e-4, f"herm_chol_solve n={n} K={k} residual")
+            require(ran == ({"herm_chol_solve": 1} if not splits else
+                            {"herm_chol_solve": 2, "cgemm": 3}),
+                    f"herm_chol_solve n={n} K={k}: launches {ran}")
+            cmp("herm_chol_solve", x, want, 3e-3, f"n={n} K={k} vs plain",
+                float(torch.abs(want).mean()))
+            if n == WIDE_NF:
+                eyes = eye.expand(8, n, n).contiguous()
+                ok = (torch.equal(K.herm_inv(eyes), eyes)
+                      and torch.equal(K.herm_chol_solve(eyes, b), b))
+                say("kernels", f"herm tiles n={n} K={k}: herm_inv(I) == I "
+                    f"and herm_chol_solve(I, b) == b exactly: {ok}")
+                require(ok, f"n={n}: the identity is not kept exactly")
+    _build.reset_launches()
+
+
 def check_gate_mode(dev, cmp):
     """herm_inv's gate mode (the warm start's drift gate computed in the
     launch) at B = N_BASELINES against its plain version, plain_warm_gate
-    followed by the masked inverse: at n = 120 and 128 (one launch) and
-    n = 180 and 256 (the blocked route, whose first base launch computes
-    the gate), for
+    followed by the masked inverse: at n = 120 and 128 (one launch on the
+    padded square), n = 180 (one launch on the lower tiles) and n = 256
+    (the blocked route, whose first base launch computes the gate), for
     drift_max 0.6, 0.3, 0.05 and the exact drift of one row, with an
     unmoved row (never rebuilds) and a NaN row (always rebuilds). The
     flags written are torch.equal to plain_warm_gate's (the row at exactly
     drift_max does not rebuild), each rebuilt chain is torch.equal to the
     unmasked kernel launch and within 1e-3 of the plain inverse, every
     other chain keeps its carried inverse bit for bit; one herm_inv launch
-    at n <= 128, two and four cgemm above."""
+    at n <= 192, two and four cgemm above."""
     from hydra_pspec_torch.ops.kernels import _build
     from hydra_pspec_torch.ops.kernels import herm_inv as hi
 
     B = N_BASELINES
     gen = torch.Generator(device=dev).manual_seed(SEED + 14)
     for n, launches in ((NF, {"herm_inv": 1}), (128, {"herm_inv": 1}),
-                        (WIDE_NF, {"herm_inv": 2, "cgemm": 4}),
+                        (WIDE_NF, {"herm_inv": 1}),
                         (256, {"herm_inv": 2, "cgemm": 4})):
         s = equilibrated_spd(B, n, dev, gen)
         full, want = hi.herm_inv(s), hi.plain_herm_inv(s)
@@ -1076,6 +1156,7 @@ def phase_kernels(dev, jobs8, jobs_w8, errs):
         f"{what} vs plain (pallas2)")
 
     check_herm_tiles(dev, cmp)
+    check_tri_tiles(dev, cmp)
 
     # cgemm at every product shape of the paths, and C aliasing X
     gen = torch.Generator(device=dev).manual_seed(SEED + 11)
@@ -1088,9 +1169,9 @@ def phase_kernels(dev, jobs8, jobs_w8, errs):
             K.cgemm(a, b, op=op, x=x, alpha=alpha, beta=beta, out=x)
             require(torch.equal(x, got), f"cgemm {what}: out=x differs")
 
-    # the blocked paths: herm_inv at the wide band's megachain system
-    # (n = 180: blocks of 128 and 52), herm_chol_solve at the real engine's
-    # wide band (n = 180, K = 203: blocks of 128 and 52)
+    # the wide band's systems: herm_inv at its megachain system and
+    # herm_chol_solve at its real engine's (n = 180, K = 203), one launch
+    # each on the lower tiles
     wm, wdims = build_ops(jobs_w8, dev)
     Bw, nw, tw = wm.nid.shape
     wsids = torch.arange(Bw, dtype=torch.int32, device=dev)
@@ -1104,16 +1185,15 @@ def phase_kernels(dev, jobs8, jobs_w8, errs):
     inv_k = K.herm_inv(sw)
     sync(dev)
     got = {k: v for k, v in _build.LAUNCHES.items() if v}
-    say("kernels", f"herm_inv         blocked B={Bw} n={nw}: launches {got}")
-    require(got == {"herm_inv": 2, "cgemm": 4},
-            "blocked herm_inv: not two base launches and four products")
+    say("kernels", f"herm_inv         wide B={Bw} n={nw}: launches {got}")
+    require(got == {"herm_inv": 1}, "wide herm_inv: not one launch")
     cmp("herm_inv", inv_k, P.herm_inv(sw), 1e-3,
-        f"blocked n={nw} vs Cholesky inverse")
+        f"wide n={nw} vs Cholesky inverse")
     eye = torch.eye(nw, dtype=sw.dtype, device=dev)
     res = float(torch.abs(torch.matmul(sw, inv_k) - eye).max())
-    say("kernels", f"herm_inv         blocked n={nw}: max|A A^-1 - I| "
+    say("kernels", f"herm_inv         wide n={nw}: max|A A^-1 - I| "
         f"{res:.3e} <= 1e-3")
-    require(res <= 1e-3, "blocked herm_inv residual")
+    require(res <= 1e-3, "wide herm_inv residual")
     active = (torch.arange(Bw, device=dev) % 3 == 1).to(torch.int32)
     on = active.bool()
     sentinel = torch.full_like(inv_k, complex(7.0, -3.0))
@@ -1123,10 +1203,9 @@ def phase_kernels(dev, jobs8, jobs_w8, errs):
     launches = {k: v for k, v in _build.LAUNCHES.items() if v}
     ok = (torch.equal(got[on], inv_k[on])
           and torch.equal(got[~on], sentinel[~on]))
-    say("kernels", f"herm_inv         blocked n={nw}, active mask: flagged "
+    say("kernels", f"herm_inv         wide n={nw}, active mask: flagged "
         f"chains == unmasked, others untouched: {ok}; launches {launches}")
-    require(ok and launches == {"herm_inv": 2, "cgemm": 4},
-            "masked blocked herm_inv")
+    require(ok and launches == {"herm_inv": 1}, "masked wide herm_inv")
     _, _, s_w, _ = real_system(jobs_w8, dev)
     ms_w, _ = ss.equilibrate(s_w)
     rhs_w = torch.randn((Bw, WIDE_NF, NT), dtype=torch.complex64,
@@ -1135,10 +1214,10 @@ def phase_kernels(dev, jobs8, jobs_w8, errs):
     x_k = K.herm_chol_solve(ms_w, rhs_w)
     sync(dev)
     got = {k: v for k, v in _build.LAUNCHES.items() if v}
-    what = f"blocked B={Bw} n={WIDE_NF} K={NT}"
+    what = f"wide B={Bw} n={WIDE_NF} K={NT}"
     say("kernels", f"herm_chol_solve  {what}: launches {got}")
-    require(got == {"herm_chol_solve": 2, "cgemm": 3},
-            "blocked herm_chol_solve: not two base calls and three products")
+    require(got == {"herm_chol_solve": 1},
+            "wide herm_chol_solve: not one launch")
     cmp("herm_chol_solve", x_k, P.herm_chol_solve(ms_w, rhs_w), 1e-3,
         f"{what} vs plain")
     res = float(torch.abs(torch.matmul(ms_w, x_k) - rhs_w).max())
@@ -1146,7 +1225,7 @@ def phase_kernels(dev, jobs8, jobs_w8, errs):
                  + torch.abs(rhs_w)).max())
     say("kernels", f"herm_chol_solve  {what}: max|A x - b| {res:.3e} <= "
         f"1e-4 x max(|A||x| + |b|) {mag:.3e}")
-    require(res <= 1e-4 * mag, "blocked herm_chol_solve residual")
+    require(res <= 1e-4 * mag, "wide herm_chol_solve residual")
 
     # the single-step entry against its plain composition, main shapes
     rng = np.random.default_rng(SEED + 8)
@@ -2141,12 +2220,11 @@ def phase_fallback(dev, jobs_plain, out_root):
 
 def phase_wideband(dev, out_root):
     """The model-drawn data at 203 times x 180 channels: megachain (n = 180,
-    blocked herm_inv on the warm start's rebuilds), a dense Ninv on the
-    real engine (blocked herm_chol_solve), solver="pallas2" and the mega
-    engine (blocked herm_inv every iteration). Each run with the launch
-    counts set to 0 just before and read just after."""
-    import functools
-
+    one herm_inv launch on the lower tiles an iteration: the warm start's
+    gated rebuild), a dense Ninv on the real engine (one herm_chol_solve
+    launch a solve), solver="pallas2" and the mega engine (one herm_inv
+    launch every iteration). Each run with the launch counts set to 0
+    just before and read just after."""
     from hydra_pspec_torch import runner
 
     nf = WIDE_NF
@@ -2156,8 +2234,10 @@ def phase_wideband(dev, out_root):
     results, mc_launches, _, mc_stats = run_megachain_path(
         "wideband", dev, jobs, nf, burn=WIDE_BURN, **depth)
     del results
-    require(mc_launches["herm_inv"] % 2 == 0,
-            "wideband: herm_inv not launched in blocked pairs")
+    say("wideband", f"wide_megachain: herm_inv {mc_launches['herm_inv']} "
+        f"launches = 1 an iteration x {WIDE_NITER}")
+    require(mc_launches["herm_inv"] == WIDE_NITER,
+            "wideband: herm_inv not one launch a rebuild")
     subset_identical("wideband", dev, jobs, nf, **depth)
     launches, stats = {"wide_megachain": mc_launches}, {
         "wide_megachain": mc_stats}
@@ -2168,10 +2248,10 @@ def phase_wideband(dev, out_root):
     run("wide_dense", REAL_KERNELS, "real", dense, WIDE_NITER,
         prior=make_prior(nf=nf), write_niter=WIDE_NITER, store_cr=True)
     got = launches["wide_dense"]["herm_chol_solve"]
-    say("wideband", f"wide_dense: herm_chol_solve {got} base calls = 2 a "
-        f"solve (blocks of 128 and {nf - 128}) x {WIDE_NITER}")
-    require(got == 2 * WIDE_NITER,
-            "wide_dense: the factor-solve did not run blocked")
+    say("wideband", f"wide_dense: herm_chol_solve {got} launches = 1 a "
+        f"solve x {WIDE_NITER}")
+    require(got == WIDE_NITER,
+            "wide_dense: the factor-solve not one launch a solve")
     chi2_w = whitened_chi2(dense, WIDE_NITER, WIDE_BURN)
     say("wideband", f"wide_dense: whitened chi^2 r^H Ninv r / (Ntimes "
         f"Nfreqs), iterations {WIDE_BURN + 1}-{WIDE_NITER}: {chi2_w:.5f} "
@@ -2186,11 +2266,11 @@ def phase_wideband(dev, out_root):
                  write_niter=WIDE_PALLAS2_NITER, solver="pallas2",
                  global_baseline_ids=list(range(N_WIDE_PALLAS2)))
     got = launches["wide_pallas2"]
-    require(got["herm_inv"] == 2 * got["hermitian_solve"],
-            "wide_pallas2: herm_inv did not run blocked")
+    require(got["herm_inv"] == got["hermitian_solve"],
+            "wide_pallas2: herm_inv not one launch a solve")
     chi2 = float(np.mean([r.chisq[WIDE_PALLAS2_NITER // 2:].mean()
                           for r in res]))
-    say("wideband", f"wide_pallas2: herm_inv {got['herm_inv']} base "
+    say("wideband", f"wide_pallas2: herm_inv {got['herm_inv']} "
         f"launches for {got['hermitian_solve']} solves; diagonal chisq "
         f"mean, second half {chi2:.5f}, finite: {bool(np.isfinite(chi2))}")
     require(np.isfinite(chi2), "wide_pallas2 chi^2 not finite")
@@ -2202,11 +2282,11 @@ def phase_wideband(dev, out_root):
                  prior=make_prior(MEGA_HALF, nf), write_niter=WIDE_NITER,
                  store_cr=False)
     got = launches["wide_mega"]["herm_inv"]
-    require(got == 2 * WIDE_NITER,
-            "wide_mega: herm_inv did not run blocked every iteration")
+    require(got == WIDE_NITER,
+            "wide_mega: herm_inv not one launch every iteration")
     chi2 = float(np.mean([r.chisq[WIDE_BURN:].mean() for r in res]))
     say("wideband", f"wide_mega: {2 * MEGA_HALF + 1} bounded prior bins, "
-        f"herm_inv {got} base launches (2 an iteration); mean chi^2 over "
+        f"herm_inv {got} launches (1 an iteration); mean chi^2 over "
         f"iterations {WIDE_BURN + 1}-{WIDE_NITER}: {chi2:.5f} (gate "
         f"|chi^2 - 1| <= {CHI2_GATE})")
     require(abs(chi2 - 1.0) <= CHI2_GATE, "wide_mega chi^2 gate")
@@ -3645,6 +3725,102 @@ def rows_main(out, parent=None):
     Path(out).write_text(json.dumps(rows, indent=1))
 
 
+# the parent's widths of the tile kernels that must not move: the real
+# engine's 120, one over three tiles, full 128
+HERM_PARENT_NS = (120, 121, 128)
+
+
+def herm_main(out, parent):
+    """``python3 chip_smoke.py --herm OUT PARENT``: the Hermitian inverse and
+    factor-solve against a parent checkout's kernels (its own library,
+    built from its sources), on one card. At n in HERM_PARENT_NS, where the
+    kernels did not change, herm_inv (unmasked, ``active``, gate mode) and
+    herm_chol_solve (K = 203 and 1) must be torch.equal to the parent's, at
+    B = 100. At n = WIDE_NF the one-launch kernels against the parent's
+    blocked route over its own kernels (``base_n=128``), in turns parent,
+    this, this, parent (CUDA events; the masked launch with no chain
+    rebuilding in device time). Results to OUT as JSON."""
+    from hydra_pspec_torch.ops.kernels import _build
+    from hydra_pspec_torch.ops.kernels import herm_inv as hi
+    from hydra_pspec_torch.ops.kernels import spd_solve as ss
+
+    phase_env()
+    dev = torch.device("cuda", 0)
+    _build.library()
+    plib = parent_library(parent)
+    B = N_BASELINES
+    gen = torch.Generator(device=dev).manual_seed(SEED + 16)
+    equal = {}
+    for n in HERM_PARENT_NS:
+        a = equilibrated_spd(B, n, dev, gen)
+        psx = 1.0 + 99.0 * torch.rand((B, n), generator=gen, device=dev)
+        ps = psx * torch.exp(0.6 * torch.rand((B, n), generator=gen,
+                                              device=dev) - 0.3)
+        act = (torch.arange(B, device=dev) % 3 == 1).to(torch.int32)
+        b = torch.randn((B, n, NT), dtype=torch.complex64, generator=gen,
+                        device=dev)
+        b1 = b[:, :, :1].contiguous()
+        carried = torch.full_like(a, complex(7.0, -3.0))
+
+        def gated(dmax):
+            flags = torch.full((B,), -1, dtype=torch.int32, device=dev)
+            inv = hi.herm_inv(a, out=carried.clone(), gate=(ps, psx, dmax),
+                              rebuild=flags)
+            return inv, flags
+
+        cases = {"herm_inv": lambda: (hi.herm_inv(a),),
+                 "herm_inv active": lambda: (hi.herm_inv(
+                     a, out=carried.clone(), active=act),),
+                 "herm_inv gate 0.3": lambda: gated(0.3),
+                 "herm_inv gate 0.05": lambda: gated(0.05),
+                 f"herm_chol_solve K={NT}": lambda: (
+                     ss.herm_chol_solve(a, b),),
+                 "herm_chol_solve K=1": lambda: (ss.herm_chol_solve(a, b1),)}
+        for what, fn in cases.items():
+            got = fn()
+            with _LibraryOf(plib):
+                want = fn()
+            ok = all(torch.equal(g, w) for g, w in zip(got, want))
+            equal[f"{what} n={n}"] = ok
+            say("herm", f"{what:22s} n={n} B={B}: torch.equal to the "
+                f"parent's kernels: {ok}")
+            require(ok, f"{what} n={n}: differs from the parent's kernels")
+
+    n = WIDE_NF
+    s = equilibrated_spd(B, n, dev, gen)
+    ps = 1.0 + 99.0 * torch.rand((B, n), generator=gen, device=dev)
+    rhs = torch.randn((B, n, NT), dtype=torch.complex64, generator=gen,
+                      device=dev)
+    one = rhs[:, :, :1].contiguous()
+    buf = hi.herm_inv(s)
+    cases = {"herm_inv": lambda **kw: hi.herm_inv(s, **kw),
+             "herm_inv masked": lambda **kw: hi.herm_inv(
+                 s, out=buf, gate=(ps, ps, 0.6), **kw),
+             f"herm_chol_solve K={NT}": lambda **kw: ss.herm_chol_solve(
+                 s, rhs, **kw),
+             "herm_chol_solve K=1": lambda **kw: ss.herm_chol_solve(
+                 s, one, **kw)}
+    times = {}
+    for what, fn in cases.items():
+        clock = (_device_ms if what == "herm_inv masked"
+                 else (lambda f: _time(f, 10)))
+
+        def parent_ms():
+            with _LibraryOf(plib):
+                return clock(lambda: fn(base_n=128))
+
+        t = [parent_ms(), clock(fn), clock(fn), parent_ms()]
+        times[what] = {"n": n, "batch": B, "ms": (t[1] + t[2]) / 2,
+                       "parent_ms": (t[0] + t[3]) / 2, "turns": t,
+                       "clock": "device" if clock is _device_ms else "events"}
+        say("herm", f"{what:22s} n={n} B={B}: {times[what]['ms']:.5f} ms, "
+            f"the parent's blocked route on its own kernels "
+            f"{times[what]['parent_ms']:.5f} ms (parent, this, this, parent "
+            f"= {', '.join(f'{v:.5f}' for v in t)})")
+    Path(out).write_text(json.dumps({"equal": equal, "times": times},
+                                    indent=1))
+
+
 def phase_times(dev, jobs):
     from hydra_pspec_torch.models import mega, megachain
     from hydra_pspec_torch.ops.kernels import draw_fused as df
@@ -4020,52 +4196,89 @@ def phase_times_fallback(dev, jobs, dense_jobs, tm):
                          "library_ms": k1_lib})
 
 
-def phase_times_wide(dev, jobs_w):
-    """The wide band at B=100: one megachain iteration at n = 180 and its
-    bound, as a graph replay also at the JAX package's layout (n = 256),
-    the blocked herm_inv and herm_chol_solve at n = 180 (K = 203) against
-    their plain versions, bounds and library calls."""
-    from hydra_pspec_torch.models import mega, megachain
-    from hydra_pspec_torch.ops.kernels import _build
-    from hydra_pspec_torch.ops.kernels import herm_inv as hi
+def parent_route(impl):
+    """``impl`` with ``herm_inv`` and ``herm_chol_solve`` on the route that
+    served 128 < n <= 192 before the lower-tile kernels: the blocked
+    compositions over launches of at most 128 (``base_n=128``; the
+    kernels up to 128 are the parent's, bit for bit)."""
+    return impl._replace(
+        herm_inv=functools.partial(impl.herm_inv, base_n=128),
+        herm_chol_solve=functools.partial(impl.herm_chol_solve, base_n=128))
+
+
+def _time_routes(label, cases, device=False, reps=10):
+    """Each case ``fn(impl)`` on this tree's kernels and on
+    :func:`parent_route`'s, in turns parent, this, this, parent: CUDA
+    events over ``reps`` calls, or with ``device`` the profiler's device
+    time."""
     from hydra_pspec_torch.ops.kernels import impl as I
+
+    K, old = I.KERNELS, parent_route(I.KERNELS)
+    clock = _device_ms if device else (lambda fn: _time(fn, reps))
+    out = {}
+    for name, fn in cases.items():
+        t = [clock(lambda: fn(old)), clock(lambda: fn(K)),
+             clock(lambda: fn(K)), clock(lambda: fn(old))]
+        out[name] = {"ms": (t[1] + t[2]) / 2, "parent_ms": (t[0] + t[3]) / 2,
+                     "turns": t}
+        say("times", f"{'device ' if device else ''}{name} {label}: "
+            f"{out[name]['ms']:.5f} ms, the parent's route "
+            f"{out[name]['parent_ms']:.5f} ms (parent, this, this, parent "
+            f"= {', '.join(f'{v:.5f}' for v in t)})")
+    return out
+
+
+def _time_graph_routes(label, make_body, ps, kit):
+    """One iteration's time as a graph replay of a ``kit``-iteration chunk
+    of ``make_body(impl)`` and eagerly, on this tree's kernels and on
+    :func:`parent_route`'s, each in turns parent, this, this, parent."""
+    from hydra_pspec_torch.ops.kernels import impl as I
+    from hydra_pspec_torch.ops.kernels.graph import ChunkGraph
+
+    bodies = {"this": make_body(I.KERNELS),
+              "parent": make_body(parent_route(I.KERNELS))}
+    graphs = {k: ChunkGraph(body, ps, kit) for k, body in bodies.items()}
+    out = {}
+    for mode in ("graph", "eager"):
+        turns = {"this": [], "parent": []}
+        for k in ("parent", "this", "this", "parent"):
+            fn = ((lambda: graphs[k].replay(ps, 0)) if mode == "graph"
+                  else (lambda: bodies[k](ps, 0, kit)))
+            turns[k].append(_time(fn, 3) / kit)
+        out[mode] = turns
+        say("times", f"one iteration, {label}, {mode}: {turns['this']} ms, "
+            f"the parent's route {turns['parent']} ms (parent, this, this, "
+            f"parent)")
+    del graphs
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_times_wide(dev, jobs_w, dense_w):
+    """The wide band (180 channels) at B=100: herm_inv and herm_chol_solve
+    (K = 203 and 1) at n = 180 against their plain versions, bounds,
+    library calls and the parent's route (the blocked compositions), the
+    masked herm_inv with no chain rebuilding (device time, both routes);
+    one megachain iteration and its bound, eagerly and as a graph replay,
+    on both routes and at the JAX package's layout (n = 256); one mega
+    iteration (graph replay) and one dense real iteration (eager) on both
+    routes."""
+    from hydra_pspec_torch.models import mega, megachain, rgibbs
+    from hydra_pspec_torch.ops.kernels import _build
+    from hydra_pspec_torch.ops.kernels import impl as I
+    from hydra_pspec_torch.ops.kernels import rng_bandpower as rb
     from hydra_pspec_torch.ops.kernels import spd_solve as ss
 
     P = I.PLAIN
     mops, dims = build_ops(jobs_w, dev)
     B, n, t = mops.nid.shape
-    m = mops.fg.shape[2]
     nf, nt = dims.nfreqs, dims.ntimes
     sids = torch.arange(B, dtype=torch.int32, device=dev)
     ps = mega.pad_ps(np.tile(ps_truth(nf), (B, 1)), dims, dev)
-    tables = megachain.make_chain_tables(mops, dev)
-    static = megachain.prior_static_from(make_prior(nf=nf), dims)
-    kit = 5
-    chain = _time_chain(
-        f"wide band n={n} ({nf} channels) B={B}",
-        lambda impl: megachain.run_chunk_megachain(
-            mops, tables, dims, ps, kit, static, seed=SEED, sids=sids,
-            warm_ns=3, drift_max=0.6, impl=impl, graph=False), kit)
-    body = megachain.chunk_body(mops, tables, dims, static, seed=SEED,
-                                sids=sids, warm_ns=3, drift_max=0.6)
-    _time_graph(f"wide band n={n} B={B}", chain, body, ps, kit,
-                drift_max=0.6)
     shape = dict(B=B, n=nf, t=nt, m=dims.nmodes, ntimes=nt, alpha=nt - 1)
-    bounds = {k: bound(k, **shape) for k in MAIN_KERNELS if k != "cgemm"}
-    # each herm_inv launch of the blocked inverse is one base block, of
-    # n1 = split_at(n) or n - n1 channels (its products are priced by their
-    # own shapes)
-    n1 = ss.split_at(nf, hi.BASE_N)
-    b1, by = bound("herm_inv", **dict(shape, n=n1))
-    b2, _ = bound("herm_inv", **dict(shape, n=nf - n1))
-    bounds["herm_inv"] = ((b1 + b2) / 2, by)
-    it_bound = iteration_bound(chain, bounds, chain["rebuild_share"],
-                               {t: nt})
-    best, gbest = min(chain["kernels"]), min(chain["graph"])
-    say("times", f"iteration bound wide: {it_bound:.4f} ms; eager "
-        f"iteration {best:.4f} ms, {100 * it_bound / best:.1f} % of it; graph "
-        f"iteration {gbest:.4f} ms, {100 * it_bound / gbest:.1f} % of it")
 
+    # the solves first: profiler windows after graph captures in a process
+    # have lost device activities
     oa, ob = P.rng_fields(SEED, sids, 0, n, t, nt, nf)
     rc = P.draw_rhs(mops.nid, mops.nih, ob, nt)
     s = P.draw_system(mops.pt, ps, P.cgemm(mops.f, rc), oa, nt, nf)[0]
@@ -4074,36 +4287,94 @@ def phase_times_wide(dev, jobs_w):
     gen = torch.Generator(device=dev).manual_seed(SEED + 13)
     rhs = torch.randn((B, nf, NT), dtype=torch.complex64, generator=gen,
                       device=dev)
+    one = rhs[:, :, :1].contiguous()
     cases = {"herm_inv": lambda M: M.herm_inv(s),
-             "herm_chol_solve": lambda M: M.herm_chol_solve(ms, rhs)}
-    times = _time_pairs(f"blocked B={B}", cases)
-    # the warm start's masked blocked rebuild when no chain rebuilds (the
-    # gate mode with ps == psx): two base launches (the first computes the
-    # gate) and four products that return at once, the blocks' copies and
-    # the select
+             "herm_chol_solve": lambda M: M.herm_chol_solve(ms, rhs),
+             "herm_chol_solve K=1": lambda M: M.herm_chol_solve(ms, one)}
+    times = _time_pairs(f"n={nf} B={B}", cases)
+    routes = _time_routes(f"n={nf} B={B}", cases)
+    # the warm start's gate mode when no chain rebuilds (ps == psx): the
+    # gate and an early return in every block; on the parent's route two
+    # base launches, four masked products, the blocks' copies and the
+    # quadrant selects
     inv_buf = I.KERNELS.herm_inv(s)
-    masked_ms = _device_ms(
-        lambda: I.KERNELS.herm_inv(s, out=inv_buf, gate=(ps, ps, 0.6)))
-    say("times", f"device time blocked herm_inv n={n} B={B}, gate mode, "
-        f"none rebuild: {masked_ms:.5f} ms")
+    masked = _time_routes(f"n={nf} B={B}, gate mode, none rebuild", {
+        "herm_inv masked": lambda M: M.herm_inv(s, out=inv_buf,
+                                                gate=(ps, ps, 0.6))},
+        device=True)["herm_inv masked"]
     library = {"herm_inv": _time(lambda: torch.linalg.inv(s), 10),
                "herm_chol_solve": _time(lambda: torch.linalg.solve(ms, rhs),
-                                        10)}
-    blocked = {}
-    for k, sh in (("herm_inv", dict(shape, n=nf)),
-                  ("herm_chol_solve", dict(shape, n=nf, t=NT))):
-        b_ms, by = bound(k, **sh)
+                                        10),
+               "herm_chol_solve K=1": _time(
+                   lambda: torch.linalg.solve(ms, one), 10)}
+    solves = {}
+    for k, fn in cases.items():
+        kernel = k.split()[0]
+        b_ms, by = bound(kernel, **dict(shape, t=NT if k == "herm_chol_solve"
+                                        else 1))
         _build.reset_launches()
-        cases[k](I.KERNELS)
+        fn(I.KERNELS)
         torch.cuda.synchronize()
         per_call = {c: v for c, v in _build.LAUNCHES.items() if v}
-        blocked[f"{k}_n{sh['n']}"] = {
-            "n": sh["n"], "batch": B, "ms": times[k][0],
-            "plain_ms": times[k][1], "library_ms": library[k],
-            "bound_ms": b_ms, "bound_by": by, "launches_per_call": per_call}
-        say("times", f"{k:16s} blocked n={sh['n']} B={B}: bound {b_ms:.4f} "
-            f"ms ({by}), kernel at {100 * b_ms / times[k][0]:.1f} % of it; "
-            f"library call {library[k]:.4f} ms; launches a call {per_call}")
+        solves[k] = {"n": nf, "batch": B, "ms": times[k][0],
+                     "plain_ms": times[k][1], "parent_ms":
+                     routes[k]["parent_ms"], "parent_turns":
+                     routes[k]["turns"], "library_ms": library[k],
+                     "bound_ms": b_ms, "bound_by": by,
+                     "launches_per_call": per_call}
+        say("times", f"{k:20s} n={nf} B={B}: bound {b_ms:.4f} ms ({by}), "
+            f"kernel at {100 * b_ms / times[k][0]:.1f} % of it; library "
+            f"call {library[k]:.4f} ms; the parent's route "
+            f"{routes[k]['parent_ms']:.4f} ms; launches a call {per_call}")
+    b_ms, by = bound("herm_inv_gate", **shape)
+    masked.update(bound_ms=b_ms, bound_by=by)
+    say("times", f"herm_inv gate    n={nf} B={B}, none rebuild: bound "
+        f"{b_ms:.6f} ms ({by})")
+    del s_u, ms, rhs, one
+    _build.reset_launches()
+
+    tables = megachain.make_chain_tables(mops, dev)
+    static = megachain.prior_static_from(make_prior(nf=nf), dims)
+    kit = 5
+    chain = _time_chain(
+        f"wide band n={n} ({nf} channels) B={B}",
+        lambda impl: megachain.run_chunk_megachain(
+            mops, tables, dims, ps, kit, static, seed=SEED, sids=sids,
+            warm_ns=3, drift_max=0.6, impl=impl, graph=False), kit)
+
+    def body_of(impl, m=mops, tb=tables, d=dims, st=static):
+        return megachain.chunk_body(m, tb, d, st, seed=SEED, sids=sids,
+                                    warm_ns=3, drift_max=0.6, impl=impl)
+
+    _time_graph(f"wide band n={n} B={B}", chain, body_of(I.KERNELS), ps,
+                kit, drift_max=0.6)
+    bounds = {k: bound(k, **shape) for k in MAIN_KERNELS if k != "cgemm"}
+    it_bound = iteration_bound(chain, bounds, chain["rebuild_share"],
+                               {t: nt})
+    best, gbest = min(chain["kernels"]), min(chain["graph"])
+    say("times", f"iteration bound wide: {it_bound:.4f} ms; eager "
+        f"iteration {best:.4f} ms, {100 * it_bound / best:.1f} % of it; graph "
+        f"iteration {gbest:.4f} ms, {100 * it_bound / gbest:.1f} % of it")
+    iters = {"megachain": _time_graph_routes(
+        f"wide megachain n={n} B={B}", body_of, ps, kit)}
+    bins = rb.prior_bins(rb.bounded_bins(make_prior(MEGA_HALF, nf)), dev)
+    iters["mega"] = _time_graph_routes(
+        f"wide mega n={n} B={B}", lambda impl: mega.mega_chunk_body(
+            mops, dims, bins, tables.tlog, tables.q, seed=SEED, sids=sids,
+            impl=impl), ps, kit)
+    rops, ps_r, _, rbins = real_system(dense_w, dev)
+    iters["real"] = {"eager": _time_routes(
+        f"wide dense real, solver pallas, {kit} iterations B={B}",
+        {"real": lambda impl: rgibbs.run_chain(
+            rops, ps_r, rbins, kit, seed=SEED, sids=sids, solver="pallas",
+            impl=impl)}, reps=2)["real"]}
+    iters["real"]["eager"] = {k: v / kit if k != "turns" else
+                              [x / kit for x in v]
+                              for k, v in iters["real"]["eager"].items()}
+    say("times", f"one iteration, wide dense real B={B}: "
+        f"{iters['real']['eager']['ms']:.4f} ms, the parent's route "
+        f"{iters['real']['eager']['parent_ms']:.4f} ms")
+    del rops
     _build.reset_launches()
     # the replayed iteration at the JAX package's layout (n = 256), after
     # the profiler windows: windows after graph captures in a process have
@@ -4111,12 +4382,12 @@ def phase_times_wide(dev, jobs_w):
     jm, jd = build_ops(jobs_w, dev, "jax")
     jps = mega.pad_ps(np.tile(ps_truth(nf), (B, 1)), jd, dev)
     layouts_ms = _time_layouts(f"wide band B={B}", {
-        "port": (body, ps),
+        "port": (body_of(I.KERNELS), ps),
         "jax": (megachain.chunk_body(
             jm, megachain.make_chain_tables(jm, dev), jd, static, seed=SEED,
             sids=sids, warm_ns=3, drift_max=0.6), jps)}, kit)
-    return dict(chain=chain, iter_bound=it_bound, blocked=blocked,
-                masked_none_active_ms=masked_ms, layouts_ms=layouts_ms)
+    return dict(chain=chain, iter_bound=it_bound, solves=solves,
+                masked=masked, iterations=iters, layouts_ms=layouts_ms)
 
 
 def times_process(out_root):
@@ -4156,9 +4427,10 @@ def times_main(out):
     jobs = make_jobs(N_BASELINES)
     dense = make_jobs(N_BASELINES, dense=True, seed=SEED + 3)
     jobs_w = make_jobs(N_BASELINES, nf=WIDE_NF, seed=SEED + 20)
+    dense_w = make_jobs(N_BASELINES, dense=True, seed=SEED + 21, nf=WIDE_NF)
     tm = phase_times(dev, jobs)
     tf = phase_times_fallback(dev, jobs, dense, tm)
-    tw = phase_times_wide(dev, jobs_w)
+    tw = phase_times_wide(dev, jobs_w, dense_w)
     Path(out).write_text(json.dumps({"tm": tm, "tf": tf, "tw": tw},
                                     default=float))
 
@@ -4291,8 +4563,7 @@ def main():
                   "wide": {"ms": tw["chain"]["graph"],
                            "eager_ms": tw["chain"]["eager_beside_graph"],
                            "capture": tw["chain"]["graph_capture"],
-                           "masked_none_active_ms":
-                               tw["masked_none_active_ms"]}},
+                           "masked_none_active_ms": tw["masked"]}},
         "iteration_bound_ms": dict(tm["iter_bounds"], **tf["iter_bounds"]),
         "graph_iteration_ms_by_layout": dict(tm["layouts_ms"],
                                              wide=tw["layouts_ms"]),
@@ -4316,7 +4587,7 @@ def main():
         "scripts": scripts_stats,
         "wideband": {
             "nfreqs": WIDE_NF, "runs": wb_stats, "launches": wb_launches,
-            "blocked": tw["blocked"],
+            "solves": tw["solves"], "iterations_by_route": tw["iterations"],
             "iteration_ms": {k: tw["chain"][k] for k in ("kernels", "plain")},
             "iteration_bound_ms": tw["iter_bound"],
             "launches_per_iteration": tw["chain"]["launches_per_iteration"]}}),
@@ -4334,6 +4605,8 @@ if __name__ == "__main__":
                          sys.argv[5])
     elif sys.argv[1:2] == ["--rows"]:
         rows_main(*sys.argv[2:4])
+    elif sys.argv[1:2] == ["--herm"]:
+        herm_main(sys.argv[2], sys.argv[3])
     elif sys.argv[1:2] == ["--multichip"]:
         multichip_main(int(sys.argv[2]))
     else:

@@ -1,5 +1,5 @@
 // herm_chol_solve: x = A^-1 b for a batch of Hermitian positive-definite
-// complex64 matrices A (B, n, n), n <= 128 per call, and many right-hand
+// complex64 matrices A (B, n, n), n <= 192 per call, and many right-hand
 // sides b (B, n, K), by Cholesky A = L L^H and two triangular sweeps. A
 // larger n is block elimination in the wrapper (ops/kernels/spd_solve.py::
 // blocked_herm_chol_solve), with this kernel on its diagonal blocks and
@@ -40,7 +40,32 @@
 // chain, each factoring its own copy or copying L from a cluster peer,
 // only queue a second wave (PERF.md). Each output is a fixed-order sum over
 // its own chain's data (no atomics), the same for any batch.
+//
+// Above 128 (5 or 6 tiles a side, solve_tri_kernel) the padded square does
+// not fit (296 KB at n = 192), and the sweeps above would keep 12 of the 16
+// warps busy at nb = 6 (16 / nb = 2 tiles a pass) with each warp's row
+// block idle for half of every sweep. So:
+//   1. the lower tiles only (herm_tri.cuh, 177 KB at n = 192), factored
+//      by the same blocked Cholesky; each diagonal tile inverted in place;
+//   2. one fold, P(a, b) = L(a, b) Dinv_b in place of L(a, b), and
+//      W_b = Dinv_b^H Dinv_b in place of Dinv_b, so both sweeps need only
+//      P: the forward sweep subtracts P(w, I) t_I from the rows below the
+//      published partial t_I = b_I - sum_{K<I} L(I, K) y_K, and the
+//      backward sweep is x_I = W_I t_I - sum_{a>I} P(a, I)^H x_a, whose
+//      first term the owner forms in the forward step (no Q tiles, no
+//      upper tiles, no product on the backward sweep's owner);
+//   3. a sweep schedule that keeps every warp busy at every step: the
+//      right-hand sides go in chunks of 16 columns, four chunks at a time,
+//      each chunk on 4 warps, and warp q of a chunk holds rows 8q..8q+7 of
+//      every row block (a lane 2 rows x 2 columns of each), so the shrinking
+//      work of a sweep step (the blocks below or above the published one)
+//      is split evenly over all 16 warps. A chunk's 4 warps sit on the 4
+//      SM sub-partitions and synchronise on a named barrier of their own,
+//      once a step: the published block is double-buffered (8 KB a
+//      chunk), so a step's publish never waits for the step before it to
+//      finish reading. Each chunk runs its passes on its own.
 #include "herm_chol.cuh"
+#include "herm_tri.cuh"
 
 namespace {
 using namespace hchol;
@@ -197,6 +222,189 @@ solve_kernel(const float2* __restrict__ A, const float2* __restrict__ b,
     }
   }
 }
+
+// --- 128 < n <= 192: the lower tiles and the 16-warp sweep schedule ---
+
+constexpr int CW = 16;            // right-hand-side columns of a chunk
+constexpr int CHUNKS = 4;         // chunks at a time, 4 warps each
+constexpr int XB = TB * CW;       // complex of one published block
+
+// y[T][i][j] (+/-)= sum_k M(T)[8q + rg + 4i][k] X[k][2cg + j] for the row
+// blocks T in [T0, T1), with M(T) = P(T, I) (SUB: forward update) or
+// W_I (T0 = I, not SUB), or, when H, M(T)[r][k] = conj(P(I, T)[k][r])
+// (backward update, SUB). X is the published block (row stride CW,
+// read as float4). All of T0, T1 and the tiles' offsets are static.
+template <int NB, int T0, int T1, bool H, bool SUB>
+__device__ __forceinline__ void strip_mma(float2 (&y)[NB][2][2],
+                                          const float2* A, int I,
+                                          const float2* X, int q, int rg,
+                                          int cg) {
+  using htri::TS;
+  using htri::off;
+#pragma unroll 2
+  for (int k = 0; k < TB; ++k) {
+    const float4 xp = *reinterpret_cast<const float4*>(X + k * CW + 2 * cg);
+    const float2 xv[2] = {
+        SUB ? make_float2(-xp.x, -xp.y) : make_float2(xp.x, xp.y),
+        SUB ? make_float2(-xp.z, -xp.w) : make_float2(xp.z, xp.w)};
+#pragma unroll
+    for (int T = T0; T < T1; ++T) {
+      const float2* m = A + (H ? off<NB>(I, T) : off<NB>(T, I));
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int r = 8 * q + rg + 4 * i;
+        const float2 mv = H ? m[k * TS + r] : m[r * TS + k];
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          if (H) cfma_conj(y[T][i][j], mv, xv[j]);
+          else cfma(y[T][i][j], mv, xv[j]);
+        }
+      }
+    }
+  }
+}
+
+// the lane's rows of a row block, published into X (as float4)
+__device__ __forceinline__ void publish(float2* X, const float2 (&y)[2][2],
+                                        int q, int rg, int cg) {
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+    *reinterpret_cast<float4*>(X + (8 * q + rg + 4 * i) * CW + 2 * cg) =
+        make_float4(y[i][0].x, y[i][0].y, y[i][1].x, y[i][1].y);
+}
+
+// barrier of the 4 warps of chunk c (ids 1..4; id 0 is __syncthreads)
+__device__ __forceinline__ void sync_chunk(int c) {
+  asm volatile("bar.sync %0, 128;" ::"r"(1 + c) : "memory");
+}
+
+// forward step I: publish t_I; y_I = W_I t_I, y_T -= P(T, I) t_I (T > I)
+template <int NB, int I>
+__device__ __forceinline__ void forward(float2 (&y)[NB][2][2],
+                                        const float2* A, float2* Xs,
+                                        int& st, int c, int q, int rg,
+                                        int cg) {
+  if constexpr (I < NB) {
+    float2* X = Xs + (st++ & 1) * XB;
+    publish(X, y[I], q, rg, cg);
+    sync_chunk(c);
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int j = 0; j < 2; ++j) y[I][i][j] = make_float2(0.f, 0.f);
+    strip_mma<NB, I, I + 1, false, false>(y, A, I, X, q, rg, cg);
+    strip_mma<NB, I + 1, NB, false, true>(y, A, I, X, q, rg, cg);
+    forward<NB, I + 1>(y, A, Xs, st, c, q, rg, cg);
+  }
+}
+
+// backward step a: publish x_a; y_T -= P(a, T)^H x_a (T < a)
+template <int NB, int a>
+__device__ __forceinline__ void backward(float2 (&y)[NB][2][2],
+                                         const float2* A, float2* Xs,
+                                         int& st, int c, int q, int rg,
+                                         int cg) {
+  if constexpr (a > 0) {
+    float2* X = Xs + (st++ & 1) * XB;
+    publish(X, y[a], q, rg, cg);
+    sync_chunk(c);
+    strip_mma<NB, 0, a, true, true>(y, A, a, X, q, rg, cg);
+    backward<NB, a - 1>(y, A, Xs, st, c, q, rg, cg);
+  }
+}
+
+template <int NB>
+__global__ void __launch_bounds__(THREADS)
+solve_tri_kernel(const float2* __restrict__ A, const float2* __restrict__ b,
+                 float2* __restrict__ x, int n, int K) {
+  extern __shared__ float4 sm4[];   // 16-byte aligned: X is read as float4
+  using htri::off;
+  constexpr int NOFF = NB * (NB - 1) / 2, NW = THREADS / 32;
+  static_assert(NOFF <= NW, "every fold P(a, b) in the first round");
+  float2* L = reinterpret_cast<float2*>(sm4);       // the lower tiles
+  float2* Xs = L + htri::tiles<NB>() * htri::TILE;  // 2 blocks a chunk
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int rg = lane >> 3, cg = lane & 7;
+  const int chain = blockIdx.x;
+
+  // 1.
+  htri::load_lower<NB>(L, A + (long long)chain * n * n, n);
+  htri::chol<NB>(L);
+  if (warp < NB) htri::inv_tile_in_place(L + off<NB>(warp, warp));
+  __syncthreads();
+
+  // 2. items [0, NOFF): P(a, b); [NOFF, NOFF + NB): W_b. The first round
+  // holds every P, so its barrier orders every read of Dinv_b before W_b
+  // is stored; a later round's W_b reads only its own tile.
+  for (int r0 = 0; r0 < NOFF + NB; r0 += NW) {
+    const int it = r0 + warp;
+    float2 y[8][4];
+    float2* fold = nullptr;
+    if (it < NOFF) {
+      int b0 = it, a = 1;
+      while (b0 >= a) { b0 -= a; ++a; }
+      fold = L + off<NB>(a, b0);
+      block_mma<htri::TS, htri::TS, false, false, true>(
+          y, fold, L + off<NB>(b0, b0), rg, cg);
+    } else if (it < NOFF + NB) {
+      fold = L + off<NB>(it - NOFF, it - NOFF);
+      block_mma<htri::TS, htri::TS, true, false, true>(y, fold, fold, rg,
+                                                        cg);
+    }
+    if (r0 == 0) __syncthreads();
+    else __syncwarp();
+    if (fold) to_block<htri::TS>(fold, y, rg, cg);
+  }
+  __syncthreads();
+
+  // 3. chunk c of 16 columns, rows 8q..8q+7 of every row block
+  const int c = warp >> 2, q = warp & 3;
+  float2* Xs_c = Xs + c * 2 * XB;
+  const float2* bb = b + (long long)chain * n * K;
+  float2* xb = x + (long long)chain * n * K;
+  int st = 0;
+  for (int col0 = CW * c; col0 < K; col0 += CW * CHUNKS) {
+    float2 y[NB][2][2];
+#pragma unroll
+    for (int T = 0; T < NB; ++T)
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int row = TB * T + 8 * q + rg + 4 * i;
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          const int col = col0 + 2 * cg + j;
+          y[T][i][j] = row < n && col < K ? bb[(long long)row * K + col]
+                                          : make_float2(0.f, 0.f);
+        }
+      }
+    forward<NB, 0>(y, L, Xs_c, st, c, q, rg, cg);
+    backward<NB, NB - 1>(y, L, Xs_c, st, c, q, rg, cg);
+#pragma unroll
+    for (int T = 0; T < NB; ++T)
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int row = TB * T + 8 * q + rg + 4 * i;
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          const int col = col0 + 2 * cg + j;
+          if (row < n && col < K) xb[(long long)row * K + col] = y[T][i][j];
+        }
+      }
+  }
+}
+
+template <int NB>
+int launch_tri(const float2* A, const float2* b, float2* x, int batch, int n,
+               int K, cudaStream_t stream) {
+  const size_t smem = sizeof(float2) *
+      ((size_t)htri::tiles<NB>() * htri::TILE + (size_t)CHUNKS * 2 * XB);
+  cudaError_t err = cudaFuncSetAttribute(
+      solve_tri_kernel<NB>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  solve_tri_kernel<NB><<<batch, THREADS, smem, stream>>>(A, b, x, n, K);
+  return (int)cudaGetLastError();
+}
 }  // namespace
 
 // L: unused (L stays in shared memory); kept in the C interface, may be null
@@ -204,7 +412,11 @@ HK_API int hk_herm_chol_solve(const float2* A, const float2* b, float2* L,
                               float2* x, int batch, int n, int K,
                               cudaStream_t stream) {
   (void)L;
-  if (n < 1 || n > TB * MAX_TILES || K < 1) return (int)cudaErrorInvalidValue;
+  if (n < 1 || n > TB * htri::MAX_TRI_TILES || K < 1)
+    return (int)cudaErrorInvalidValue;
+  if (n > TB * MAX_TILES)
+    return n > TB * 5 ? launch_tri<6>(A, b, x, batch, n, K, stream)
+                      : launch_tri<5>(A, b, x, batch, n, K, stream);
   const int nb = (n + TB - 1) / TB, np = TB * nb;
   const int tpp = THREADS / 32 / nb;
   const size_t smem = sizeof(float2) *

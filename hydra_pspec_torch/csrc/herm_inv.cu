@@ -1,5 +1,5 @@
 // herm_inv: per-chain inverse of the Jacobi-equilibrated Hermitian
-// positive-definite system S = I + D P~ D (n x n complex64, n <= 128 per
+// positive-definite system S = I + D P~ D (n x n complex64, n <= 192 per
 // launch; a larger n is the block Schur recursion of the wrapper,
 // ops/kernels/herm_inv.py::blocked_herm_inv, with this kernel on its
 // diagonal blocks and cgemm for its products).
@@ -34,6 +34,24 @@
 //      expensive first, a warp per 8-row strip, into the dead lower tiles
 //      of L; the output's upper triangle is the conjugate transpose of the
 //      lower one, written coalesced.
+// Above 128 (5 or 6 tiles a side) the padded square no longer fits in a
+// block's shared memory (296 KB at n = 192), so herm_inv_tri_kernel keeps
+// only the lower tiles (herm_tri.cuh, 21 tiles, 177 KB at n = 192) and
+// runs LAPACK potri's three phases in place on them:
+//   1. the same blocked Cholesky, on the lower-tile storage;
+//   2. X = L^-1 in place: each diagonal tile inverted where it lies (a
+//      warp each), then the block columns right to left, X_IJ =
+//      -(sum_{J<K<=I} X_IK L_KJ) X_JJ: the column's tile strips (bottom
+//      tiles first, 16 strips a round) each keep their sum in registers
+//      until a barrier (the sums read the column's L tiles), then write
+//      it into their own slot and multiply it by X_JJ there;
+//   3. S^-1 = X^H X in place, block rows top down: output (I, J) reads
+//      X_KI and X_KJ for K >= I, so it only overwrites X_IJ, which no later
+//      row reads; a row's tiles (4 a round, the diagonal tile last) keep
+//      their strips in registers until a barrier and then write, so the
+//      diagonal output is written after every tile of its row has read
+//      X_II.
+// One block of 16 warps per chain, one wave at B <= 132.
 // FP32 fmaf products only (no tensor cores, no TF32). Each output is one
 // warp's fixed-order sum over its chain's data: no cross-chain work, no
 // atomics. The identity maps to exactly the identity.
@@ -58,6 +76,7 @@
 // needs no launch of its own for the gate (the gate's own work, 2m floats
 // read a chain, is far below the cost of any launch).
 #include "herm_chol.cuh"
+#include "herm_tri.cuh"
 
 namespace {
 using namespace hchol;
@@ -234,6 +253,135 @@ int launch(const float2* S, float2* out, int batch, int n, const int* active,
       S, out, n, active, gate);
   return (int)cudaGetLastError();
 }
+
+// 128 < n <= 192: the potri phases in place on the lower tiles (header)
+template <int NB>
+__global__ void __launch_bounds__(THREADS)
+herm_inv_tri_kernel(const float2* __restrict__ S, float2* __restrict__ out,
+                    int n, const int* __restrict__ active, Gate gate) {
+  if (gate.ps ? !drift_gate(gate) : active && !active[blockIdx.x]) return;
+  extern __shared__ float2 sm[];
+  using htri::TS;
+  using htri::off;
+  float2* A = sm;                     // the lower tiles, htri::off
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5, nwarp = blockDim.x >> 5;
+  constexpr int NS = TB / STRIP;      // strips a tile
+  const long long boff = (long long)blockIdx.x * n * n;
+
+  htri::load_lower<NB>(A, S + boff, n);
+  htri::chol<NB>(A);                  // 1.
+
+  // 2a. the diagonal tiles of X = L^-1 in place, a warp each
+  if (warp < NB) htri::inv_tile_in_place(A + off<NB>(warp, warp));
+  __syncthreads();
+  // 2b. block columns right to left; X_IJ into tile (I, J), bottom first
+  for (int J = NB - 2; J >= 0; --J) {
+    const int items = (NB - 1 - J) * NS;
+    for (int r0s = 0; r0s < items; r0s += nwarp) {
+      const int it = r0s + warp;
+      const bool mine = it < items;
+      const int I = NB - 1 - it / NS, r0 = STRIP * (it % NS);
+      float2 acc[STRIP];
+#pragma unroll
+      for (int r = 0; r < STRIP; ++r) acc[r] = make_float2(0.f, 0.f);
+      if (mine) {
+        for (int K = J + 1; K <= I; ++K) {   // acc = sum_K X_IK L_KJ
+          const float2* X = A + off<NB>(I, K) + r0 * TS;
+          const float2* L = A + off<NB>(K, J);
+#pragma unroll 4
+          for (int k = 0; k < TB; ++k) {
+            const float2 l = L[k * TS + lane];
+#pragma unroll
+            for (int r = 0; r < STRIP; ++r) cfma(acc[r], X[r * TS + k], l);
+          }
+        }
+      }
+      __syncthreads();   // every sum of the round has read column J's L
+      if (mine) {
+        float2* O = A + off<NB>(I, J) + r0 * TS;   // strip of X_IJ
+#pragma unroll
+        for (int r = 0; r < STRIP; ++r) O[r * TS + lane] = acc[r];
+        __syncwarp();
+        const float2* Xj = A + off<NB>(J, J);     // X_IJ = -acc X_JJ
+#pragma unroll
+        for (int r = 0; r < STRIP; ++r) acc[r] = make_float2(0.f, 0.f);
+#pragma unroll 4
+        for (int k = 0; k < TB; ++k) {
+          const float2 x = neg(Xj[k * TS + lane]);
+#pragma unroll
+          for (int r = 0; r < STRIP; ++r) cfma(acc[r], O[r * TS + k], x);
+        }
+        __syncwarp();
+#pragma unroll
+        for (int r = 0; r < STRIP; ++r) O[r * TS + lane] = acc[r];
+      }
+    }
+    __syncthreads();     // column J is X before column J - 1 reads it
+  }
+
+  // 3. S^-1_IJ = sum_{K >= I} X_KI^H X_KJ into tile (I, J), rows top down
+  for (int I = 0; I < NB; ++I) {
+    const int items = (I + 1) * NS;   // tiles J = 0..I, the diagonal last
+    for (int r0s = 0; r0s < items; r0s += nwarp) {
+      const int it = r0s + warp;
+      const bool mine = it < items;
+      const int J = it / NS, r0 = STRIP * (it % NS);
+      float2 acc[STRIP];
+#pragma unroll
+      for (int r = 0; r < STRIP; ++r) acc[r] = make_float2(0.f, 0.f);
+      if (mine) {
+        for (int K = I; K < NB; ++K) {
+          // X_KI[k][r0 + r] (broadcast) and X_KJ[k][lane]
+          const float2* Xi = A + off<NB>(K, I) + r0;
+          const float2* Xj = A + off<NB>(K, J);
+#pragma unroll 4
+          for (int k = 0; k < TB; ++k) {
+            const float2 x = Xj[k * TS + lane];
+#pragma unroll
+            for (int r = 0; r < STRIP; ++r)
+              cfma_conj(acc[r], Xi[k * TS + r], x);
+          }
+        }
+      }
+      __syncthreads();   // the round's tiles (and, last, X_II) are read
+      if (mine) {
+        float2* O = A + off<NB>(I, J) + r0 * TS;
+#pragma unroll
+        for (int r = 0; r < STRIP; ++r) O[r * TS + lane] = acc[r];
+      }
+    }
+  }
+  __syncthreads();
+
+  float2* Ob = out + boff;
+  for (int e = threadIdx.x; e < n * n; e += blockDim.x) {
+    const int i = e / n, j = e - i * n;
+    const float2 v = A[j <= i ? htri::at<NB>(i, j) : htri::at<NB>(j, i)];
+    Ob[e] = (j <= i) ? v : make_float2(v.x, -v.y);
+  }
+}
+
+template <int NB>
+constexpr size_t smem_tri() {
+  return sizeof(float2) * (size_t)htri::tiles<NB>() * htri::TILE;
+}
+
+template <int NB>
+int launch_tri(const float2* S, float2* out, int batch, int n,
+               const int* active, const Gate& gate, cudaStream_t stream) {
+  // the opt-in outside a capture, as launch<NB> does
+  cudaStreamCaptureStatus capture;
+  cudaError_t err = cudaStreamIsCapturing(stream, &capture);
+  if (err == cudaSuccess && capture == cudaStreamCaptureStatusNone)
+    err = cudaFuncSetAttribute(herm_inv_tri_kernel<NB>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)smem_tri<NB>());
+  if (err != cudaSuccess) return (int)err;
+  herm_inv_tri_kernel<NB><<<batch, THREADS, smem_tri<NB>(), stream>>>(
+      S, out, n, active, gate);
+  return (int)cudaGetLastError();
+}
 }  // namespace
 
 // ps == nullptr: no gate (active, if given, selects the chains)
@@ -241,12 +389,15 @@ HK_API int hk_herm_inv(const float2* S, float2* out, int batch, int n,
                        const int* active, const float* ps, const float* psx,
                        float drift_max, int m, int* rebuild,
                        cudaStream_t stream) {
-  if (n < 1 || n > TB * MAX_TILES || (ps && (!psx || !rebuild || m < 1)))
+  if (n < 1 || n > TB * htri::MAX_TRI_TILES ||
+      (ps && (!psx || !rebuild || m < 1)))
     return (int)cudaErrorInvalidValue;
   const Gate gate{ps, psx, drift_max, m, rebuild};
   const int nb = (n + TB - 1) / TB;
   return nb == 1 ? launch<1>(S, out, batch, n, active, gate, stream)
        : nb == 2 ? launch<2>(S, out, batch, n, active, gate, stream)
        : nb == 3 ? launch<3>(S, out, batch, n, active, gate, stream)
-                 : launch<4>(S, out, batch, n, active, gate, stream);
+       : nb == 4 ? launch<4>(S, out, batch, n, active, gate, stream)
+       : nb == 5 ? launch_tri<5>(S, out, batch, n, active, gate, stream)
+                 : launch_tri<6>(S, out, batch, n, active, gate, stream);
 }

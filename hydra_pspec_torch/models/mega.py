@@ -46,7 +46,7 @@ class MegaDims(NamedTuple):
     nfreqs: int      # true Nfreqs
     ntimes: int      # true Ntimes
     nmodes: int      # true Nmodes
-    # channel width: nfreqs, no pad (herm_inv takes any n, split above 128
+    # channel width: nfreqs, no pad (herm_inv takes any n, split above 192
     # by blocked_herm_inv; cgemm zero-fills ragged tiles)
     n: int
     # time width: ntimes rounded up to even, so that every (n, t) row of a

@@ -9,27 +9,29 @@ Hermitian matrix is factored directly: one CTA per chain keeps the whole
 matrix (132 KB at n = 128) in shared memory and runs, on 32 x 32 tiles,
 the blocked Cholesky of ``csrc/herm_chol.cuh``, ``L^-1`` (diagonal tiles
 inverted in parallel, the rest as tile products) and ``L^-H L^-1`` over
-the lower tiles only. It is bound by the factor's chain of single-warp
-steps and by the shared-memory bandwidth of the tile products, not by
-HBM.
+the lower tiles only. Above 128 (to 192) the CTA keeps only the lower
+tiles (``csrc/herm_tri.cuh``, 177 KB at n = 192) and runs the same three
+phases in place on them, as LAPACK's ``potri`` does. It is bound by the
+factor's chain of single-warp steps and by the shared-memory bandwidth of
+the tile products, not by HBM.
 
 One launch takes n <= :data:`BASE_N`. A larger n goes through
 :func:`blocked_herm_inv`, the 2 x 2 block Schur recursion of
 ``_spd_inv_into`` lifted to the complex Hermitian case, whose base case is
-that kernel on blocks of at most 128 and whose products are :mod:`cgemm`.
+that kernel on blocks of at most 192 and whose products are :mod:`cgemm`.
 
 The apply step ``x = A^-1 b`` and the refinement ``x += A^-1 (b - E x)``
 (``megastep.py:176-196``) run through :mod:`cgemm`.
 
 ``active`` (int32 per chain) restricts the inverse to the flagged chains.
-Up to 128 the other chains' CTAs return at once and their ``out`` is left
+Up to 192 the other chains' CTAs return at once and their ``out`` is left
 as it was; above, the blocked inverse runs its launches on the flagged
 chains and per-chain selects write its quadrants into ``out``.
 
 ``gate`` takes the place of ``active`` for the megachain warm start: the
 flags are its drift gate (``ops/pallas/megachain.py:366-379``), which each
 chain's CTA computes from the chain's bandpowers before its first load and
-writes to ``rebuild``, so the gate costs no launch of its own. Above 128
+writes to ``rebuild``, so the gate costs no launch of its own. Above 192
 the first base launch computes them and every later launch and product of
 the blocked inverse reads them as ``active``. The plain version is
 :func:`plain_warm_gate` followed by the masked :func:`plain_herm_inv`.
@@ -42,7 +44,7 @@ from . import _build
 from .cgemm import cgemm
 from .spd_solve import equilibrate, split_at
 
-BASE_N = 128  # one launch holds the whole matrix in a block's shared memory
+BASE_N = 192  # one launch holds the lower tiles in a block's shared memory
 
 
 def _select(active, inv, out):
@@ -140,16 +142,19 @@ def blocked_herm_inv(s: torch.Tensor, *, base, mm, base_n: int = BASE_N,
 
 
 def herm_inv(s: torch.Tensor, out=None, active=None, gate=None,
-             rebuild=None) -> torch.Tensor:
+             rebuild=None, base_n: int = BASE_N) -> torch.Tensor:
     """Inverse of each (n, n) Hermitian PD matrix of ``s`` (B, n, n), any
-    n: one kernel launch for n <= :data:`BASE_N`, else
+    n: one kernel launch for n <= ``base_n``, else
     :func:`blocked_herm_inv` over such launches and :func:`cgemm` products
     (each counted as its own launch). ``active`` (optional int32 (B,)):
     only the flagged chains are inverted into ``out``; the others keep
     their ``out``. ``gate`` (optional, not with ``active``): ``(ps, psx,
     drift_max)``, ``ps`` and ``psx`` float32 (B, m): the flags are the
     warm start's drift gate computed in the launch (module docstring),
-    written to ``rebuild`` (int32 (B,), allocated when not given)."""
+    written to ``rebuild`` (int32 (B,), allocated when not given).
+    ``base_n`` (at most :data:`BASE_N`): 128 gives the blocked route that
+    served 128 < n <= 192 before the lower-tile kernel, kept to time
+    against it."""
     if gate is not None and active is not None:
         raise ValueError("herm_inv takes active or gate, not both")
     if _build.on_cpu(s, out, active, *(gate or ())[:2], rebuild):
@@ -172,7 +177,9 @@ def herm_inv(s: torch.Tensor, out=None, active=None, gate=None,
             rebuild = torch.empty((batch,), dtype=torch.int32,
                                   device=s.device)
         _build.check(rebuild, "rebuild", torch.int32, (batch,), s.device)
-    if n > BASE_N:
+    if not 0 < base_n <= BASE_N:
+        raise ValueError(f"herm_inv: base_n {base_n} not in [1, {BASE_N}]")
+    if n > base_n:
         base, mm = herm_inv, cgemm
         mask = rebuild if gate is not None else active
         if mask is not None:   # the launches skip the other chains
@@ -180,8 +187,8 @@ def herm_inv(s: torch.Tensor, out=None, active=None, gate=None,
             base = lambda m, *rest: herm_inv(m, *rest) if rest else \
                 herm_inv(m, active=mask)
             mm = functools.partial(cgemm, active=mask)
-        return blocked_herm_inv(s, base=base, mm=mm, out=out, active=active,
-                                gate=gate, rebuild=rebuild)
+        return blocked_herm_inv(s, base=base, mm=mm, base_n=base_n, out=out,
+                                active=active, gate=gate, rebuild=rebuild)
     _build.check(s, "s", torch.complex64)
     if out is None:
         out = torch.empty_like(s)

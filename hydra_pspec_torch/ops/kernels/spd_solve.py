@@ -11,8 +11,11 @@ real FMAs; no tensor cores, no TF32), in one launch: one CTA per chain
 factors it on 32 x 32 tiles in shared memory (``csrc/herm_chol.cuh``),
 folds the inverses of the diagonal tiles into the off-diagonal blocks, and
 runs the forward and backward sweeps over all right-hand sides from there,
-so L never goes to device memory. One call takes n <= :data:`BASE_N`, as
-for ``herm_inv``, and counts one ``herm_chol_solve`` launch. A larger n goes
+so L never goes to device memory. Above 128 (to 192) the CTA keeps only the
+lower tiles (``csrc/herm_tri.cuh``) and sweeps in chunks of 16 columns, a
+chunk on 4 warps that each hold 8 rows of every row block, so every warp
+works at every sweep step. One call takes n <= :data:`BASE_N`, as for
+``herm_inv``, and counts one ``herm_chol_solve`` launch. A larger n goes
 through :func:`blocked_herm_chol_solve`, block elimination over such calls
 with :mod:`cgemm` products.
 """
@@ -21,7 +24,7 @@ import torch
 from . import _build
 from .cgemm import cgemm
 
-BASE_N = 128  # the factor holds the whole matrix in a block's shared memory
+BASE_N = 192  # the factor holds the lower tiles in a block's shared memory
 
 
 def plain_herm_chol_solve(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -67,20 +70,28 @@ def blocked_herm_chol_solve(a: torch.Tensor, b: torch.Tensor, *, base, mm,
     return torch.cat([mm(t, x2, x=y, alpha=-1.0, out=y), x2], 1)
 
 
-def herm_chol_solve(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+def herm_chol_solve(a: torch.Tensor, b: torch.Tensor,
+                    base_n: int = BASE_N) -> torch.Tensor:
     """``x = a^-1 b`` for Hermitian PD complex64 ``a`` (B, n, n) and ``b``
     (B, n, K), without equilibration (see :func:`hermitian_solve_chol`),
-    any n: one call of the kernel for n <= :data:`BASE_N`, else
+    any n: one call of the kernel for n <= ``base_n``, else
     :func:`blocked_herm_chol_solve` over such calls and ``cgemm``
-    products (each counted as its own launch)."""
+    products (each counted as its own launch). ``base_n`` (at most
+    :data:`BASE_N`): 128 gives the blocked route that served
+    128 < n <= 192 before the lower-tile kernel, kept to time against
+    it."""
     if _build.on_cpu(a, b):
         return plain_herm_chol_solve(a, b)
     if a.dim() != 3 or a.shape[1] != a.shape[2]:
         raise ValueError(f"herm_chol_solve takes (B, n, n); got "
                          f"{tuple(a.shape)}")
+    if not 0 < base_n <= BASE_N:
+        raise ValueError(f"herm_chol_solve: base_n {base_n} not in "
+                         f"[1, {BASE_N}]")
     batch, n, _ = a.shape
-    if n > BASE_N:
-        return blocked_herm_chol_solve(a, b, base=herm_chol_solve, mm=cgemm)
+    if n > base_n:
+        return blocked_herm_chol_solve(a, b, base=herm_chol_solve, mm=cgemm,
+                                       base_n=base_n)
     _build.check(a, "a", torch.complex64)
     _build.check(b, "b", torch.complex64, (batch, n, None), a.device)
     x = torch.empty_like(b)

@@ -2,7 +2,7 @@
 ``herm_chol_solve``, whose kernels factor on 32 x 32 tiles): their plain
 versions at ragged, padded and full tile widths against float64 numpy,
 and the wrappers' contracts (shape, dtype and device errors, the launch
-arguments, the blocked route above 128). The card-side case holds the
+arguments, one launch up to 192 and the blocked route above). The card-side case holds the
 kernels against their plain versions at the same widths and checks that
 the identity maps to exactly the identity; ``chip_smoke.py`` runs the same
 checks on the card. Port only, no JAX: the JAX pins of these functions are
@@ -104,31 +104,40 @@ def test_contract_launch_arguments(card_branch):
 
 
 def test_contract_blocked_route(card_branch, monkeypatch):
-    """Above 128 both go blocked: base launches of at most 128 and cgemm
+    """Above 192 both go blocked: base launches of at most 192 and cgemm
     products (two and four for the inverse at n = 256, two and three for
-    the solve at n = 180). The operand checks are skipped here: the blocks
-    the recursions copy out are plain CPU tensors."""
+    the solve at n = 300); ``base_n=128`` keeps the composition that
+    served 128 < n <= 192 before (two and three at n = 180). The operand
+    checks are skipped here: the blocks the recursions copy out are plain
+    CPU tensors."""
     monkeypatch.setattr(_build, "check", lambda *args, **kw: None)
     thi.herm_inv(_c64(_spd(256, 3, batch=1)))
+    tss.herm_chol_solve(_c64(_spd(300, 4, batch=1)),
+                        _c64(_rhs(300, 5, 5)[:1]))
     tss.herm_chol_solve(_c64(_spd(180, 4, batch=1)),
-                        _c64(_rhs(180, 5, 5)[:1]))
+                        _c64(_rhs(180, 5, 5)[:1]), base_n=128)
     kernels = [k for k, _, _ in card_branch]
     assert kernels[:6].count("herm_inv") == 2
     assert kernels[:6].count("cgemm") == 4
-    assert kernels[6:].count("herm_chol_solve") == 2
-    assert kernels[6:].count("cgemm") == 3
+    assert kernels[6:11].count("herm_chol_solve") == 2
+    assert kernels[6:11].count("cgemm") == 3
+    assert kernels[11:].count("herm_chol_solve") == 2
+    assert kernels[11:].count("cgemm") == 3
     base_n = [a[3] if k == "herm_inv" else a[5]
               for k, _, a in card_branch if k != "cgemm"]
-    assert base_n == [128, 128, 128, 52]
+    assert base_n == [192, 64, 192, 108, 128, 52]
+    with pytest.raises(ValueError, match="base_n"):
+        thi.herm_inv(_c64(_spd(8, 3, batch=1)), base_n=256)
 
 
 def test_contract_gate_mode(card_branch, monkeypatch):
-    """The drift gate in the ``herm_inv`` launch: up to 128 one launch with
-    the bandpowers, ``drift_max``, their width and the flags' buffer, and
-    no ``active``; blocked at n = 256 the first base launch takes the gate
-    and the second base launch and the four products read its flags as
-    ``active``. ``active`` and ``gate`` together, and bandpowers of the
-    wrong shape, are refused."""
+    """The drift gate in the ``herm_inv`` launch: up to 192 (n = 120 and
+    180) one launch with the bandpowers, ``drift_max``, their width and
+    the flags' buffer, no ``active`` and no products; blocked at n = 256
+    the first base launch (192) takes the gate and the second base launch
+    (64) and the four products read its flags as ``active``. ``active``
+    and ``gate`` together, and bandpowers of the wrong shape, are
+    refused."""
     s = _fake(_c64(_spd(120, 11)))
     ps, psx = _fake(torch.rand(B, 120)), _fake(torch.rand(B, 120))
     rebuild = _fake(torch.zeros(B, dtype=torch.int32))
@@ -144,6 +153,15 @@ def test_contract_gate_mode(card_branch, monkeypatch):
     with pytest.raises(ValueError, match="psx"):
         thi.herm_inv(s, out=out, gate=(ps, _fake(torch.rand(B, 7)), 0.6))
     card_branch.clear()
+    s = _fake(_c64(_spd(180, 13)))
+    ps, psx = _fake(torch.rand(B, 180)), _fake(torch.rand(B, 180))
+    assert thi.herm_inv(s, out=_fake(torch.zeros_like(s)),
+                        gate=(ps, psx, 0.6), rebuild=rebuild) is not None
+    (kernel, entry, args), = card_branch
+    assert (kernel, entry) == ("herm_inv", "hk_herm_inv")
+    assert args[2:] == (B, 180, None, ps.data_ptr(), psx.data_ptr(),
+                        0.6, 180, rebuild.data_ptr())
+    card_branch.clear()
     monkeypatch.setattr(_build, "check", lambda *args, **kw: None)
     ps, psx = torch.rand(1, 256), torch.rand(1, 256)
     flags = torch.zeros(1, dtype=torch.int32)
@@ -152,9 +170,38 @@ def test_contract_gate_mode(card_branch, monkeypatch):
         rebuild=flags)
     herm = [a for k, _, a in card_branch if k == "herm_inv"]
     assert [k for k, _, _ in card_branch].count("cgemm") == 4
+    assert [a[3] for a in herm] == [192, 64]
     assert herm[0][4:] == (None, ps.data_ptr(), psx.data_ptr(), 0.3, 256,
                            flags.data_ptr())
     assert herm[1][4:] == (flags.data_ptr(), None, None, 0.0, 0, None)
+
+
+# one launch on the lower tiles (one over a tile boundary, a ragged fifth
+# tile, the wide band's 180, full 192), then the blocked route (192 + 1,
+# 192 + 64, 192 + 108)
+ROUTE_NS = (129, 140, 180, 192, 193, 256, 300)
+
+
+@pytest.mark.parametrize("n", ROUTE_NS)
+def test_contract_route(card_branch, monkeypatch, n):
+    """Both wrappers up to 192: one launch with the whole n and no
+    products; above: base launches of at most 192, one a leaf of the
+    split (192 and n - 192), and the products (four for the inverse,
+    three for the solve). The operand checks are skipped here: the blocks
+    the recursions copy out are plain CPU tensors."""
+    monkeypatch.setattr(_build, "check", lambda *args, **kw: None)
+    leaves = [n] if n <= 192 else [192, n - 192]
+    thi.herm_inv(_fake(_c64(_spd(n, 20 + n, batch=1))))
+    got = [(k, a[3] if k == "herm_inv" else None) for k, _, a in card_branch]
+    assert [b for k, b in got if k == "herm_inv"] == leaves
+    assert [k for k, _ in got].count("cgemm") == 4 * (len(leaves) - 1)
+    card_branch.clear()
+    tss.herm_chol_solve(_fake(_c64(_spd(n, 30 + n, batch=1))),
+                        _fake(_c64(_rhs(n, 3, n)[:1])))
+    got = [(k, a[5] if k == "herm_chol_solve" else None)
+           for k, _, a in card_branch]
+    assert [b for k, b in got if k == "herm_chol_solve"] == leaves
+    assert [k for k, _ in got].count("cgemm") == 3 * (len(leaves) - 1)
 
 
 @pytest.mark.parametrize("what", ["not_square", "rhs_rows", "dtype"])

@@ -6,10 +6,10 @@
   grouped setup keeps G = the flag-pattern count, each row the JAX
   layout's row of its group, with the row streams ``sid*G_key + g``.
 * A megachain chunk (plain; grouped with 3 flag patterns of unequal
-  length), a mega step and a chunk whose n goes past one ``split_at``
-  block, each on the Philox streams, match the same run at the JAX
-  package's layout (``layout="jax"``, which the other pins hold against
-  the JAX package) on every real lane. On the CPU every kernel takes its
+  length), a mega step and a chunk whose JAX-layout n goes past one
+  ``split_at`` block, each on the Philox streams, match the same run at
+  the JAX package's layout (``layout="jax"``, which the other pins hold
+  against the JAX package) on every real lane. On the CPU every kernel takes its
   plain version, and ``plain_cgemm`` is ``torch.matmul``, whose blocking
   and so whose last bits depend on the size: the tolerance is relative,
   1e-4 on the sample fields after 4 iterations (on the card the two
@@ -214,8 +214,8 @@ RUNS = {
     "plain lean": functools.partial(_chain, NF, lean=True),
     "grouped G=3": _grouped,
     "mega": _mega,
-    # 130 channels: the blocked herm_inv (split at 128), n = 130 against
-    # the JAX layout's 256
+    # 130 channels, n = 130 against the JAX layout's 256 (on the card one
+    # herm_inv launch against the blocked route, split at 192)
     "blocked n=130": functools.partial(_chain, 130),
 }
 

@@ -1,7 +1,9 @@
 """More than 128 channels in the port: the blocked Hermitian inverse
 (``herm_inv.blocked_herm_inv``) and factor-solve
 (``spd_solve.blocked_herm_chol_solve``) over their plain bases at several
-recursion depths, and held against the JAX package at n = 140; a megachain
+recursion depths, and held against the JAX package at n = 140; the
+equilibrated solves at n = 180 (one launch of each kernel on the card)
+against the JAX package's; a megachain
 chunk at 140 channels (n = 256) and the real engine with a dense ``Ninv``
 at 140 channels against the JAX engines; and the ``cgemm`` wrapper's
 contract on the CPU at the skinny, ragged and wide shapes its kernel
@@ -9,7 +11,9 @@ serves.
 
 The JAX references run as their own tests run them: the megachain kernel
 and ``hermitian_solve_pallas`` (``spd_factor_solve``) in Pallas interpret
-mode, the real engine with ``solver="chol"`` (XLA). The blocked inverse is
+mode (at n = 180 in a subprocess started before the module's first case,
+so that its 20 s interpret compile overlaps them), the real engine with
+``solver="chol"`` (XLA). The blocked inverse is
 held against the XLA solve ``cplx.hermitian_solve``: the Pallas
 recursive-inverse entry ``hermitian_solve_pallas2`` pads the 2n = 280 real
 embedding of n = 140 to 384, which its power-of-two Schur recursion
@@ -19,6 +23,10 @@ tests: residual 1e-4 (inverse) and 2e-4 (solve), agreement 3e-3 of the
 mean magnitude (tests/test_pallas_inv.py), and the chain tolerances of
 tests/test_torch_megachain.py."""
 import functools
+import os
+import subprocess
+import sys
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -180,6 +188,91 @@ def test_blocked_solve_matches_jax(case):
     SOLVES[case]()
 
 
+# n = 180, the width one launch of each kernel serves on the card
+# (128 < n <= 192): an equilibrated system and 16 right-hand sides
+ONE_LAUNCH_N = 180
+
+
+@functools.lru_cache(maxsize=None)
+def _one_launch_system():
+    rng = np.random.default_rng(ONE_LAUNCH_N)
+    ms, _ = tss.equilibrate(_c64(_hpd(rng, 1, ONE_LAUNCH_N, spread=True)))
+    return ms, _crandn(rng, 1, ONE_LAUNCH_N, 16)
+
+
+# ``hermitian_solve_pallas`` at n = 180 in Pallas interpret mode, in a
+# fresh process with synchronous CPU dispatch (as tests/test_torch_tflags.py
+# runs its kernel calls): its interpret compile takes about 20 s, which the
+# module's earlier cases overlap. It imports numpy, jax and the JAX
+# package only, and reads its inputs from an npz.
+_PALLAS_SIDE = r"""
+import sys
+from pathlib import Path
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+
+jax.config.update("jax_cpu_enable_async_dispatch", False)
+jax.config.update("jax_enable_x64", True)
+from jax.experimental.pallas import tpu as pltpu
+
+from hydra_pspec_tpu.ops import cplx
+from hydra_pspec_tpu.ops.pallas import spd_solve
+
+root = Path(sys.argv[1])
+z = np.load(root / "inputs.npz")
+run = jax.jit(lambda a, b: spd_solve.hermitian_solve_pallas(
+    a, b, batch_tile=1))
+with pltpu.force_tpu_interpret_mode():
+    x = cplx.to_numpy(run(cplx.from_numpy(z["m"], jnp.float32),
+                          cplx.from_numpy(z["rhs"], jnp.float32)))
+np.save(root / "x.npy", x)
+"""
+
+
+@pytest.fixture(scope="module", autouse=True)
+def pallas_solve_proc(tmp_path_factory):
+    """The Pallas factor-solve at n = 180, started once before the
+    module's first case: (process, its directory). Killed at the module's
+    end if still running."""
+    root = tmp_path_factory.mktemp("wide_pallas_solve")
+    ms, rhs = _one_launch_system()
+    np.savez(root / "inputs.npz", m=ms.numpy().astype(np.complex128),
+             rhs=rhs)
+    proc = subprocess.Popen(
+        [sys.executable, "-c", _PALLAS_SIDE, str(root)],
+        cwd=Path(__file__).resolve().parents[1],
+        env=dict(os.environ, JAX_PLATFORMS="cpu"), stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True)
+    yield proc, root
+    if proc.poll() is None:
+        proc.kill()
+        proc.communicate()
+
+
+def test_one_launch_solves_match_jax(pallas_solve_proc):
+    """At n = 180: ``hermitian_solve`` (the ``herm_inv`` entry) against
+    the XLA ``cplx.hermitian_solve`` and ``hermitian_solve_chol`` (the
+    factor-solve) against ``hermitian_solve_pallas`` in interpret mode,
+    on an equilibrated system: residuals under 1e-4 and 2e-4, agreement
+    within 3e-3 of the mean magnitude."""
+    from hydra_pspec_tpu.ops import cplx
+
+    ms, rhs = _one_launch_system()
+    m = ms.numpy().astype(np.complex128)
+    proc, root = pallas_solve_proc
+    _, err = proc.communicate(timeout=600)
+    assert proc.returncode == 0, err[-4000:]
+    for got, want, res in (
+            (thi.hermitian_solve(ms, _c64(rhs)),
+             _jax_solve(cplx.hermitian_solve, m, rhs), 1e-4),
+            (tss.hermitian_solve_chol(ms, _c64(rhs)),
+             np.load(root / "x.npy"), 2e-4)):
+        assert float(torch.abs(ms @ got - _c64(rhs)).max()) < res
+        assert _rel(got.numpy(), want) < TOL, _rel(got.numpy(), want)
+
+
 # --- a megachain chunk at 140 channels -----------------------------------
 
 def _jax_arrays(mops) -> dict:
@@ -242,7 +335,8 @@ def _chain_jax():
 @pytest.mark.parametrize("warm", [False, True], ids=["exact", "warm_ns"])
 def test_wideband_chain_matches_jax(warm):
     """The port's chunk with the blocked inverse over the plain base at
-    base 128 (blocks of 128 and 128) against the JAX kernel; the warm
+    the wrappers' base (n = 256: blocks of 192 and 64, the route above
+    192) against the JAX kernel; the warm
     start is held against the exact JAX chain at the warm-start
     tolerances, as tests/test_torch_megachain.py does."""
     mops_b, dims, ps0, rnd, prior, K = _chain_setup()
@@ -258,7 +352,7 @@ def test_wideband_chain_matches_jax(warm):
         t_mops, tmc.make_chain_tables(t_mops, CPU), tdims,
         tmega.pad_ps(ps0, tdims, CPU), K, tmc.prior_static_from(prior, tdims),
         randomness=rnd, impl=impl, **kw)
-    assert base.sizes and set(base.sizes) == {128}
+    assert base.sizes and set(base.sizes) == {thi.BASE_N, 256 - thi.BASE_N}
     ps_tol = dict(rtol=5e-4, atol=1e-7) if warm else dict(rtol=2e-3,
                                                           atol=1e-6)
     np.testing.assert_allclose(t_s.ps.numpy(), ref["ps"], **ps_tol)
@@ -442,20 +536,32 @@ def test_cgemm_wrapper_cpu(shape):
 
 @pytest.mark.cuda
 def test_blocked_kernels_on_card():
-    """The blocked inverse at n = 256 and factor-solve at n = 180 on the
-    card against their plain versions (chip_smoke.py's phase 3 holds the
-    same at its shapes)."""
+    """The inverse and the factor-solve on the card against their plain
+    versions: one launch each at n = 180 (the lower-tile kernels), and the
+    blocked route at n = 256 (base launches of 192 and 64, cgemm
+    products); chip_smoke.py's phase 3 holds the same at more widths."""
+    from hydra_pspec_torch.ops.kernels import _build
+
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU and nvcc (run python3 chip_smoke.py "
                     "on the card)")
     dev = torch.device("cuda", 0)
     rng = np.random.default_rng(256)
-    ms, _ = tss.equilibrate(_c64(_hpd(rng, 4, 256)).to(dev))
-    inv = thi.herm_inv(ms)
-    eye = torch.eye(256, dtype=torch.complex64, device=dev)
-    assert float(torch.abs(ms @ inv - eye).max()) < 1e-4
-    ms, _ = tss.equilibrate(_c64(_hpd(rng, 4, 180)).to(dev))
-    rhs = _c64(_crandn(rng, 4, 180, 203)).to(dev)
-    x = tss.herm_chol_solve(ms, rhs)
-    assert _rel(x.cpu().numpy(),
-                tss.plain_herm_chol_solve(ms, rhs).cpu().numpy()) < TOL
+    for n, herm, chol in ((180, {"herm_inv": 1}, {"herm_chol_solve": 1}),
+                          (256, {"herm_inv": 2, "cgemm": 4},
+                           {"herm_chol_solve": 2, "cgemm": 3})):
+        ms, _ = tss.equilibrate(_c64(_hpd(rng, 4, n)).to(dev))
+        _build.reset_launches()
+        inv = thi.herm_inv(ms)
+        torch.cuda.synchronize()
+        assert {k: v for k, v in _build.LAUNCHES.items() if v} == herm
+        eye = torch.eye(n, dtype=torch.complex64, device=dev)
+        assert float(torch.abs(ms @ inv - eye).max()) < 1e-4
+        rhs = _c64(_crandn(rng, 4, n, 203)).to(dev)
+        _build.reset_launches()
+        x = tss.herm_chol_solve(ms, rhs)
+        torch.cuda.synchronize()
+        assert {k: v for k, v in _build.LAUNCHES.items() if v} == chol
+        assert _rel(x.cpu().numpy(),
+                    tss.plain_herm_chol_solve(ms, rhs).cpu().numpy()) < TOL
+    _build.reset_launches()

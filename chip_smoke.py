@@ -4,6 +4,8 @@
     python3 chip_smoke.py --rows OUT [PARENT]   # the two row passes alone
     python3 chip_smoke.py --herm OUT PARENT     # the Hermitian kernels
                                                 # against a parent's
+    python3 chip_smoke.py --rng OUT PARENT      # rng_fields against a
+                                                # parent's
 
 Phases, one printed line each (any failure raises; exit code non-zero):
   1. environment: torch/CUDA versions, and the card's name and power limit
@@ -14,7 +16,12 @@ Phases, one printed line each (any failure raises; exit code non-zero):
      widths, models/mega.py), with the tolerance stated;
      Philox bits against the twin; normal and Gamma moments (bandpower at
      alpha = 202 and, on its own table, 1099); rng_fields also at the
-     real engine's layouts (n = 120 and 180 channels, t = 203 times);
+     real engine's layouts (n = 120 and 180 channels, t = 203 times),
+     and its time maps at the grouped real engine's groups (the 11 flag
+     patterns of rfi_windows, odd widths, and signature A's 3 groups,
+     even widths), each group as a tmap launch and all groups as one
+     segment launch: within 1e-5 of the twin and torch.equal to the
+     kernel's own full fields gathered at the groups' times;
      draw_rhs and draw_system in keyed mode (the omegas drawn in the
      kernel) bit-identical to their stored mode fed rng_fields' fields,
      plain (t = 204), grouped (t = 80 at the port's layout, 128 at the JAX
@@ -203,11 +210,17 @@ Phases, one printed line each (any failure raises; exit code non-zero):
      chains x G=3) and of the omega passes in two layouts (stored
      rng_fields fields; keyed draw_rhs and draw_system) beside their
      bounds, and of rng_fields at the real engine's shape (n = 120,
-     t = 203); the main, grouped-A and wide iterations as graph replays at
+     t = 203) beside its SASS issue floor; one iteration of the grouped
+     real engine (20 baselines, 11 flag patterns) eagerly, kernels and
+     plain, with its hand-written launches and all its device activities
+     (every kernel, copy and fill) an iteration; the wide mega and wide
+     dense real iterations' bounds (each launch's work summed) and plain
+     times; the main, grouped-A and wide iterations as graph replays at
      the port's layout and at the JAX package's, in turns (port, JAX, JAX,
      port), and the keyed passes' device times at both layouts; the keyed
-     passes' SASS instructions a drawn lane (cuobjdump -sass of the built
-     library, where the toolkit has it), which bound them; the two row
+     passes' and rng_fields' SASS instructions a drawn lane (cuobjdump
+     -sass of the built library, where the toolkit has it), which bound
+     them; the two row
      passes' device times (in a third process, python3 chip_smoke.py
      --rows OUT) at each path's shape (main B=100, t=204; grouped
      100 x G=3, t=80; real 20 x t=203 and the grouped real engine's groups
@@ -218,6 +231,15 @@ Phases, one printed line each (any failure raises; exit code non-zero):
      holds this tree's outputs torch.equal to them at every case and at
      every variant of phase 3's widths). Every bound counts the data's
      own widths: n = nfreqs, m = nmodes, and each row's true times.
+--rng OUT PARENT (not part of the full run) builds this tree's kernels
+and a parent checkout's and holds rng_fields torch.equal to the parent's
+at B = 100, t = 203, n = 120 and 180, at the main layout's pad lane and
+with row_times, and each time group's segment torch.equal to the parent's
+full fields gathered at its times (11 patterns at B = 20 and 100, and
+signature A's 3 groups); then times both kernels (device time and
+events), the segment launch against the parent's full fields and
+gathers, and the grouped real and dense real iterations with the
+parent's omegas, in turns (parent, this, this, parent).
 The megachain and mega paths draw their omegas in draw_rhs and draw_system
 and must launch no rng_fields; the real paths launch it. Through
 run_baselines those two engines run each chunk as a CUDA graph; the launch
@@ -233,6 +255,7 @@ import functools
 import json
 import math
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -271,7 +294,8 @@ PHILOX_OPS, BOX_MULLER_OPS = 110, 10
 # function unit (16 lanes an SM a clock) at an eighth
 SLOT_WEIGHT = {"IMAD.WIDE": 2, "IMAD.HI": 2, "MUFU": 8}
 # the keyed passes' draw: issue slots a drawn lane, set by sass_draw_slots
-# in the times process (None: not counted, PHILOX_OPS + BOX_MULLER_OPS)
+# in the times process (None: not counted, PHILOX_OPS + BOX_MULLER_OPS);
+# rng_fields' entry is its issue floor, never its bound
 DRAW_SLOTS = {}
 
 N_MAP, N_PALLAS2, PALLAS2_NITER = 10, 10, 50
@@ -784,6 +808,51 @@ def check_gate_mode(dev, cmp):
     _build.reset_launches()
 
 
+def time_groups(flags, dev):
+    """The time groups of ``flags`` (the grouped engines' flag patterns)
+    as int64 index tensors on ``dev``."""
+    from hydra_pspec_torch.models import tflags
+
+    return [torch.as_tensor(ix, dtype=torch.int64, device=dev)
+            for _, ix in tflags.group_flag_patterns(flags)]
+
+
+def check_time_maps(dev, cmp, same, B):
+    """rng_fields' time maps at the real engine's width, ``B`` chains: the
+    groups of the 11 flag patterns (rfi_windows: widths 15 and 53, odd)
+    and of signature A (70, 80 and 53), each group as a ``tmap`` launch
+    and all of a pattern set's groups as one segment launch, within 1e-5
+    of the twin and torch.equal to the kernel's own full fields gathered
+    at the groups' times."""
+    from hydra_pspec_torch.ops.kernels import impl as I
+    from hydra_pspec_torch.ops.kernels import rng_bandpower as rb
+
+    K, P = I.KERNELS, I.PLAIN
+    sids = torch.arange(B, dtype=torch.int32, device=dev) * 7 + 3
+    fa, fb = K.rng_fields(SEED, sids, 7, NF, NT, NT, NF)
+    cat = lambda parts: torch.cat(list(parts), dim=2)
+    for label, flags in (("11 patterns", rfi_windows()),
+                         ("signature A", tflag_signatures()[0])):
+        idx = time_groups(flags, dev)
+        segs = rb.time_segments(idx)
+        what = f"{label} t={list(segs.widths)}"
+        want = (cat(fa[:, :, ix] for ix in idx),
+                cat(fb[:, :, ix] for ix in idx))
+        maps = [K.rng_fields(SEED, sids, 7, NF, w, w, NF,
+                             tmap=ix.to(torch.int32))
+                for ix, w in zip(idx, segs.widths)]
+        got = (cat(m[0] for m in maps), cat(m[1] for m in maps))
+        same("rng_fields", got, want, f"tmap, {label} == full[idx]")
+        sa, sb = K.rng_segments(SEED, sids, 7, NF, segs, NF)
+        same("rng_fields", (cat(sa), cat(sb)), want,
+             f"segments, {label} == full[idx]")
+        pa, pb = P.rng_segments(SEED, sids, 7, NF, segs, NF)
+        cmp("rng_fields", (cat(sa), cat(sb)), (cat(pa), cat(pb)), 1e-5,
+            f"segments vs twin, {what}")
+        cmp("rng_fields", got, (cat(pa), cat(pb)), 1e-5,
+            f"tmap vs twin, {label}")
+
+
 def phase_kernels(dev, jobs8, jobs_w8, errs):
     from hydra_pspec_torch.models import mega, megachain
     from hydra_pspec_torch.ops.kernels import _build
@@ -879,6 +948,8 @@ def phase_kernels(dev, jobs8, jobs_w8, errs):
         cmp("rng_fields", K.rng_fields(SEED, sids, 7, nr, NT, NT, nr),
             P.rng_fields(SEED, sids, 7, nr, NT, NT, nr), 1e-5,
             f"real layout n={nr} t={NT}")
+    for b in (N_TF_REAL, 100):   # the grouped real path's batch; 100 chains
+        check_time_maps(dev, cmp, same, b)
 
     rc = K.draw_rhs(mops.nid, mops.nih, ob, nt)
     cmp("draw_rhs", rc, P.draw_rhs(mops.nid, mops.nih, ob, nt), 1e-5)
@@ -2140,6 +2211,10 @@ def phase_fallback(dev, jobs_plain, out_root):
           for j in plain_jobs[:N_TF_REAL]]
     res, _ = run("tflags_real", REAL_KERNELS, "real", tf, TF_REAL_NITER,
                    write_niter=TF_REAL_NITER, store_cr=True)
+    require(launches["tflags_real"]["rng_fields"] == TF_REAL_NITER,
+            f"tflags_real: {launches['tflags_real']['rng_fields']} "
+            f"rng_fields launches in {TF_REAL_NITER} iterations, not one an "
+            f"iteration")
     burn = TF_REAL_NITER // 2
     chi2 = _chi2_unflagged(res, flags, burn, TF_REAL_NITER)
     say("fallback", f"tflags_real: 11 flag patterns; mean chi^2 over "
@@ -3025,7 +3100,7 @@ def _time(fn, reps):
     return a.elapsed_time(b) / reps
 
 
-def _profile_window(run, accept, tries=3, cpu=False):
+def _profile_window(run, accept, tries=5, cpu=False):
     """One torch.profiler window over ``run`` (called once before it, to
     warm up): its device activities as (start us, end us, name) in start
     order, and the window's wall time in ms. The window is taken again, up
@@ -3349,9 +3424,16 @@ def sass_draw_slots():
     and the issue slots of the draw's arithmetic (:data:`DRAW_ARITH`,
     weighted by :data:`SLOT_WEIGHT`) outside the blocks that touch local
     memory (that reduction's): a floor of what a lane issues, which sets
-    :data:`DRAW_SLOTS` and so the keyed passes' bound. Empty when the
-    toolkit has no cuobjdump (the bounds then take PHILOX_OPS +
-    BOX_MULLER_OPS)."""
+    :data:`DRAW_SLOTS` and so the keyed passes' bound. The same two counts
+    of rng_fields' fields_kernel (its full mode), from its body, the floor
+    leaving out the blocks that store: its issue floor, reported beside its
+    bound and never in it. It has no stored twin to subtract, so the count
+    holds the kernel's own index arithmetic and the rarely taken branches
+    of logf, sqrtf and sinf, and adds the special function unit's slots to
+    the FMA pipe's although the two overlap; its bound stays what the
+    function needs (PHILOX_OPS + 2 * BOX_MULLER_OPS a lane, or its bytes).
+    Empty when the toolkit has no cuobjdump (the bounds then take
+    PHILOX_OPS + BOX_MULLER_OPS)."""
     from hydra_pspec_torch.ops.kernels import _build
 
     bodies = _sass_bodies(_build.build())
@@ -3359,7 +3441,7 @@ def sass_draw_slots():
         say("times", "no cuobjdump in the toolkit: the keyed passes' draw "
             "is counted as PHILOX_OPS + BOX_MULLER_OPS operations, a floor")
         return {}
-    lanes = 4   # LANES of csrc/draw_fused.cu
+    lanes = 4   # LANES of draw_fused.cu, FIELD_LANES of rng_bandpower.cu
     flat = lambda blocks: [op for b in blocks for op in b]
     arith = lambda blocks: [op for b in blocks
                             if not any(op.startswith(("STL", "LDL"))
@@ -3391,6 +3473,29 @@ def sass_draw_slots():
             f"drawn lane, of which the draw's arithmetic takes {floor:.1f} "
             f"issue slots (the bound's floor); by class "
             f"{dict(list(out[kernel]['by_class_per_lane'].items())[:12])}")
+    # rng_fields (fields_kernel, mode FIELDS_FULL): no stored twin, so its
+    # body over its four lanes a thread (a Philox call and two Box-Mullers
+    # a lane), the floor without the blocks that store (their address
+    # arithmetic, three branches of which one runs); the index arithmetic,
+    # a thread's, is counted in, so this is the issue floor, not the bound
+    body = [v for k, v in bodies.items() if "13fields_kernelILi0E" in k]
+    require(len(body) == 1, f"SASS of rng_fields: {len(body)} full bodies")
+    ops = flat(body[0])
+    floor = _slots(arith([b for b in body[0]
+                          if not any(op.startswith("STG") for op in b)])
+                   ) / lanes
+    classes = collections.Counter(op.split(".")[0] for op in ops)
+    out["rng_fields"] = {
+        "static_per_drawn_lane": len(ops) / lanes,
+        "floor_slots_per_drawn_lane": floor, "body": len(ops),
+        "by_class_per_lane": {k: v / lanes for k, v in
+                              classes.most_common()}}
+    DRAW_SLOTS["rng_fields"] = floor
+    say("times", f"SASS rng_fields  body {len(ops)} instructions: "
+        f"{len(ops) / lanes:.1f} a drawn lane, of which the draws' "
+        f"arithmetic takes {floor:.1f} issue slots (its issue floor, not "
+        f"its bound); by class "
+        f"{dict(list(out['rng_fields']['by_class_per_lane'].items())[:12])}")
     return out
 
 
@@ -3821,6 +3926,158 @@ def herm_main(out, parent):
                                     indent=1))
 
 
+def parent_rng_fields(plib, seed, sids, g, n, t, ntimes, nfreqs,
+                      row_times=None):
+    """rng_fields on a parent checkout's library ``plib`` (its C entry,
+    which takes no time map), launched directly."""
+    from hydra_pspec_torch.ops.kernels import _build
+    from hydra_pspec_torch.ops.kernels import rng_bandpower as rb
+
+    B = sids.shape[0]
+    oa = torch.empty((B, n, t), dtype=torch.complex64, device=sids.device)
+    ob = torch.empty_like(oa)
+    err = plib.hk_rng_fields(
+        rb._u32(seed), _build.ptr(sids), rb._u32(g), _build.ptr(oa),
+        _build.ptr(ob), B, n, t, ntimes, nfreqs, _build.ptr(row_times),
+        torch.cuda.current_stream().cuda_stream)
+    require(err == 0, f"the parent's hk_rng_fields: CUDA error {err}")
+    return oa, ob
+
+
+def parent_rng_impl(plib):
+    """The kernels with the parent's omegas: ``rng_fields`` on the parent's
+    kernel, and ``rng_segments`` as the parent's grouped real engine drew
+    them (its full fields at every time, then each group's columns
+    gathered from both)."""
+    from hydra_pspec_torch.ops.kernels import impl as I
+
+    def segments(seed, sids, g, n, segs, nfreqs):
+        T = sum(segs.widths)
+        fa, fb = parent_rng_fields(plib, seed, sids, g, n, T, T, nfreqs)
+        return ([fa[:, :, ix] for ix in segs.idx],
+                [fb[:, :, ix] for ix in segs.idx])
+
+    return I.KERNELS._replace(
+        rng_fields=functools.partial(parent_rng_fields, plib),
+        rng_segments=segments)
+
+
+def rng_main(out, parent):
+    """``python3 chip_smoke.py --rng OUT PARENT``: rng_fields against a
+    parent checkout's kernel (its own library, built from its sources), on
+    one card. torch.equal to the parent's at B = 100, t = 203, n = 120
+    and 180 (the real engine's layouts), at the main layout's pad lane
+    (t = 204, ntimes = 203) and with row_times (signature A's rows, G = 3,
+    t = 80); each time group's segment torch.equal to the parent's full
+    fields gathered at its times (the 11 patterns at B = 20 and 100, and
+    signature A's 3 groups). Then, in turns parent, this, this, parent:
+    rng_fields' device time and events at n = 120 and 180; the segment
+    launch against the parent's full fields and gathers (device time);
+    one grouped real iteration (20 baselines, 11 patterns) and one dense
+    real iteration (100, solver pallas) on the two omega draws, with
+    their device activities an iteration. Results to OUT as JSON."""
+    from hydra_pspec_torch.models import rgibbs
+    from hydra_pspec_torch.ops.kernels import _build
+    from hydra_pspec_torch.ops.kernels import impl as I
+    from hydra_pspec_torch.ops.kernels import rng_bandpower as rb
+
+    phase_env()
+    dev = torch.device("cuda", 0)
+    _build.library()
+    plib = parent_library(parent)
+    K, old = I.KERNELS, parent_rng_impl(plib)
+    B = N_BASELINES
+    sids = torch.arange(B, dtype=torch.int32, device=dev) * 3 + 1
+    equal = {}
+
+    def hold(what, got, want):
+        ok = all(torch.equal(g, w) for g, w in zip(got, want))
+        equal[what] = ok
+        say("rng", f"{what}: torch.equal to the parent's: {ok}")
+        require(ok, f"rng_fields {what}: differs from the parent's kernel")
+
+    for n in (NF, WIDE_NF):
+        hold(f"n={n} t={NT} B={B}",
+             K.rng_fields(SEED, sids, 7, n, NT, NT, n),
+             old.rng_fields(SEED, sids, 7, n, NT, NT, n))
+    hold(f"n={NF} t={NT + 1} ntimes={NT} B={B}",
+         K.rng_fields(SEED, sids, 7, NF, NT + 1, NT, NF),
+         old.rng_fields(SEED, sids, 7, NF, NT + 1, NT, NF))
+    gs = grouped_setup(make_jobs(1), tflag_signatures()[0], B, dev)
+    Bg, ng, tg = gs.mops.nid.shape
+    rt, sids_r, _ = grouped_ids(gs, Bg // len(gs.group_times), dev)
+    hold(f"row_times G={len(gs.group_times)} B={Bg} n={ng} t={tg}",
+         K.rng_fields(SEED, sids_r, 7, ng, tg, gs.dims.ntimes, NF, rt),
+         old.rng_fields(SEED, sids_r, 7, ng, tg, gs.dims.ntimes, NF, rt))
+    del gs
+    cases = {}
+    for label, flags, nb in (("11 patterns", rfi_windows(), N_TF_REAL),
+                             ("11 patterns", rfi_windows(), B),
+                             ("signature A", tflag_signatures()[0], B)):
+        segs = rb.time_segments(time_groups(flags, dev))
+        ids = sids[:nb]
+        got = K.rng_segments(SEED, ids, 7, NF, segs, NF)
+        want = old.rng_segments(SEED, ids, 7, NF, segs, NF)
+        hold(f"segments, {label} ({len(segs.widths)} groups, t = "
+             f"{list(segs.widths)}), B={nb}", got[0] + got[1],
+             want[0] + want[1])
+        cases[f"segments {label} B={nb}"] = (
+            lambda M, ids=ids, segs=segs: M.rng_segments(
+                SEED, ids, 0, NF, segs, NF))
+
+    def turns(clock, fn):
+        t = [clock(lambda: fn(old)), clock(lambda: fn(K)),
+             clock(lambda: fn(K)), clock(lambda: fn(old))]
+        return {"ms": (t[1] + t[2]) / 2, "parent_ms": (t[0] + t[3]) / 2,
+                "turns": t}
+
+    times = {}
+    for n in (NF, WIDE_NF):
+        fn = lambda M, n=n: M.rng_fields(SEED, sids, 0, n, NT, NT, n)
+        b_ms, by = bound("rng_fields", B=B, n=n, t=NT, m=NM, ntimes=NT)
+        times[f"rng_fields n={n}"] = row = {
+            "device": turns(_device_ms, fn),
+            "events": turns(lambda f: _time(f, 20), fn),
+            "bound_ms": b_ms, "bound_by": by, "batch": B, "n": n, "t": NT}
+        say("rng", f"rng_fields B={B} n={n} t={NT}: device "
+            f"{row['device']['ms']:.5f} ms (parent "
+            f"{row['device']['parent_ms']:.5f}), events "
+            f"{row['events']['ms']:.5f} ms (parent "
+            f"{row['events']['parent_ms']:.5f}); bound {b_ms:.5f} ms ({by}); "
+            f"turns {row['device']['turns']}")
+    for k, fn in cases.items():
+        times[k] = row = {"device": turns(_device_ms, fn)}
+        say("rng", f"{k}: one segment launch {row['device']['ms']:.5f} ms "
+            f"device time, the parent's full fields and gathers "
+            f"{row['device']['parent_ms']:.5f} ms")
+
+    kit = 5
+    run_tf, _, _ = tflags_real_setup(make_jobs(N_TF_REAL), dev)
+    rops, ps_r, _, rbins = real_system(
+        make_jobs(B, dense=True, seed=SEED + 3), dev)
+    iters = {"tflags_real": lambda M: run_tf(M, kit),
+             "dense real": lambda M: rgibbs.run_chain(
+                 rops, ps_r, rbins, kit, seed=SEED, sids=sids,
+                 solver="pallas", impl=M)}
+    for k, fn in iters.items():
+        row = turns(lambda f: _time(f, 3) / kit, fn)
+        act = {name: _device_activities(lambda M=M: fn(M), 1)[0] / kit
+               for name, M in (("this", K), ("parent", old))}
+        _build.reset_launches()
+        fn(K)
+        torch.cuda.synchronize()
+        row.update(device_activities=act, launches={
+            c: v / kit for c, v in _build.LAUNCHES.items() if v})
+        times[f"iteration {k}"] = row
+        say("rng", f"one {k} iteration: {row['ms']:.4f} ms, on the parent's "
+            f"omegas {row['parent_ms']:.4f} ms (parent, this, this, parent "
+            f"= {', '.join(f'{v:.4f}' for v in row['turns'])}); device "
+            f"activities an iteration {act['this']:.1f} (parent's "
+            f"{act['parent']:.1f}); hand-written launches {row['launches']}")
+    Path(out).write_text(json.dumps({"equal": equal, "times": times},
+                                    indent=1))
+
+
 def phase_times(dev, jobs):
     from hydra_pspec_torch.models import mega, megachain
     from hydra_pspec_torch.ops.kernels import draw_fused as df
@@ -4167,8 +4424,17 @@ def phase_times_fallback(dev, jobs, dense_jobs, tm):
     ms_f = _device_ms(lambda: cases["rng_fields"](I.KERNELS))
     b_ms, by = bounds["rng_fields"]
     device = {"rng_fields": {"ms": ms_f, "bound_ms": b_ms, "bound_by": by}}
+    # the issue floor: the draws' SASS slots a lane over the card's FP32
+    # issue rate (an FMA a slot, two flops)
+    slots = DRAW_SLOTS.get("rng_fields")
+    if slots is not None:
+        floor = B * NF * NT * slots * 2 / FP32_OPS_S * 1e3
+        device["rng_fields"].update(issue_floor_ms=floor,
+                                    floor_slots_per_lane=slots)
     say("times", f"device time rng_fields B={B} n={NF} t={NT}: {ms_f:.5f} "
-        f"ms, bound {b_ms:.5f} ms ({by}), {100 * b_ms / ms_f:.1f} % of it")
+        f"ms, bound {b_ms:.5f} ms ({by}), {100 * b_ms / ms_f:.1f} % of it"
+        + (f"; issue floor {floor:.5f} ms ({slots:.1f} slots a lane)"
+           if slots is not None else ""))
     # the real engine's iteration bound: its kernels at n = 120, t = 203
     rb_ = {k: bound(k, **solve_shape) for k in
            ("cgemm", "row_scale_sumsq", "rng_fields", "bandpower",
@@ -4194,6 +4460,110 @@ def phase_times_fallback(dev, jobs, dense_jobs, tm):
                 chol_k1={"ms": k1[0], "plain_ms": k1[1],
                          "bound_ms": k1_bound[0], "bound_by": k1_bound[1],
                          "library_ms": k1_lib})
+
+
+def tflags_real_setup(jobs, dev):
+    """The grouped real engine on ``jobs`` under :func:`rfi_windows` (11
+    flag patterns, RFI in the flagged entries), as the runner builds it:
+    ``(run(impl, niter), groups, sids)``, the chains from the truth."""
+    from hydra_pspec_torch.models import rgibbs, tflags
+    from hydra_pspec_torch.ops.invgamma import make_invgamma_table
+    from hydra_pspec_torch.ops.kernels import rng_bandpower as rb
+
+    flags = rfi_windows()
+    per = [tflags.build_grouped_operators_real(j.d + RFI * flags, flags,
+                                               j.fgmodes, j.Ninv)
+           for j in jobs]
+    groups = tflags.to_device([tflags.TimeGroupReal(
+        ops=rgibbs.stack_chain_operators([p[g].ops for p in per]),
+        idx=per[0][g].idx) for g in range(len(per[0]))], dev)
+    igt = make_invgamma_table(NT)
+    tl, q = (torch.from_numpy(np.asarray(a)).to(dev)
+             for a in (igt.log_y, igt.q))
+    ps = torch.as_tensor(np.tile(ps_truth(), (len(jobs), 1)),
+                         dtype=torch.float32).to(dev)
+    bins = rb.prior_bins(rb.bounded_bins(make_prior()), dev)
+    sids = torch.arange(len(jobs), dtype=torch.int32, device=dev)
+
+    def run(impl, niter):
+        return tflags.run_chain_tflags_real(groups, ps, bins, niter, tl, q,
+                                            seed=SEED, sids=sids,
+                                            solver="pallas", impl=impl)
+    return run, groups, sids
+
+
+def _device_activities(fn, reps=2):
+    """Device activities (kernels, copies, fills) a call of ``fn`` runs,
+    by name, from one profiler window of ``reps`` calls."""
+    def run():
+        for _ in range(reps):
+            fn()
+
+    ev, _ = _profile_window(run, lambda ev: len(ev) % reps == 0)
+    # a kernel's name without its template and argument lists, keeping
+    # the "(anonymous namespace)" of its scope
+    names = collections.Counter(
+        re.sub(r"\((?!anonymous namespace\)).*$", "", name.split("<")[0])
+        for _, _, name in ev)
+    return len(ev) / reps, {k: v / reps for k, v in names.most_common()}
+
+
+def tflags_real_iteration(dev, jobs, kit):
+    """One iteration of the grouped real engine (``len(jobs)`` baselines,
+    11 flag patterns) on the kernels and on the plain versions, in turns,
+    with its hand-written launches and all its device activities an
+    iteration."""
+    from hydra_pspec_torch.ops.kernels import impl as I
+
+    run, groups, _ = tflags_real_setup(jobs, dev)
+    chain = _time_chain(f"grouped real engine, {len(groups)} flag patterns, "
+                        f"B={len(jobs)}", lambda impl: run(impl, kit), kit)
+    total, by_name = _device_activities(lambda: run(I.KERNELS, kit))
+    chain.update(device_activities_per_iteration=total / kit,
+                 device_activities_by_name={k: v / kit
+                                            for k, v in by_name.items()})
+    say("times", f"grouped real engine: {total / kit:.1f} device activities "
+        f"an iteration (kernels, copies, fills), hand-written launches "
+        f"{chain['launches_per_iteration']}")
+    # the omegas: one rng_fields launch an iteration, and no gather of
+    # them; the only indexing kernels left are each group's three scatters
+    # (sig, fga and chi into the full time axis)
+    rng = chain["launches_per_iteration"].get("rng_fields")
+    index = sum(v for k, v in by_name.items()
+                if "index" in k or "gather" in k) / kit
+    require(rng == 1, f"grouped real engine: {rng} rng_fields launches an "
+            f"iteration, not one")
+    require(index == 3 * len(groups), f"grouped real engine: {index} "
+            f"indexing kernels an iteration, not the {3 * len(groups)} "
+            f"scatters of {len(groups)} groups (a gather of the omegas?)")
+    # its bound, each launch at its own group's width: a group's
+    # factor-solve (K = t_g), its three row passes (sk = dd u scaled with
+    # y; the residual's and the masked power's sums unscaled) and its
+    # cgemm launches at their recorded shapes; once an iteration the
+    # omegas of all 203 times and the bandpower draw
+    widths = [int(g.idx.shape[0]) for g in groups]
+    G, T = len(widths), sum(widths)
+    want = {"herm_chol_solve": G, "row_scale_sumsq": 3 * G, "rng_fields": 1,
+            "bandpower": 1}
+    per = {k: v for k, v in chain["launches_per_iteration"].items()
+           if k != "cgemm"}
+    require(per == want, f"grouped real engine: launches an iteration "
+            f"{per}, the bound counts {want}")
+    sh = lambda t: dict(B=len(jobs), n=NF, t=t, m=NM, ntimes=t)
+    own = sum(bound("herm_chol_solve", **sh(t))[0]
+              + bound("row_scale_sumsq", **sh(t), scales=1)[0]
+              + 2 * bound("row_scale_sumsq", **sh(t), scales=0,
+                          want_y=False)[0] for t in widths)
+    own += (bound("rng_fields", **sh(T))[0]
+            + bound("bandpower", **sh(T), alpha=T - 1)[0])
+    products = iteration_bound(dict(chain, launches_per_iteration={}), {})
+    chain["iteration_bound_ms"] = own + products
+    best = min(chain["kernels"])
+    say("times", f"iteration bound tflags_real: {own + products:.4f} ms "
+        f"(cgemm {products:.4f}, the rest {own:.4f}) = sum of launches per "
+        f"iteration x bound at each group's width; eager iteration "
+        f"{best:.4f} ms, {100 * (own + products) / best:.2f} % of it")
+    return chain
 
 
 def parent_route(impl):
@@ -4362,7 +4732,28 @@ def phase_times_wide(dev, jobs_w, dense_w):
         f"wide mega n={n} B={B}", lambda impl: mega.mega_chunk_body(
             mops, dims, bins, tables.tlog, tables.q, seed=SEED, sids=sids,
             impl=impl), ps, kit)
+    # the wide mega and dense real iterations' bounds (each launch priced
+    # at its own shape) and plain times
+    wide_bounds = dict(bounds, **{k: bound(k, **shape) for k in (
+        "rng_fields", "herm_chol_solve")})
+    mega_w = _time_chain(
+        f"wide mega n={n} B={B}", lambda impl: mega.run_chain_mega(
+            mops, dims, ps, bins, kit, tables.tlog, tables.q, seed=SEED,
+            sids=sids, impl=impl, graph=False), kit)
+    mega_w["iteration_bound_ms"] = iteration_bound(mega_w, wide_bounds, 1.0,
+                                                   {t: nt})
     rops, ps_r, _, rbins = real_system(dense_w, dev)
+    real_w = _time_chain(
+        f"wide dense real, solver pallas, B={B}", lambda impl:
+        rgibbs.run_chain(rops, ps_r, rbins, kit, seed=SEED, sids=sids,
+                         solver="pallas", impl=impl), kit)
+    real_w["iteration_bound_ms"] = iteration_bound(real_w, wide_bounds)
+    for k, v in (("wide mega", mega_w), ("wide dense real", real_w)):
+        best = min(v["kernels"])
+        say("times", f"iteration bound {k}: {v['iteration_bound_ms']:.4f} "
+            f"ms = sum of launches per iteration x bound; eager iteration "
+            f"{best:.4f} ms, {100 * v['iteration_bound_ms'] / best:.1f} % "
+            f"of it; plain {min(v['plain']):.4f} ms")
     iters["real"] = {"eager": _time_routes(
         f"wide dense real, solver pallas, {kit} iterations B={B}",
         {"real": lambda impl: rgibbs.run_chain(
@@ -4387,7 +4778,8 @@ def phase_times_wide(dev, jobs_w, dense_w):
             jm, megachain.make_chain_tables(jm, dev), jd, static, seed=SEED,
             sids=sids, warm_ns=3, drift_max=0.6), jps)}, kit)
     return dict(chain=chain, iter_bound=it_bound, solves=solves,
-                masked=masked, iterations=iters, layouts_ms=layouts_ms)
+                masked=masked, iterations=iters, layouts_ms=layouts_ms,
+                mega_chain=mega_w, real_chain=real_w)
 
 
 def times_process(out_root):
@@ -4411,6 +4803,31 @@ def rows_process(out_root):
     subprocess.run([sys.executable, str(Path(__file__).resolve()), "--rows",
                     str(out)], check=True)
     return json.loads(out.read_text())
+
+
+def tfreal_process(out_root):
+    """The grouped real engine's iteration (:func:`tfreal_main`) in a
+    process of its own: its profiler window of thousands of device
+    activities made the later windows of the timing process lose
+    activities."""
+    out = Path(out_root) / "tfreal.json"
+    subprocess.run([sys.executable, str(Path(__file__).resolve()),
+                    "--tfreal", str(out)], check=True)
+    return json.loads(out.read_text())
+
+
+def tfreal_main(out):
+    """``python3 chip_smoke.py --tfreal OUT``: :func:`tflags_real_iteration`
+    on the first ``N_TF_REAL`` of the timing phases' jobs, to OUT as
+    JSON."""
+    from hydra_pspec_torch.ops.kernels import _build
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    _build.library()
+    tfr = tflags_real_iteration(dev, make_jobs(N_BASELINES)[:N_TF_REAL], 5)
+    Path(out).write_text(json.dumps(tfr, default=float))
 
 
 def times_main(out):
@@ -4516,6 +4933,7 @@ def main():
         mark("scripts", t0)
         tm, tf, tw = times_process(out_root)
         rows = rows_process(out_root)
+        tf["tflags_real"] = tfreal_process(out_root)
         mark("times", t0)
     finally:
         shutil.rmtree(out_root, ignore_errors=True)
@@ -4536,6 +4954,8 @@ def main():
                                     if c.get(k)}}
         if k in device_ms:
             row.update(device_ms=device_ms[k]["ms"])
+            if "issue_floor_ms" in device_ms[k]:
+                row.update(issue_floor_ms=device_ms[k]["issue_floor_ms"])
         if k in tm["gtimes"]:
             row.update(tflags_ms=tm["gtimes"][k][0],
                        tflags_plain_ms=tm["gtimes"][k][1],
@@ -4544,7 +4964,8 @@ def main():
         rows.append(row)
     its = dict(plain=tm["chain"], grouped=tm["gchain"],
                real_pallas=tf["real"]["pallas"],
-               real_pallas2=tf["real"]["pallas2"], mega=tf["mega"])
+               real_pallas2=tf["real"]["pallas2"], mega=tf["mega"],
+               tflags_real=tf["tflags_real"])
     print(json.dumps({
         "kernels": rows,
         "iteration_ms": {k: {"kernels": v["kernels"], "plain": v["plain"],
@@ -4552,6 +4973,12 @@ def main():
                              "eager_beside_graph": v.get(
                                  "eager_beside_graph")}
                          for k, v in its.items()},
+        "tflags_real_per_iteration": {
+            "launches": tf["tflags_real"]["launches_per_iteration"],
+            "device_activities": tf["tflags_real"][
+                "device_activities_per_iteration"],
+            "by_name": tf["tflags_real"]["device_activities_by_name"],
+            "iteration_bound_ms": tf["tflags_real"]["iteration_bound_ms"]},
         "layout": layout_stats,
         "graph": {"checked": graphs,
                   "timed": {k: v["graph_capture"] for k, v in its.items()
@@ -4590,6 +5017,10 @@ def main():
             "solves": tw["solves"], "iterations_by_route": tw["iterations"],
             "iteration_ms": {k: tw["chain"][k] for k in ("kernels", "plain")},
             "iteration_bound_ms": tw["iter_bound"],
+            "mega_and_dense_real": {k: {f: tw[k][f] for f in (
+                "kernels", "plain", "iteration_bound_ms",
+                "launches_per_iteration")}
+                for k in ("mega_chain", "real_chain")},
             "launches_per_iteration": tw["chain"]["launches_per_iteration"]}}),
         flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -4603,10 +5034,14 @@ if __name__ == "__main__":
     elif sys.argv[1:2] == ["--multiproc"]:
         multiproc_worker(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4],
                          sys.argv[5])
+    elif sys.argv[1:2] == ["--tfreal"]:
+        tfreal_main(sys.argv[2])
     elif sys.argv[1:2] == ["--rows"]:
         rows_main(*sys.argv[2:4])
     elif sys.argv[1:2] == ["--herm"]:
         herm_main(sys.argv[2], sys.argv[3])
+    elif sys.argv[1:2] == ["--rng"]:
+        rng_main(sys.argv[2], sys.argv[3])
     elif sys.argv[1:2] == ["--multichip"]:
         multichip_main(int(sys.argv[2]))
     else:

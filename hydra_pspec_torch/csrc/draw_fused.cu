@@ -158,23 +158,16 @@ __device__ __forceinline__ void store_lanes(float2* __restrict__ p,
   }
 }
 
-// The LANES omegas of lanes j0.. of row i: words 0-1 (omega_b, HALF
-// false) or 2-3 (omega_a) of each lane's Philox call, every lane drawn
-// (a lane beyond the row's count is drawn and not used), so the unrolled
-// calls share their common subexpressions
+// The LANES omegas of lanes j0.. of row i (philox.cuh's draw_lanes):
+// omega_b (HALF_A false) or omega_a, every lane drawn (a lane beyond the
+// row's count is drawn and not used)
 template <bool HALF_A>
-__device__ __forceinline__ void draw_lanes(float2 (&w)[LANES],
-                                           unsigned seed, unsigned sid,
-                                           unsigned g, int i, int j0,
-                                           float scale) {
-#pragma unroll
-  for (int l = 0; l < LANES; ++l) {
-    const uint4 q = omega_words(seed, sid, g, i, j0 + l);
-    if constexpr (HALF_A)
-      w[l] = omega_of(q.z, q.w, scale);
-    else
-      w[l] = omega_of(q.x, q.y, scale);
-  }
+__device__ __forceinline__ void draw_half(float2 (&w)[LANES], unsigned seed,
+                                          unsigned sid, unsigned g, int i,
+                                          int j0, float sa) {
+  int j[LANES];
+  consecutive(j, j0);
+  draw_lanes<!HALF_A, HALF_A>(w, w, seed, sid, g, i, j, sa);
 }
 
 // rc of LANES lanes a thread, the threads over the flat (row, lane chunk)
@@ -199,9 +192,8 @@ rhs_kernel(const float2* __restrict__ nid, const float* __restrict__ nih,
     float2 d[LANES] = {}, w[LANES] = {};
     load_lanes<VEC>(d, nid + o0, j0, lim);
     if constexpr (KEYED) {
-      draw_lanes<false>(w, key.seed, (unsigned)key.sids[b],
-                        iteration_of(key.g, key.g_dev), i, j0,
-                        OMEGA_B_SCALE);
+      draw_half<false>(w, key.seed, (unsigned)key.sids[b],
+                       iteration_of(key.g, key.g_dev), i, j0, 0.f);
     } else {
       load_lanes<VEC>(w, ob + o0, j0, lim);
     }
@@ -318,7 +310,7 @@ system_kernel(const float2* __restrict__ pt, const float* __restrict__ ps,
       float2 f[LANES] = {}, w[LANES] = {};
       load_lanes<VEC>(f, frc + o0, j0, lim);
       if constexpr (KEYED) {
-        draw_lanes<true>(w, key.seed, sid, g, i, j0, sa);
+        draw_half<true>(w, key.seed, sid, g, i, j0, sa);
       } else {
         load_lanes<VEC>(w, oa + o0, j0, lim);
       }

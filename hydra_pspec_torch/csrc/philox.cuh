@@ -1,7 +1,8 @@
 // Philox4x32-10 and the normals drawn from its words, shared by the
 // kernels that draw the omegas (rng_bandpower.cu's rng_fields, and the
-// keyed modes of draw_fused.cu's draw_rhs and draw_system) and the
-// bandpower conditional. The plain twin is hydra_pspec_torch/ops/philox.py.
+// keyed modes of draw_fused.cu's draw_rhs and draw_system, all three
+// through draw_lanes) and the bandpower conditional. The plain twin is
+// hydra_pspec_torch/ops/philox.py.
 //
 // Omega stream: key (run seed, row stream id), counter (global iteration g,
 // 0, row i, time j); words 0-1 give omega_b (Box-Muller, scale sqrt(1/2)),
@@ -59,4 +60,32 @@ __device__ __forceinline__ float2 omega_of(unsigned b1, unsigned b2,
                                           float scale) {
   const float2 z = box_muller(b1, b2);
   return make_float2(__fmul_rn(z.x, scale), __fmul_rn(z.y, scale));
+}
+
+// The omegas of L lanes of row i of the stream (seed, sid) at iteration g,
+// lane l at time counter j[l]: omega_b (words 0-1, scale sqrt(1/2)) into
+// ob when WANT_B, omega_a (words 2-3, scale sa) into oa when WANT_A. Every
+// lane is drawn (a caller leaves unstored the lanes it does not use), so
+// the unrolled Philox calls share what does not depend on j: the key
+// schedule, round 1's two products (of g and i) and round 2's product of
+// its first word. rng_fields draws both halves, draw_rhs omega_b and
+// draw_system omega_a.
+template <bool WANT_B, bool WANT_A, int L>
+__device__ __forceinline__ void draw_lanes(float2 (&ob)[L], float2 (&oa)[L],
+                                           unsigned seed, unsigned sid,
+                                           unsigned g, int i,
+                                           const int (&j)[L], float sa) {
+#pragma unroll
+  for (int l = 0; l < L; ++l) {
+    const uint4 q = omega_words(seed, sid, g, i, j[l]);
+    if constexpr (WANT_B) ob[l] = omega_of(q.x, q.y, OMEGA_B_SCALE);
+    if constexpr (WANT_A) oa[l] = omega_of(q.z, q.w, sa);
+  }
+}
+
+// the time counters j0, j0 + 1, .. of L consecutive lanes
+template <int L>
+__device__ __forceinline__ void consecutive(int (&j)[L], int j0) {
+#pragma unroll
+  for (int l = 0; l < L; ++l) j[l] = j0 + l;
 }

@@ -26,12 +26,44 @@
 // (seed, sidc + 2^30), and writes the chain's ps to all G rows. G = 1 is
 // plain mode exactly (key sid, no offset).
 //
-// rng_fields: ALU bound (10 Philox rounds plus log, sqrt, sin, cos per
-// element pair), one thread per (row, time) element, no memory reads. The
-// megachain and mega engines no longer launch it: their draw_rhs and
-// draw_system draw the omegas they consume in registers (draw_fused.cu,
-// keyed mode), where the generation runs under those kernels' streams. The
-// real engine, whose omegas are the transposed fields, keeps it.
+// rng_fields: the omega fields of the real engine, whose omegas are the
+// transposed fields (the megachain and mega engines draw theirs in
+// registers inside draw_rhs and draw_system, draw_fused.cu keyed mode, and
+// launch no rng_fields). A thread takes FIELD_LANES = 4 consecutive time
+// lanes of one row, and the threads of a launch tile the flat (row, lane
+// chunk) space, so no block idles on the part of a fixed-width block that
+// t leaves empty (the one-element form ran a thread an element on blocks
+// of 128 along time: at t = 203 a row took 256 threads for 203 lanes). The
+// four Philox calls of a thread go through philox.cuh's draw_lanes, as the
+// keyed passes' do: their key schedule, round 1's products and round 2's
+// product of its first word (all of which depend on the row, not the
+// lane) are formed once for the four. Each lane keeps the bits of the
+// one-element form: the same counter, Box-Mullers and __fmul_rn scaling.
+// Stores: oa and ob in 16-byte pairs from each thread's first even
+// element, a lane left over at either end stored alone. Where the pairs
+// start at the row's first lane, an odd t (the real layout has t = 203)
+// leaves every other row to four 8-byte stores 32 bytes apart, and that
+// left the four-lane kernel no faster than the one-element form on the
+// H100; pairs taken from the first even element cover both parities.
+// Pad lanes (j >= ntimes, or row_times[b]) are written as zeros: a chunk
+// wholly beyond the row's count draws nothing; the one that straddles it
+// draws its four lanes together and stores zeros beyond the count.
+// What bounds it: the issue of the draws (a Philox call and two accurate
+// Box-Mullers a lane) against 16 bytes written a lane; chip_smoke.py counts
+// the drawn lane's slots in the compiled SASS (sass_draw_slots).
+//
+// Time maps. With tmap, lane j of a row draws time counter tmap[j] in
+// place of j (the fields of chosen times at a narrower width). With a
+// segment table, one launch draws several time groups, each at its own
+// width: segment s (t_s times) writes its (B, n, t_s) fields contiguously
+// at element B n toff[s] of oa and ob, lane j drawing counter
+// tidx[toff[s] + j]. The grouped real engine's time groups are these
+// segments: group g's omegas are the full fields at its global time
+// indices (ops/philox.py), so a segment carries the bits of the gather it
+// replaces. Table (int32, on the device): coff[0..G] the segments' chunk
+// offsets within a row's chunks (chunks of segment s: coff[s+1] - coff[s]
+// a row), toff[0..G] their time offsets, tidx[T]. The launch's chunks run
+// segment by segment, each segment's row by row.
 //
 // bandpower: its old form ran a thread per bin on 100 blocks of 4 warps:
 // ceil(alpha/4) Philox calls and logs strictly one after another (51 at
@@ -57,6 +89,8 @@
 // shared memory (only 7 of 128 bins search, so every staging block paid
 // more than its searches saved); 16-bin blocks; warps taking words from a
 // shared counter; bounded bins spread over the blocks of a chain.
+#include <cstdint>
+
 #include "hk_common.cuh"
 #include "philox.cuh"
 
@@ -65,23 +99,152 @@ constexpr unsigned FULL = 0xffffffffu;
 constexpr int BP_WARPS = 8;    // warps of a bandpower block (32 bins)
 constexpr int BP_CHUNK = 128;  // Gamma words (r) staged at a time
 
-__global__ void fields_kernel(unsigned seed, const int* __restrict__ sids,
-                              unsigned g, float2* __restrict__ oa,
-                              float2* __restrict__ ob, int n, int t,
-                              int ntimes, const int* __restrict__ row_times,
-                              float sa) {
-  const int b = blockIdx.z, i = blockIdx.y;
-  const int j = blockIdx.x * blockDim.x + threadIdx.x;
-  if (j >= t) return;
-  const long long o = ((long long)b * n + i) * t + j;
-  if (j >= (row_times ? row_times[b] : ntimes)) {
-    oa[o] = make_float2(0.f, 0.f);
-    ob[o] = make_float2(0.f, 0.f);
-    return;
+constexpr int FIELD_LANES = 4;       // time lanes a thread of rng_fields
+constexpr int FIELD_THREADS = 256;   // threads of a fields block
+
+// The launch's modes: FIELDS_FULL, plain rows of t lanes all drawn at
+// counters j (the real engine's fields); FIELDS_MASKED, plain with a time
+// map or lanes at or beyond ntimes or row_times[b] written as zeros;
+// FIELDS_SEGMENTS, the segment table of the header.
+enum FieldsMode { FIELDS_FULL, FIELDS_MASKED, FIELDS_SEGMENTS };
+
+// Where chunk c (FIELD_LANES lanes of one row) of a launch lies. Plain:
+// row c / cpr, lanes from (c % cpr) FIELD_LANES, rows of width t one
+// after another. FIELDS_SEGMENTS: segment by segment, so that consecutive
+// chunks cover consecutive elements in every mode; segment s holds the
+// chunks rows coff[s] .. rows coff[s+1] - 1, rows of its width t_s.
+struct Chunk {
+  int b, i;          // chain and row index i
+  int j0, w, lim;    // first lane, row width, lanes below lim drawn
+  long long e;       // element of lane j0
+  const int* map;    // the row's time counters, or null (j)
+};
+
+struct FieldsArgs {
+  unsigned seed;
+  const int* sids;
+  unsigned g;
+  float2* oa;
+  float2* ob;
+  int n, rows, t, ntimes;
+  const int* row_times;
+  const int* tmap;
+  const int* seg;    // the segment table of the header (FIELDS_SEGMENTS)
+  int nseg, cpr;     // cpr: chunks a row (plain mode)
+  unsigned chunks;   // chunks of the launch
+  bool aligned;      // oa and ob 16-byte aligned
+  float sa;
+};
+
+template <int MODE>
+__device__ __forceinline__ Chunk chunk_at(const FieldsArgs& a, unsigned c) {
+  Chunk ch;
+  int row, k;
+  if constexpr (MODE == FIELDS_SEGMENTS) {
+    const int* coff = a.seg;
+    const int* toff = a.seg + a.nseg + 1;
+    const unsigned rows = (unsigned)a.rows;
+    int lo = 0, hi = a.nseg - 1;   // the last s with rows coff[s] <= c
+    while (lo < hi) {
+      const int mid = (lo + hi + 1) >> 1;
+      if (rows * (unsigned)__ldg(coff + mid) <= c)
+        lo = mid;
+      else
+        hi = mid - 1;
+    }
+    const int cs = __ldg(coff + lo), cpr = __ldg(coff + lo + 1) - cs;
+    const int t0 = __ldg(toff + lo);
+    const unsigned local = c - rows * (unsigned)cs;
+    row = (int)(local / (unsigned)cpr);
+    k = (int)(local - (unsigned)row * (unsigned)cpr);
+    ch.w = __ldg(toff + lo + 1) - t0;
+    ch.e = (long long)a.rows * t0 + (long long)row * ch.w;
+    ch.map = a.seg + 2 * (a.nseg + 1) + t0;
+  } else {
+    row = (int)(c / (unsigned)a.cpr);
+    k = (int)(c - (unsigned)row * (unsigned)a.cpr);
+    ch.w = a.t;
+    ch.e = (long long)row * a.t;
+    ch.map = MODE == FIELDS_MASKED ? a.tmap : nullptr;
   }
-  const uint4 w = omega_words(seed, (unsigned)sids[b], g, i, j);
-  ob[o] = omega_of(w.x, w.y, OMEGA_B_SCALE);
-  oa[o] = omega_of(w.z, w.w, sa);
+  ch.b = row / a.n;
+  ch.i = row - ch.b * a.n;
+  ch.j0 = k * FIELD_LANES;
+  ch.e += ch.j0;
+  if constexpr (MODE == FIELDS_MASKED)
+    ch.lim = min(a.row_times ? a.row_times[ch.b] : a.ntimes, a.t);
+  else
+    ch.lim = ch.w;
+  return ch;
+}
+
+__device__ __forceinline__ void store_pair(float2* __restrict__ p, float2 u,
+                                           float2 v) {
+  *reinterpret_cast<float4*>(p) = make_float4(u.x, u.y, v.x, v.y);
+}
+
+// the first nl of a thread's FIELD_LANES lanes at p = field + e: with
+// aligned fields in 16-byte pairs from the first even element (so an odd
+// e stores its first lane alone), a lane left over stored alone
+__device__ __forceinline__ void store_lanes(float2* __restrict__ p,
+                                            const float2 (&v)[FIELD_LANES],
+                                            int nl, bool odd, bool aligned) {
+  static_assert(FIELD_LANES == 4, "the pairs below are written for 4");
+  if (!aligned) {
+#pragma unroll
+    for (int l = 0; l < FIELD_LANES; ++l)
+      if (l < nl) p[l] = v[l];
+  } else if (odd) {
+    if (nl > 0) p[0] = v[0];
+    if (nl > 2)
+      store_pair(p + 1, v[1], v[2]);
+    else if (nl > 1)
+      p[1] = v[1];
+    if (nl > 3) p[3] = v[3];
+  } else {
+    if (nl > 1)
+      store_pair(p, v[0], v[1]);
+    else if (nl > 0)
+      p[0] = v[0];
+    if (nl > 3)
+      store_pair(p + 2, v[2], v[3]);
+    else if (nl > 2)
+      p[2] = v[2];
+  }
+}
+
+// FIELD_LANES lanes of one row a thread, over the launch's chunks
+template <int MODE>
+__global__ void __launch_bounds__(FIELD_THREADS)
+fields_kernel(FieldsArgs a) {
+  const unsigned c = blockIdx.x * FIELD_THREADS + threadIdx.x;
+  if (c >= a.chunks) return;
+  const Chunk ch = chunk_at<MODE>(a, c);
+  float2 vb[FIELD_LANES] = {}, va[FIELD_LANES] = {};
+  if (MODE != FIELDS_MASKED || ch.j0 < ch.lim) {
+    int j[FIELD_LANES];
+    consecutive(j, ch.j0);
+    if (MODE != FIELDS_FULL && ch.map) {
+#pragma unroll
+      for (int l = 0; l < FIELD_LANES; ++l)
+        j[l] = __ldg(ch.map + min(ch.j0 + l, ch.w - 1));
+    }
+    draw_lanes<true, true>(vb, va, a.seed, (unsigned)a.sids[ch.b], a.g,
+                           ch.i, j, a.sa);
+    if (MODE == FIELDS_MASKED && ch.j0 + FIELD_LANES > ch.lim) {
+#pragma unroll
+      for (int l = 0; l < FIELD_LANES; ++l) {
+        if (ch.j0 + l >= ch.lim) {
+          vb[l] = make_float2(0.f, 0.f);
+          va[l] = make_float2(0.f, 0.f);
+        }
+      }
+    }
+  }
+  const int nl = min(FIELD_LANES, ch.w - ch.j0);
+  const bool odd = ch.e & 1;
+  store_lanes(a.ob + ch.e, vb, nl, odd, a.aligned);
+  store_lanes(a.oa + ch.e, va, nl, odd, a.aligned);
 }
 
 // Two binary searches of monotone table rows by the warp, interleaved: the
@@ -267,13 +430,44 @@ __global__ void philox_raw_kernel(const uint4* __restrict__ ctr,
 }
 }  // namespace
 
+// plain (seg null): B x n rows of t lanes, counters j or tmap[j]; with
+// seg, nseg segments of seg_chunks chunks a row in all (the header)
 HK_API int hk_rng_fields(unsigned seed, const int* sids, unsigned g,
                          float2* oa, float2* ob, int batch, int n, int t,
                          int ntimes, int nfreqs, const int* row_times,
-                         cudaStream_t stream) {
-  dim3 grid((t + 127) / 128, n, batch);
-  fields_kernel<<<grid, 128, 0, stream>>>(seed, sids, g, oa, ob, n, t, ntimes,
-                                          row_times, omega_a_scale(nfreqs));
+                         const int* tmap, const int* seg, int nseg,
+                         int seg_chunks, cudaStream_t stream) {
+  FieldsArgs a;
+  a.seed = seed;
+  a.sids = sids;
+  a.g = g;
+  a.oa = oa;
+  a.ob = ob;
+  a.n = n;
+  a.rows = batch * n;
+  a.t = t;
+  a.ntimes = ntimes;
+  a.row_times = row_times;
+  a.tmap = tmap;
+  a.seg = seg;
+  a.nseg = nseg;
+  a.cpr = (t + FIELD_LANES - 1) / FIELD_LANES;
+  a.sa = omega_a_scale(nfreqs);
+  const long long chunks =
+      (long long)a.rows * (seg ? seg_chunks : a.cpr);
+  if (chunks <= 0) return 0;
+  if (chunks >= (1LL << 31)) return (int)cudaErrorInvalidValue;
+  a.chunks = (unsigned)chunks;
+  a.aligned = (((uintptr_t)oa | (uintptr_t)ob) & 15) == 0;
+  const unsigned blocks =
+      (unsigned)((chunks + FIELD_THREADS - 1) / FIELD_THREADS);
+  const int T = FIELD_THREADS;
+  if (seg)
+    fields_kernel<FIELDS_SEGMENTS><<<blocks, T, 0, stream>>>(a);
+  else if (tmap || row_times || ntimes < t)
+    fields_kernel<FIELDS_MASKED><<<blocks, T, 0, stream>>>(a);
+  else
+    fields_kernel<FIELDS_FULL><<<blocks, T, 0, stream>>>(a);
   return (int)cudaGetLastError();
 }
 

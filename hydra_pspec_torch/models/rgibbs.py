@@ -11,8 +11,9 @@ Nfreqs)``, unpadded: the delay-basis GCR system ``(I + D P~ D) u = D F rc
 what the megachain engine does not: a dense ``Ninv``, MAP mode, and (in
 ``models/tflags.py``) more than 8 flag patterns.
 
-Its products are the JAX package's XLA products, here ``torch.matmul``
-(TF32 stays off). The solve is the solver menu of ``rgibbs.py:245-269``:
+Its products are the JAX package's XLA products, here the ``cgemm``
+kernel (``impl.cgemm``; its plain version ``plain_cgemm`` on CPU tensors,
+TF32 off). The solve is the solver menu of ``rgibbs.py:245-269``:
 ``pallas`` is the hand-written factor-solve kernel (``herm_chol_solve``),
 ``pallas2``/``pallas2f`` the ``herm_inv`` entry ``hermitian_solve``, and
 ``chol`` the same factor-solve in plain torch; ``auto`` is ``pallas`` on
@@ -313,15 +314,28 @@ def solve(m, b, jitter: float, solver: str, impl: Impl = KERNELS):
     raise ValueError(f"unknown solver {solver!r}")
 
 
-def omegas_t(rand: dict, ntimes: int, nfreqs: int, impl: Impl):
-    """One iteration's omegas in the time-transposed layout, complex64
-    (B, Nfreqs, Ntimes): external ``oa``/``ob`` (B, Ntimes, Nfreqs)
-    transposed, or the ``rng_fields`` words of the streams at ``(i =
-    frequency, j = time)`` (``ops/philox.py``)."""
+def omegas_t(rand: dict, ntimes: int, nfreqs: int, impl: Impl,
+             segments=None):
+    """One iteration's omegas in the time-transposed layout, complex64:
+    the pair ``(oa_t, ob_t)`` (B, Nfreqs, Ntimes), or with ``segments``
+    (the grouped engine's time groups, ``rng_bandpower.TimeSegments``) a
+    list of each group's pair (B, Nfreqs, t_g), the omegas at its times.
+    From external ``oa``/``ob`` (B, Ntimes, Nfreqs) transposed (and
+    gathered at each group's times), or drawn on the streams at ``(i =
+    frequency, j = time)`` (``ops/philox.py``): one ``rng_fields`` launch,
+    or one ``rng_segments`` launch for all the groups, each at its own
+    width."""
     if "oa" in rand:
-        return (_t(rand["oa"]).contiguous(), _t(rand["ob"]).contiguous())
-    return impl.rng_fields(rand["seed"], rand["sids"], rand["g"], nfreqs,
-                           ntimes, ntimes, nfreqs)
+        oa, ob = (_t(rand[k]).contiguous() for k in ("oa", "ob"))
+        if segments is None:
+            return oa, ob
+        return [(oa[:, :, ix], ob[:, :, ix]) for ix in segments.idx]
+    if segments is None:
+        return impl.rng_fields(rand["seed"], rand["sids"], rand["g"], nfreqs,
+                               ntimes, ntimes, nfreqs)
+    oa, ob = impl.rng_segments(rand["seed"], rand["sids"], rand["g"], nfreqs,
+                               segments, nfreqs)
+    return list(zip(oa, ob))
 
 
 def bandpower_args(rand: dict, alpha: int) -> dict:

@@ -23,6 +23,7 @@ import torch
 
 from ..ops.invgamma import sample_bandpowers_grid
 from ..ops.fourier import cfft
+from ..ops.kernels import rng_bandpower as _rb
 from ..ops.kernels.impl import KERNELS, Impl
 from . import gcr, gibbs, rgibbs
 
@@ -163,21 +164,25 @@ def to_device(groups, device):
 def gibbs_step_tflags_real(groups, ps, prior, tlog_total, q_total,
                            rand: dict, *, map_estimate: bool = False,
                            jitter: float = 0.0, solver: str = "auto",
-                           impl: Impl = KERNELS):
+                           impl: Impl = KERNELS, segments=None):
     """One grouped Gibbs alternation of the real engine
     (``tflags.py:187-305``): every time group solves its own GCR system
     with the chain's ``ps`` (B, Nfreqs), and the bandpower draw pools
     ``beta`` over the groups, through the table ``tlog_total``/``q_total``
     at alpha + 1 = the TOTAL time count (each group's own table carries the
-    group's alpha). ``rand``: as :func:`rgibbs.gibbs_step`, with the omegas
-    over all times in time order; group g takes those of its global time
-    indices. As in the JAX package, the ln-posterior noise term uses the
-    diagonal of ``Ni``."""
+    group's alpha). ``rand``: as :func:`rgibbs.gibbs_step`, with external
+    omegas over all times in time order; group g takes those of its global
+    time indices, and on the streams draws them there at its own width,
+    all groups in one launch (``segments``: :func:`time_segments` of
+    ``groups``, made here if not given). As in the JAX package, the
+    ln-posterior noise term uses the diagonal of ``Ni``."""
     batch, nfreqs = ps.shape
     ntimes_total = sum(int(g.idx.shape[0]) for g in groups)
-    oa_t = ob_t = None
+    omegas = [(None, None)] * len(groups)
     if not map_estimate:
-        oa_t, ob_t = rgibbs.omegas_t(rand, ntimes_total, nfreqs, impl)
+        if segments is None:
+            segments = time_segments(groups)
+        omegas = rgibbs.omegas_t(rand, ntimes_total, nfreqs, impl, segments)
     dev = ps.device
     f32 = dict(dtype=torch.float32, device=dev)
     c64 = dict(dtype=torch.complex64, device=dev)
@@ -189,10 +194,8 @@ def gibbs_step_tflags_real(groups, ps, prior, tlog_total, q_total,
     beta_masked = torch.zeros((batch, nfreqs), **f32)
     noise = torch.zeros((batch,), **f32)
     chi_sum = torch.zeros((batch,), **f32)
-    for grp in groups:
-        pick = lambda z: None if z is None else z[:, :, grp.idx]
-        d = rgibbs.draw(grp.ops, ps, pick(oa_t), pick(ob_t), jitter, solver,
-                        impl)
+    for grp, (oa_g, ob_g) in zip(groups, omegas):
+        d = rgibbs.draw(grp.ops, ps, oa_g, ob_g, jitter, solver, impl)
         r = rgibbs.residual(grp.ops, d, dense_noise=False,
                             all_unflagged=False, impl=impl)
         sig_t[:, :, grp.idx] = d.sig_t
@@ -211,6 +214,12 @@ def gibbs_step_tflags_real(groups, ps, prior, tlog_total, q_total,
                                      chi_sum / (ntimes_total * nfreqs))
 
 
+def time_segments(groups):
+    """The time groups of device ``groups`` (:func:`to_device`) as the
+    segments of one omega launch (``rng_bandpower.time_segments``)."""
+    return _rb.time_segments([g.idx for g in groups])
+
+
 def run_chain_tflags_real(groups, ps0, prior, niter: int, tlog_total,
                           q_total, *, seed=None, sids=None, iter0: int = 0,
                           randomness: Optional[dict] = None,
@@ -221,12 +230,13 @@ def run_chain_tflags_real(groups, ps0, prior, niter: int, tlog_total,
     result as :func:`rgibbs.run_chain`."""
     ps = ps0
     parts = {name: [] for name in rgibbs.ChainSample._fields}
+    segments = time_segments(groups)
     for k in range(niter):
         rand = rgibbs.iteration_randomness(randomness, k, seed, sids,
                                            iter0 + k)
         ps, s = gibbs_step_tflags_real(
             groups, ps, prior, tlog_total, q_total, rand,
             map_estimate=map_estimate, jitter=jitter, solver=solver,
-            impl=impl)
+            impl=impl, segments=segments)
         rgibbs.append_sample(parts, s, store_cr)
     return ps, rgibbs.stack_samples(parts)

@@ -47,7 +47,7 @@ SIGNATURES = {
     "hk_row_scale_sumsq": [P, P, P, P, P, I, I, P],
     "hk_draw_resid": [P, P, P, P, P, P, P, P, P, P, P, P,
                       I, I, I, I, I, P, P],
-    "hk_rng_fields": [U, P, U, P, P, I, I, I, I, I, P, P],
+    "hk_rng_fields": [U, P, U, P, P, I, I, I, I, I, P, P, P, I, I, P],
     "hk_bandpower": [P, P, P, I, U, P, U, P, I, P, P, I, P, P, P, I,
                      P, P, I, I, I, P],
     "hk_philox_raw": [P, P, P, I, P],

@@ -24,12 +24,14 @@ class Impl(NamedTuple):
     draw_resid: Callable
     rng_fields: Callable
     bandpower: Callable
+    rng_segments: Callable
 
 
 KERNELS = Impl(_cg.cgemm, _hi.herm_inv, _ss.herm_chol_solve, _df.draw_rhs,
                _df.draw_system, _df.row_scale_sumsq, _df.draw_resid,
-               _rb.rng_fields, _rb.bandpower)
+               _rb.rng_fields, _rb.bandpower, _rb.rng_segments)
 PLAIN = Impl(_cg.plain_cgemm, _hi.plain_herm_inv, _ss.plain_herm_chol_solve,
              _df.plain_draw_rhs, _df.plain_draw_system,
              _df.plain_row_scale_sumsq, _df.plain_draw_resid,
-             _rb.plain_rng_fields, _rb.plain_bandpower)
+             _rb.plain_rng_fields, _rb.plain_bandpower,
+             _rb.plain_rng_segments)

@@ -5,13 +5,20 @@ PRNG draws and Box-Muller of ``ops/pallas/megachain.py:238-302`` and the
 in-kernel conditional ``_sample_bandpowers_body`` (:102-145). Streams are
 keyed on (run seed, global chain stream id, global iteration); see
 :mod:`hydra_pspec_torch.ops.philox`, the plain-torch twin that draws the
-same words. ``rng_fields`` is ALU bound (Philox rounds and
-transcendentals); only the real engine launches it, since the megachain
-and mega engines draw their omegas inside ``draw_rhs`` and ``draw_system``
-(:class:`draw_fused.OmegaKey`). ``bandpower`` runs a block per (chain,
-32 bins) over the whole card: its warps split the Philox calls of the
-Gamma draws, whose logs are summed in the serial order, and a bounded
-bin's table searches are warp ballots of two rounds each.
+same words. Only the real engine launches ``rng_fields``, since the
+megachain and mega engines draw their omegas inside ``draw_rhs`` and
+``draw_system`` (:class:`draw_fused.OmegaKey`). A thread of ``rng_fields``
+draws four consecutive time lanes of one row through ``philox.cuh``'s
+``draw_lanes`` (the keyed passes' function: the row's Philox work is
+shared by the four), the threads flat over the (row, lane chunk) space;
+it is bound by the issue of its draws. Its time maps draw chosen times:
+``tmap`` (lane j at time ``tmap[j]``), and the segment form
+(:func:`rng_segments`), which draws the grouped real engine's time groups,
+each at its own width, in one launch and with the bits of the full fields
+gathered at the groups' times. ``bandpower`` runs a block per (chain, 32
+bins) over the whole card: its warps split the Philox calls of the Gamma
+draws, whose logs are summed in the serial order, and a bounded bin's
+table searches are warp ballots of two rounds each.
 
 Grouped time-flags mode (``ops/pallas/megachain.py:220-229, 256-263,
 409-418``): ``rng_fields`` masks each row at its own time count
@@ -66,26 +73,106 @@ def _u32(v: int) -> int:
 # --- omega fields ----------------------------------------------------------
 
 plain_rng_fields = philox.omega_fields  # the twin, on any device
+LANES = 4   # time lanes a thread of the kernel (FIELD_LANES)
 
 
 def rng_fields(seed: int, sids: torch.Tensor, g: int, n: int, t: int,
-               ntimes: int, nfreqs: int, row_times=None):
+               ntimes: int, nfreqs: int, row_times=None, tmap=None):
     """The iteration-``g`` omegas ``(oa, ob)``, complex64 (B, n, t), of the
     chains ``sids`` (int32, on the device to draw on). ``row_times``:
-    optional int32 (B,) per-row time counts replacing ``ntimes``."""
-    if _build.on_cpu(sids, row_times):
+    optional int32 (B,) per-row time counts replacing ``ntimes``;
+    ``tmap``: optional int32 (t,) time counters, lane j drawing time
+    ``tmap[j]`` in place of j."""
+    if _build.on_cpu(sids, row_times, tmap):
         return plain_rng_fields(seed, sids, g, n, t, ntimes, nfreqs,
-                                row_times)
+                                row_times, tmap)
     B = sids.shape[0]
     _build.check(sids, "sids", torch.int32, (B,))
     if row_times is not None:
         _build.check(row_times, "row_times", torch.int32, (B,), sids.device)
+    if tmap is not None:
+        _build.check(tmap, "tmap", torch.int32, (t,), sids.device)
+    _check_chunks(B * n, -(-t // LANES))
     oa = torch.empty((B, n, t), dtype=torch.complex64, device=sids.device)
     ob = torch.empty_like(oa)
     _build.call("rng_fields", "hk_rng_fields", _u32(seed), _build.ptr(sids),
                 _u32(g), _build.ptr(oa), _build.ptr(ob), B, n, t, ntimes,
-                nfreqs, _build.ptr(row_times))
+                nfreqs, _build.ptr(row_times), _build.ptr(tmap), None, 0, 0)
     return oa, ob
+
+
+def _check_chunks(rows: int, cpr: int):
+    if rows * cpr >= 2 ** 31:
+        raise ValueError(f"{rows} rows x {cpr} lane chunks: the kernel "
+                         f"indexes fewer than 2^31 chunks")
+
+
+class TimeSegments(NamedTuple):
+    """Time groups to draw at their own widths in one launch
+    (:func:`rng_segments`)."""
+
+    idx: tuple            # each group's time indices, int64 tensors
+    widths: tuple         # their counts t_g, host ints
+    table: torch.Tensor   # int32: chunk offsets, time offsets, indices
+
+
+def time_segments(idx) -> TimeSegments:
+    """The segments of the time groups ``idx`` (integer tensors of time
+    indices, all on the device to draw on). The table holds the segments'
+    chunk offsets within a row (``LANES`` lanes a chunk) and time offsets,
+    G + 1 of each, made on the host and copied to the device (a small
+    synchronous copy: build it once for a chain, as
+    ``tflags.run_chain_tflags_real`` does), then the indices
+    concatenated."""
+    idx = tuple(ix.to(torch.int64) for ix in idx)
+    widths = tuple(int(ix.shape[0]) for ix in idx)
+    coff, toff = [0], [0]
+    for w in widths:
+        coff.append(coff[-1] + -(-w // LANES))
+        toff.append(toff[-1] + w)
+    head = torch.tensor(coff + toff, dtype=torch.int32).to(idx[0].device)
+    table = torch.cat([head] + [ix.to(torch.int32) for ix in idx])
+    return TimeSegments(idx, widths, table)
+
+
+def plain_rng_segments(seed: int, sids: torch.Tensor, g: int, n: int,
+                       segs: TimeSegments, nfreqs: int):
+    """The same function with the Philox twin, on any device."""
+    return philox.omega_segments(seed, sids, g, n, segs.idx, nfreqs)
+
+
+def rng_segments(seed: int, sids: torch.Tensor, g: int, n: int,
+                 segs: TimeSegments, nfreqs: int):
+    """Each time group's iteration-``g`` omegas at its own width, in one
+    launch: ``(list of oa, list of ob)``, group g's pair complex64
+    (B, n, t_g) holding the full fields' values at its times ``segs.idx[g]``
+    (:func:`rng_fields` with ``tmap``). Each list's tensors are contiguous
+    views of one buffer, the groups one after another."""
+    if _build.on_cpu(sids, segs.table):
+        return plain_rng_segments(seed, sids, g, n, segs, nfreqs)
+    B, G = sids.shape[0], len(segs.widths)
+    total = sum(segs.widths)
+    _build.check(sids, "sids", torch.int32, (B,))
+    _build.check(segs.table, "segs.table", torch.int32,
+                 (2 * (G + 1) + total,), sids.device)
+    chunks = sum(-(-w // LANES) for w in segs.widths)
+    _check_chunks(B * n, chunks)
+    oa = torch.empty((B * n * total,), dtype=torch.complex64,
+                     device=sids.device)
+    ob = torch.empty_like(oa)
+    _build.call("rng_fields", "hk_rng_fields", _u32(seed), _build.ptr(sids),
+                _u32(g), _build.ptr(oa), _build.ptr(ob), B, n, 0, 0,
+                nfreqs, None, None, _build.ptr(segs.table), G, chunks)
+    return _split(oa, B, n, segs.widths), _split(ob, B, n, segs.widths)
+
+
+def _split(buf, B: int, n: int, widths):
+    """The (B, n, t_g) views of the groups laid one after another."""
+    out, o = [], 0
+    for w in widths:
+        out.append(buf[o:o + B * n * w].view(B, n, w))
+        o += B * n * w
+    return out
 
 
 # --- bandpower conditional -------------------------------------------------

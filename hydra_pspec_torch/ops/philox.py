@@ -24,8 +24,9 @@ are the ``(B, n, t)`` fields of :func:`omega_fields`; the real engine's
 ``(B, Ntimes, Nfreqs)`` omegas are those fields at ``n = Nfreqs``,
 ``t = Ntimes`` transposed, so a chain draws the same numbers on all three
 engines at a given iteration. Its grouped time-flags path takes group g's
-omegas at the group's GLOBAL time indices, so a single all-False pattern
-draws exactly what the ungrouped real engine draws.
+omegas at the group's GLOBAL time indices (drawn there directly, at the
+group's own width: :func:`omega_segments`), so a single all-False
+pattern draws exactly what the ungrouped real engine draws.
 
 Grouped time-flags mode (G > 1 flag-pattern time groups per chain, rows
 chain-major): the omegas of row ``c*G + g`` are keyed on the row stream
@@ -170,16 +171,19 @@ def time_mask(t: int, ntimes: int, device, row_times=None) -> torch.Tensor:
 
 
 def omega_fields(seed: int, sids: torch.Tensor, g, n: int, t: int,
-                 ntimes: int, nfreqs: int, row_times=None):
+                 ntimes: int, nfreqs: int, row_times=None, tmap=None):
     """The two omega fields of iteration ``g`` (see :func:`iteration`),
     complex64 ``(B, n, t)``:
     ``oa`` (delay basis, scaled sqrt(1/2) sqrt(nfreqs)) and ``ob``
     (frequency basis, scaled sqrt(1/2)). Zero on time lanes >= ntimes, or
-    with ``row_times`` (B,) on lanes >= row b's count."""
+    with ``row_times`` (B,) on lanes >= row b's count. ``tmap``: optional
+    integer (t,) time counters, lane j drawing time ``tmap[j]`` in place
+    of j (the full fields' values at those times)."""
     dev = sids.device
     k0, k1 = _keys(seed, sids)
     i = torch.arange(n, dtype=torch.int64, device=dev)[None, :, None]
-    j = torch.arange(t, dtype=torch.int64, device=dev)[None, None, :]
+    j = (torch.arange(t, dtype=torch.int64, device=dev) if tmap is None
+         else tmap.to(torch.int64))[None, None, :]
     w0, w1, w2, w3 = philox4x32(_word(g), OMEGA, i, j,
                                 k0, k1[:, None, None])
     half = torch.tensor(math.sqrt(0.5), dtype=torch.float32)
@@ -190,6 +194,17 @@ def omega_fields(seed: int, sids: torch.Tensor, g, n: int, t: int,
     ob = torch.complex(obr * half * mask, obi * half * mask)
     oa = torch.complex(oar * sa * mask, oai * sa * mask)
     return oa, ob
+
+
+def omega_segments(seed: int, sids: torch.Tensor, g, n: int, idx,
+                   nfreqs: int):
+    """The omega fields of time groups, each at its own width: for each
+    integer tensor of time indices in ``idx``, the pair ``(oa, ob)``
+    complex64 (B, n, len) of :func:`omega_fields` at those times (the full
+    fields gathered there). Returns ``(list of oa, list of ob)``."""
+    pairs = [omega_fields(seed, sids, g, n, int(ix.shape[0]),
+                          int(ix.shape[0]), nfreqs, tmap=ix) for ix in idx]
+    return [p[0] for p in pairs], [p[1] for p in pairs]
 
 
 GAMMA_CHUNK = 64  # Philox calls per bin held at once by gamma_draws

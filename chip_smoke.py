@@ -6,6 +6,7 @@
                                                 # against a parent's
     python3 chip_smoke.py --rng OUT PARENT      # rng_fields against a
                                                 # parent's
+    python3 chip_smoke.py --cgemm OUT PARENT    # cgemm against a parent's
 
 Phases, one printed line each (any failure raises; exit code non-zero):
   1. environment: torch/CUDA versions, and the card's name and power limit
@@ -53,7 +54,11 @@ Phases, one printed line each (any failure raises; exit code non-zero):
      max|S X - I| <= 1e-4, the factor-solve at K = 203 and 1 with
      max|A x - b| <= 2e-4, both within 3e-3 of the plain results' mean
      magnitude, the identity exactly at n = 180; cgemm at every
-     product shape of the paths (C aliasing X included); herm_inv at the
+     product shape of the paths at the paths' batch (B = 100, or the
+     grouped products' own; the tile plan depends on the batch count)
+     against plain, the plan's tile named, C aliasing X, and each
+     torch.equal to the same product on chain slices of 1, 7 and the
+     rest and on every tile of the kernel; herm_inv at the
      wide band's system, B=8, n=180 and herm_chol_solve at B=8, n=180,
      K=203, one launch each;
      the two row passes, row_scale_sumsq and draw_resid, on random inputs
@@ -240,6 +245,15 @@ signature A's 3 groups); then times both kernels (device time and
 events), the segment launch against the parent's full fields and
 gathers, and the grouped real and dense real iterations with the
 parent's omegas, in turns (parent, this, this, parent).
+--cgemm OUT PARENT (not part of the full run) builds both trees' kernels
+and holds cgemm torch.equal to the parent's at every CGEMM_SHAPES product
+and at B = 1, 8, 100 (and the grouped products' own 300 or 20), with and
+without an active mask, on every tile the kernel has and on chain slices;
+then times each product in turns (parent, this, this, parent: CUDA
+events and profiler device time) beside torch.matmul / torch.baddbmm and
+every tile's device time, reads the SM clock under load, and times the
+main, grouped and wide megachain iterations as graph replays on both
+libraries (their outputs torch.equal).
 The megachain and mega paths draw their omegas in draw_rhs and draw_system
 and must launch no rng_fields; the real paths launch it. Through
 run_baselines those two engines run each chunk as a CUDA graph; the launch
@@ -396,14 +410,17 @@ HOME_PATH = dict({k: "main" for k in MAIN_KERNELS},
 NOT_ON_KEYED_PATHS = ("rng_fields",)
 
 # every cgemm product of the paths, per chain: (what, M, K, N, op, A shared,
-# X) with X None, "x" (its own tensor) or "out" (C aliases X), at the
-# port's layout (n = 120, t = 204, m = 12). The plain megachain iteration
+# X[, batch]) with X None, "x" (its own tensor) or "out" (C aliases X), at
+# the port's layout (n = 120, t = 204, m = 12), and the batch of the
+# grouped paths' products (cgemm_batch). The plain megachain iteration
 # (ops/kernels/megastep.py:58-75, megachain.py:112-113, herm_inv.py
 # apply_refine), F rc at t = 203 (is the even t worth its pad lane?) and
 # at the JAX package's layout (n = 128, t = 256), the real engine (n =
-# 120, t = 203), the wide band (n = 180) and the blocked inverse and
+# 120, t = 203), the wide band (n = 180), the blocked inverse and
 # factor-solve at n = 256 (blocks of 192 and 64: the wide band at the JAX
-# package's layout, phase layout)
+# package's layout, phase layout), the grouped megachain's rows (100
+# chains x G = 3, t = 80) and the grouped real engine's groups of 15 and
+# 53 times (20 baselines)
 CGEMM_SHAPES = (
     ("ba = Fg^H rc", 12, 120, 204, "H", False, None),
     ("rc -= G ba", 120, 12, 204, "N", False, "out"),
@@ -430,7 +447,16 @@ CGEMM_SHAPES = (
     ("blocked TS = T S^-1", 192, 64, 64, "N", False, None),
     ("blocked A11^-1 + TS T^H", 192, 64, 192, "N", False, "out"),
     ("blocked b2 - A12^H Y", 64, 192, 203, "H", False, "x"),
+    ("grouped F rc (t=80)", 120, 120, 80, "N", True, None, 300),
+    ("grouped x = inv xs (t=80)", 120, 120, 80, "N", False, None, 300),
+    ("grouped F^H sk (t=80)", 120, 120, 80, "H", True, None, 300),
+    ("grouped real F rc (t=15)", 120, 120, 15, "N", True, None, 20),
+    ("grouped real F rc (t=53)", 120, 120, 53, "N", True, None, 20),
 )
+# the --cgemm mode's batches, and the chain slices (1, 7 and the rest) that
+# the kernel phase holds each product at B = 100 to
+CGEMM_BATCHES = (1, 8, 100)
+CGEMM_SLICES = (1, 7)
 
 
 def say(phase, msg):
@@ -592,16 +618,64 @@ def long_tables(dev):
                  for v in (tab.log_y, tab.q))
 
 
+def cgemm_batch(shape, B):
+    """The batch of a :data:`CGEMM_SHAPES` product: its own (the grouped
+    paths'), else ``B``."""
+    return shape[7] if len(shape) > 7 else B
+
+
 def cgemm_operands(shape, B, dev, gen):
     """Random operands (a, b, x, alpha, beta) of one :data:`CGEMM_SHAPES`
     product at batch ``B``."""
-    _, M, K, N, op, shared, xmode = shape
+    _, M, K, N, op, shared, xmode = shape[:7]
     rn = lambda *s: torch.randn(s, dtype=torch.complex64, device=dev,
                                 generator=gen)
     dims = (M, K) if op == "N" else (K, M)
     a = rn(*dims) if shared else rn(B, *dims)
     x = rn(B, M, N) if xmode else None
     return a, rn(B, K, N), x, (-1.0 if xmode else 0.5), 1.0
+
+
+def cgemm_on_slices(mm, shape, a, b, x, alpha, beta, cuts=CGEMM_SLICES):
+    """The product of :func:`cgemm_operands` run on consecutive chain
+    slices of ``cuts`` chains and the rest (as far as the batch reaches),
+    concatenated (X as its own tensor)."""
+    op, shared = shape[4], shape[5]
+    B = b.shape[0]
+    edges = sorted({0, B, *(min(e, B) for e in np.cumsum(cuts).tolist())})
+    return torch.cat([
+        mm(a if shared else a[lo:hi], b[lo:hi], op=op,
+           x=None if x is None else x[lo:hi], alpha=alpha, beta=beta)
+        for lo, hi in zip(edges[:-1], edges[1:])])
+
+
+def cgemm_plan(B, M, N, K):
+    """The name of the tile that cgemm's plan takes for ``B`` (M, K) x
+    (K, N) products on the current card."""
+    from hydra_pspec_torch.ops.kernels import _build
+    from hydra_pspec_torch.ops.kernels import cgemm as cg
+
+    return cg.TILES[_build.library().hk_cgemm_plan(B, M, N, K)]
+
+
+def cgemm_on_tile(tile, a, b, op="N", x=None, alpha=1.0, beta=1.0,
+                  out=None, active=None):
+    """cgemm's product on the kernel's tile ``tile`` (an index of
+    ``cgemm.TILES``) in place of the plan's, through the C entry
+    ``hk_cgemm_tile``: the same bits whatever the tile. Operands as
+    :func:`cgemm_operands` makes them."""
+    from hydra_pspec_torch.ops.kernels import _build
+    from hydra_pspec_torch.ops.kernels import cgemm as cg
+
+    B, K, N = b.shape
+    M = a.shape[-2] if op == "N" else a.shape[-1]
+    if out is None:
+        out = torch.empty((B, M, N), dtype=torch.complex64, device=b.device)
+    _build.call("cgemm", "hk_cgemm_tile", _build.ptr(a), _build.ptr(b),
+                _build.ptr(x), _build.ptr(out), B, M, N, K, cg.OPS[op],
+                int(a.dim() == 3), float(alpha), float(beta),
+                _build.ptr(active), tile)
+    return out
 
 
 def cgemm_bound(B, M, K, N, shared, with_x):
@@ -856,6 +930,7 @@ def check_time_maps(dev, cmp, same, B):
 def phase_kernels(dev, jobs8, jobs_w8, errs):
     from hydra_pspec_torch.models import mega, megachain
     from hydra_pspec_torch.ops.kernels import _build
+    from hydra_pspec_torch.ops.kernels import cgemm as cg
     from hydra_pspec_torch.ops.kernels import draw_fused as df
     from hydra_pspec_torch.ops.kernels import impl as I
     from hydra_pspec_torch.ops.kernels import rng_bandpower as rb
@@ -1229,16 +1304,34 @@ def phase_kernels(dev, jobs8, jobs_w8, errs):
     check_herm_tiles(dev, cmp)
     check_tri_tiles(dev, cmp)
 
-    # cgemm at every product shape of the paths, and C aliasing X
+    # cgemm at every product shape of the paths, at the paths' batch (B =
+    # 100, or the grouped products' own: the tile plan depends on it, and
+    # the plan's tile is named), against plain; torch.equal to the same
+    # product on chain slices of 1, 7 and the rest (other batches, other
+    # tiles) and on every tile of the kernel, so that each tile is held
+    # against plain too; C aliasing X
     gen = torch.Generator(device=dev).manual_seed(SEED + 11)
     for shape in CGEMM_SHAPES:
-        a, b, x, alpha, beta = cgemm_operands(shape, 8, dev, gen)
-        op, what = shape[4], shape[0]
-        mm(a, b, op=op, x=x, alpha=alpha, beta=beta, what=what)
+        what, Mc, Kc, Nc, op = shape[:5]
+        Bc = cgemm_batch(shape, N_BASELINES)
+        a, b, x, alpha, beta = cgemm_operands(shape, Bc, dev, gen)
+        mm(a, b, op=op, x=x, alpha=alpha, beta=beta,
+           what=f"{what} B={Bc} ({cgemm_plan(Bc, Mc, Nc, Kc)})")
+        got = K.cgemm(a, b, op=op, x=x, alpha=alpha, beta=beta)
+        require(torch.equal(got, cgemm_on_slices(K.cgemm, shape, a, b, x,
+                                                 alpha, beta)),
+                f"cgemm {what}: B={Bc} differs from its chain slices "
+                f"{CGEMM_SLICES} + the rest")
+        for k, name in enumerate(cg.TILES):
+            require(torch.equal(got, cgemm_on_tile(k, a, b, op=op, x=x,
+                                                   alpha=alpha, beta=beta)),
+                    f"cgemm {what}: B={Bc} differs on tile {name}")
         if shape[6] == "out":
-            got = K.cgemm(a, b, op=op, x=x, alpha=alpha, beta=beta)
             K.cgemm(a, b, op=op, x=x, alpha=alpha, beta=beta, out=x)
             require(torch.equal(x, got), f"cgemm {what}: out=x differs")
+    say("kernels", f"cgemm: every product at its paths' batch torch.equal "
+        f"to its chain slices {CGEMM_SLICES} + the rest and on every tile "
+        f"({', '.join(cg.TILES)})")
 
     # the wide band's systems: herm_inv at its megachain system and
     # herm_chol_solve at its real engine's (n = 180, K = 203), one launch
@@ -3309,15 +3402,17 @@ def _device_ms_pairs(pairs, reps=10):
 
 def time_cgemm_shapes(dev, B=N_BASELINES):
     """cgemm, its plain version and one PyTorch call (TF32 off) at every
-    :data:`CGEMM_SHAPES` product, batch ``B``, each beside its bound; the
-    kernel's and the library call's device time from the profiler too."""
+    :data:`CGEMM_SHAPES` product, batch ``B`` (or the product's own), each
+    beside its bound and the tile the plan takes; the kernel's and the
+    library call's device time from the profiler too."""
     from hydra_pspec_torch.ops.kernels import impl as I
 
     gen = torch.Generator(device=dev).manual_seed(SEED + 12)
     rows, pairs = [], []
     for shape in CGEMM_SHAPES:
-        what, M, K, N, op, shared, xmode = shape
-        a, b, x, alpha, beta = cgemm_operands(shape, B, dev, gen)
+        what, M, K, N, op, shared, xmode = shape[:7]
+        Bs = cgemm_batch(shape, B)
+        a, b, x, alpha, beta = cgemm_operands(shape, Bs, dev, gen)
         out = x if xmode == "out" else None
         call = (lambda M_, a=a, b=b, op=op, x=x, alpha=alpha, beta=beta,
                 out=out: M_.cgemm(a, b, op=op, x=x, alpha=alpha, beta=beta,
@@ -3332,17 +3427,19 @@ def time_cgemm_shapes(dev, B=N_BASELINES):
             library = (lambda aop=aop, b=b, x=x, alpha=alpha:
                        torch.baddbmm(x, aop, b, alpha=alpha))
         lib = _time(library, 10)
-        b_ms, by = cgemm_bound(B, M, K, N, shared, xmode is not None)
-        rows.append({"what": what, "batch": B, "M": M, "K": K, "N": N,
+        b_ms, by = cgemm_bound(Bs, M, K, N, shared, xmode is not None)
+        rows.append({"what": what, "batch": Bs, "M": M, "K": K, "N": N,
                      "op": op, "a_shared": shared, "x": xmode,
+                     "tile": cgemm_plan(Bs, M, N, K),
                      "ms": (pk[1] + pk[2]) / 2,
                      "plain_ms": (pk[0] + pk[3]) / 2, "library_ms": lib,
                      "bound_ms": b_ms, "bound_by": by})
         pairs.append((lambda call=call: call(I.KERNELS), library))
     for row, (dev_ms, lib_dev_ms) in zip(rows, _device_ms_pairs(pairs)):
         row.update(device_ms=dev_ms, library_device_ms=lib_dev_ms)
-        say("times", f"cgemm {row['what']:26s} B={B} {row['M']}x{row['K']}x"
-            f"{row['N']} {row['op']}: kernel {row['ms']:.4f} ms (device "
+        say("times", f"cgemm {row['what']:26s} B={row['batch']} {row['M']}x"
+            f"{row['K']}x{row['N']} {row['op']} ({row['tile']}): kernel "
+            f"{row['ms']:.4f} ms (device "
             f"{dev_ms:.4f}), plain {row['plain_ms']:.4f}, library "
             f"{row['library_ms']:.4f} (device {lib_dev_ms:.4f}), bound "
             f"{row['bound_ms']:.4f} ({row['bound_by']}), device time at "
@@ -4076,6 +4173,235 @@ def rng_main(out, parent):
             f"{act['parent']:.1f}); hand-written launches {row['launches']}")
     Path(out).write_text(json.dumps({"equal": equal, "times": times},
                                     indent=1))
+
+
+def _device_ms_seq(fns, reps=10):
+    """Device time per call of each of ``fns`` (one kernel launch a call),
+    from one profiler window that runs each ``reps`` times in order: the
+    window's activities, in start order, fall to the calls in turn."""
+    def run():
+        for fn in fns:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+
+    ev, _ = _profile_window(run, lambda ev: len(ev) == reps * len(fns))
+    return [sum(t1 - t0 for t0, t1, _ in ev[i * reps:(i + 1) * reps])
+            / reps / 1e3 for i in range(len(fns))]
+
+
+def _clocks_under(fn, n=10000):
+    """nvidia-smi's SM clock, its maximum, the power draw and the power
+    limit, read 0.3 s into ``n`` launches of ``fn`` in a row."""
+    q = subprocess.Popen(
+        ["bash", "-c", "sleep 0.3; nvidia-smi --query-gpu=clocks.sm,"
+         "clocks.max.sm,power.draw,power.limit --format=csv,noheader"],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    for _ in range(n):
+        fn()
+    torch.cuda.synchronize()
+    return q.communicate()[0].strip()
+
+
+def _replays_by_library(label, make_body, ps, kit, plib):
+    """One iteration as a graph replay of a ``kit``-iteration chunk on the
+    parent's library ``plib`` and on this tree's, in turns parent, this,
+    this, parent; the two replays' outputs torch.equal."""
+    from hydra_pspec_torch.ops.kernels.graph import ChunkGraph
+    from hydra_pspec_torch.ops.kernels.megachain import ChainOut
+
+    with _LibraryOf(plib):
+        parent = ChunkGraph(make_body(), ps, kit)
+    this = ChunkGraph(make_body(), ps, kit)
+    got, want = this.replay(ps, 0), parent.replay(ps, 0)
+    diff = [f for f in ChainOut._fields if getattr(got, f) is not None
+            and not torch.equal(getattr(got, f), getattr(want, f))]
+    say("cgemm", f"{label}: a replay torch.equal to the parent's on every "
+        f"output: {not diff}")
+    require(not diff, f"{label}: differs from the parent's in {diff}")
+    t = [_time(lambda g=g: g.replay(ps, 0), 5) / kit
+         for g in (parent, this, this, parent)]
+    row = {"ms": (t[1] + t[2]) / 2, "parent_ms": (t[0] + t[3]) / 2,
+           "turns": t, "equal": not diff}
+    say("cgemm", f"{label}: graph replay {row['ms']:.4f} ms an iteration, "
+        f"on the parent's kernels {row['parent_ms']:.4f} ms (parent, this, "
+        f"this, parent = {', '.join(f'{v:.4f}' for v in t)})")
+    del parent, this
+    torch.cuda.empty_cache()
+    return row
+
+
+def cgemm_main(out, parent):
+    """``python3 chip_smoke.py --cgemm OUT PARENT``: cgemm against a parent
+    checkout's kernel (its own library, built from its sources), on one
+    card. At every :data:`CGEMM_SHAPES` product and every batch of
+    :data:`CGEMM_BATCHES` (and the product's own), torch.equal to the
+    parent's, with an ``active`` mask too, on every tile the kernel has
+    (the bits do not depend on the plan) and on chain slices. Then, in
+    turns parent, this, this, parent, each product's time at B = 100 (or
+    its own batch), CUDA events and profiler device time, beside
+    ``torch.matmul`` / ``torch.baddbmm`` (events, TF32 off) and every
+    tile's device time; and one iteration of the main, grouped (100 x
+    G = 3) and wide (n = 180) megachain chunks as graph replays on both
+    libraries. The registers and spills of each cgemm kernel (ptxas).
+    Results to OUT as JSON."""
+    from hydra_pspec_torch.models import mega, megachain
+    from hydra_pspec_torch.ops.kernels import _build
+    from hydra_pspec_torch.ops.kernels import cgemm as cg
+
+    phase_env()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    _build.build(verbose=True)
+    _build.library()
+    ptxas, entry = [], ""
+    for line in _build.build_info()[1].splitlines():
+        if "Compiling entry" in line:
+            entry = line.split("'")[1] if "'" in line else line
+        elif "cgemm_kernel" in entry and ("registers" in line
+                                          or "spill" in line):
+            ptxas.append(f"{entry}: {line.strip()}")
+            say("cgemm", ptxas[-1])
+    plib = parent_library(parent)
+    tiles, names = range(len(cg.TILES)), cg.TILES
+    gen = torch.Generator(device=dev).manual_seed(SEED + 17)
+    equal = {}
+    for shape in CGEMM_SHAPES:
+        what, M, K, N, op, shared, xmode = shape[:7]
+        for B in sorted({*CGEMM_BATCHES, cgemm_batch(shape, N_BASELINES)}):
+            a, b, x, alpha, beta = cgemm_operands(shape, B, dev, gen)
+            act = (torch.arange(B, device=dev) % 3 != 1).to(torch.int32)
+            kept = torch.randn((B, M, N), dtype=torch.complex64,
+                               generator=gen, device=dev)
+
+            def run(masked=False, tile=None):
+                o = (x if xmode == "out" else kept) if masked else (
+                    x if xmode == "out" else None)
+                o = None if o is None else o.clone()
+                xo = o if xmode == "out" else x
+                kw = dict(op=op, x=xo, alpha=alpha, beta=beta, out=o,
+                          active=act if masked else None)
+                return (cg.cgemm(a, b, **kw) if tile is None
+                        else cgemm_on_tile(tile, a, b, **kw))
+
+            got, got_m = run(), run(True)
+            with _LibraryOf(plib):
+                want, want_m = run(), run(True)
+            checks = {"parent": torch.equal(got, want),
+                      "parent, active": torch.equal(got_m, want_m),
+                      "slices": torch.equal(got, cgemm_on_slices(
+                          cg.cgemm, shape, a, b, x, alpha, beta))}
+            for k in tiles:
+                checks[f"tile {names[k]}"] = (
+                    torch.equal(run(tile=k), got)
+                    and torch.equal(run(True, tile=k), got_m))
+            bad = [c for c, ok in checks.items() if not ok]
+            equal[f"{what} B={B}"] = not bad
+            say("cgemm", f"{what:26s} B={B}: torch.equal to the parent's "
+                f"(with and without active), on its slices and on every "
+                f"tile: {not bad}" + (f" (differs: {bad})" if bad else ""))
+            require(not bad, f"cgemm {what} B={B}: differs ({bad})")
+
+    times = []
+    for shape in CGEMM_SHAPES:
+        what, M, K, N, op, shared, xmode = shape[:7]
+        B = cgemm_batch(shape, N_BASELINES)
+        a, b, x, alpha, beta = cgemm_operands(shape, B, dev, gen)
+        o = x if xmode == "out" else None
+
+        def fn(tile=None):
+            kw = dict(op=op, x=x, alpha=alpha, beta=beta, out=o)
+            if tile is None:
+                cg.cgemm(a, b, **kw)
+            else:
+                cgemm_on_tile(tile, a, b, **kw)
+
+        def parent_fn():
+            with _LibraryOf(plib):
+                fn()
+
+        def parent_ms():
+            with _LibraryOf(plib):
+                return _time(fn, 20)
+
+        ev = [parent_ms(), _time(fn, 20), _time(fn, 20), parent_ms()]
+        seq = [parent_fn, fn, fn, parent_fn] + [
+            functools.partial(fn, tile=k) for k in tiles]
+        dv = _device_ms_seq(seq)
+        aop = a if op == "N" else a.transpose(-2, -1)
+        aop = aop.conj() if op == "H" else aop
+        lib = _time((lambda: torch.matmul(aop, b)) if xmode is None else
+                    (lambda: torch.baddbmm(x, aop, b, alpha=alpha)), 20)
+        b_ms, by = cgemm_bound(B, M, K, N, shared, xmode is not None)
+        row = {"what": what, "batch": B, "M": M, "K": K, "N": N, "op": op,
+               "a_shared": shared, "x": xmode,
+               "tile": cgemm_plan(B, M, N, K),
+               "ms": (ev[1] + ev[2]) / 2, "parent_ms": (ev[0] + ev[3]) / 2,
+               "turns": ev, "device_ms": (dv[1] + dv[2]) / 2,
+               "parent_device_ms": (dv[0] + dv[3]) / 2,
+               "device_turns": dv[:4],
+               "tile_device_ms": dict(zip(names, dv[4:])),
+               "library_ms": lib, "bound_ms": b_ms, "bound_by": by}
+        row["fastest_tile"] = min(row["tile_device_ms"],
+                                  key=row["tile_device_ms"].get)
+        times.append(row)
+        if what == "frc = F rc":
+            times_fn = fn
+        say("cgemm", f"{what:26s} B={B} {M}x{K}x{N} {op} ({row['tile']}): "
+            f"device {row['device_ms']:.5f} ms, the parent's "
+            f"{row['parent_device_ms']:.5f}; events {row['ms']:.5f}, the "
+            f"parent's {row['parent_ms']:.5f}; library {lib:.5f}; bound "
+            f"{b_ms:.5f} ({by}), {100 * b_ms / row['device_ms']:.1f} % of "
+            f"the device time (parent "
+            f"{100 * b_ms / row['parent_device_ms']:.1f} %); every tile "
+            + ", ".join(f"{k} {v:.5f}"
+                        for k, v in row["tile_device_ms"].items())
+            + f"; fastest {row['fastest_tile']}")
+
+    clocks = _clocks_under(times_fn)
+    say("cgemm", f"F rc B={N_BASELINES}, 10000 launches in a row: "
+        f"nvidia-smi 0.3 s in (SM clock, its max, power, limit): {clocks}")
+
+    kit = 5
+    jobs = make_jobs(N_BASELINES)
+    mops, dims = build_ops(jobs, dev)
+    B = mops.nid.shape[0]
+    sids = torch.arange(B, dtype=torch.int32, device=dev)
+    ps = mega.pad_ps(np.tile(ps_truth(), (B, 1)), dims, dev)
+    tables = megachain.make_chain_tables(mops, dev)
+    static = megachain.prior_static_from(make_prior(), dims)
+    iters = {"main": _replays_by_library(
+        f"main megachain B={B}", lambda: megachain.chunk_body(
+            mops, tables, dims, static, seed=SEED, sids=sids, warm_ns=3,
+            drift_max=0.6), ps, kit, plib)}
+    del mops, tables
+    gs = grouped_setup(jobs[:1], tflag_signatures()[0], B, dev)
+    G = len(gs.group_times)
+    Bg = gs.mops.nid.shape[0]
+    _, sids_r, sidc_r = grouped_ids(gs, Bg // G, dev)
+    gtab = megachain.make_chain_tables(gs.mops, dev)
+    gstatic = megachain.prior_static_from(make_prior(), gs.dims)
+    psg = mega.pad_ps(np.tile(ps_truth(), (Bg, 1)), gs.dims, dev)
+    iters["grouped"] = _replays_by_library(
+        f"grouped {Bg // G} chains x G={G}", lambda: megachain.chunk_body(
+            gs.mops, gtab, gs.dims, gstatic, seed=SEED, sids=sids_r,
+            sidc=sidc_r, warm_ns=3, drift_max=0.6,
+            group_times=gs.group_times, group_idx=gs.group_idx), psg, kit,
+        plib)
+    del gs, gtab
+    wm, wd = build_ops(make_jobs(N_BASELINES, nf=WIDE_NF, seed=SEED + 20),
+                       dev)
+    wtab = megachain.make_chain_tables(wm, dev)
+    wstatic = megachain.prior_static_from(make_prior(nf=WIDE_NF), wd)
+    psw = mega.pad_ps(np.tile(ps_truth(WIDE_NF), (B, 1)), wd, dev)
+    iters["wide"] = _replays_by_library(
+        f"wide megachain n={WIDE_NF} B={B}", lambda: megachain.chunk_body(
+            wm, wtab, wd, wstatic, seed=SEED, sids=sids, warm_ns=3,
+            drift_max=0.6), psw, kit, plib)
+    Path(out).write_text(json.dumps(
+        {"device": torch.cuda.get_device_name(0), "ptxas": ptxas,
+         "equal": equal, "times": times, "clocks_under_load": clocks,
+         "iterations": iters}, indent=1))
 
 
 def phase_times(dev, jobs):
@@ -5004,6 +5330,10 @@ def main():
         "tflags": dict(tf_stats, launches=tf_launches),
         "fallback": fb_stats,
         "cgemm_shapes": tm["cgemm_rows"],
+        # (batch, M, K, N, op, A shared, X, masked, launches an iteration)
+        "cgemm_launches_per_iteration": dict(
+            {k: v.get("cgemm_shapes") for k, v in its.items()},
+            wide=tw["chain"].get("cgemm_shapes")),
         "device_profile": tm["profile"],
         "device_ms": device_ms,
         "omega_layouts_ms": tm["omega_layouts"],
@@ -5042,6 +5372,8 @@ if __name__ == "__main__":
         herm_main(sys.argv[2], sys.argv[3])
     elif sys.argv[1:2] == ["--rng"]:
         rng_main(sys.argv[2], sys.argv[3])
+    elif sys.argv[1:2] == ["--cgemm"]:
+        cgemm_main(sys.argv[2], sys.argv[3])
     elif sys.argv[1:2] == ["--multichip"]:
         multichip_main(int(sys.argv[2]))
     else:

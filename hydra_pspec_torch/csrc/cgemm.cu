@@ -15,58 +15,92 @@
 // is 0 return before their first load and leave its C as it was (the
 // warm start's masked rebuild above 128 channels, ops/kernels/herm_inv.py).
 //
-// Bound on the H100: at the main path's large products (128 x 128 x 256 per
-// chain, B = 100) 8 real flops per complex multiply-add make 3.4 GFLOP, so
-// they are bound by the FP32 FMA rate (67 TFLOP/s: 0.050 ms), not by HBM
-// (the operands of all chains stay in the 50 MB L2). The skinny products
-// (M = 16 or K = 16) are bound by the bytes of B, X and C.
+// Bound on the H100 SXM (132 SMs, 67 TFLOP/s FP32 outside the tensor
+// cores, 3.35 TB/s): the main path's large products are 120 x 120 x 204 a
+// chain (n = 120 channels, t = 204 times, the data's own widths), 5 of
+// them an iteration, plus the Newton-Schulz steps at 120 x 120 x 120. At
+// B = 100 one of them is 8 real flops x 2.94 M complex multiply-adds a
+// chain, 2.35 GFLOP: 0.0351 ms at the FMA rate, while its operands (20 MB)
+// take 0.006 ms even from HBM. So they are bound by the FP32 FMA rate. The
+// skinny products (M = 12 or K = 12) are bound by the bytes of B, X and C.
 //
-// Design (register tiling, an asynchronous ring of K tiles):
-//   * a block computes a BM x BN tile of C with TM x TN complex accumulators
-//     per thread (64 x 64 and 4 x 4, 256 threads, for the large products):
-//     each K step reads TM + TN complex from shared memory, two at a time as
-//     float4, for TM * TN complex multiply-adds (4 FMAs each);
-//   * K tiles of 16 go through a ring of three shared-memory stages filled
-//     by cp.async (16-byte copies where the base pointer, the row length
-//     and the batch stride allow, 8-byte copies otherwise, zero-fill at the
+// Design (register tiling, an asynchronous ring of K tiles, a tile plan
+// made per call from the shape and the batch count):
+//   * a block computes a BM x BN tile of C with TM x TN complex
+//     accumulators per thread (4 x 4 for the large products): each K step
+//     reads TM + TN complex from shared memory, two at a time as float4,
+//     for TM * TN complex multiply-adds (4 FMAs each);
+//   * K tiles of BK go through a ring of shared-memory stages filled by
+//     cp.async (16-byte copies where the base pointer, the row length and
+//     the batch stride allow, 8-byte copies otherwise, zero-fill at the
 //     ragged edges), so the next tiles load while the current one computes,
-//     with one barrier per tile;
+//     with one barrier per tile; every ring fits the 48 KB a block gets
+//     without the opt-in attribute;
 //   * every operand goes to shared memory in its stored order; op T and H
-//     are read along m there, and the conjugate of op H is a sign in the FMA;
-//   * the tile shape is picked from (M, K) alone, never from the batch
-//     count: 16 x 64 tiles of 2 x 4 (128 threads) for M <= 16; 32 x 64
-//     tiles of 2 x 4 with X loaded before the K loop for K <= 16, where the
-//     bytes of B, X and C set the bound; else 64 x 64 tiles of 4 x 4 (two
-//     blocks an SM). At B = 100 and 128 x 256 outputs a chain, the 800
-//     large tiles fill the 132 SMs 3.03 times, so a fourth, nearly empty
-//     wave follows three full ones.
+//     are read along m there, and the conjugate of op H is a sign in the
+//     FMA; op N's A rows carry two pad columns on the 60-row tiles and
+//     the skinny ones, so the rows that the thread rows of one warp read
+//     lie on other banks (64 x 64 keeps them unpadded: its ring would pass
+//     48 KB);
+//   * the tiles fit the data's own widths: 60 x 68 (255 threads, 15 x 17
+//     threads of 4 x 4, K tiles of 12, which divide 120 and 180) covers
+//     120 x 204 with no pad row, column or k; 60 x 40 (150 threads, K
+//     tiles of 8, three blocks an SM)
+//     covers 120 x 120 and the grouped rows' t = 80; 64 x 64 stays for the
+//     widths that are multiples of 64 (the JAX package's layout, the
+//     blocked compositions' 192 and 64);
+//   * the plan (plan_tile) is a rule on the shape and the batch count:
+//     of 60 x 68, 60 x 40 and 64 x 64 the tile that computes the least
+//     pad (rows x columns x K, each rounded up to the tile), and 16 x 64
+//     instead when that tile's blocks would fill less than half the SMs.
+//     At B = 100 and 120 x 120 x 204 a chain, the 600 tiles of 60 x 68 give
+//     the busiest SM 5 for an average of 4.55, where the 64 x 64 tiles over
+//     128 x 256 computed 70 % useful FMAs and gave it 7 for 6.06. Measured
+//     (python3 chip_smoke.py --cgemm, H100 80GB HBM3 at 700 W): about
+//     0.065 ms of device time against the 64 x 64 tiles' 0.088, 54 % of
+//     the bound, at the SM clock's maximum (1980 MHz); the same call times
+//     every tile at every product (the rule's tile was the fastest at 24
+//     of its 30 products);
+//   * M <= 16: 16 x 64 tiles of 2 x 4 (128 threads), which the plan also
+//     takes for small batches; K <= 16: 32 x 64 tiles of 2 x 4 with X
+//     loaded before the K loop, where the bytes of B, X and C set the
+//     bound.
 // Each output element is one accumulator summed over k in ascending order by
 // one thread, with the same fmaf sequence on every load path and every tile
 // shape: no split-K, no atomics, so a chain's output depends on its own
-// operands only, and is bit-identical to the earlier 32 x 32 tile kernel's.
+// operands only, whatever tile the plan takes, and is bit-identical to the
+// earlier kernels' (a zero-filled pad k adds an exact 0).
 //
 // No tensor cores, deliberately: Hopper's tensor cores have no IEEE FP32
 // mode. TF32 keeps 10 mantissa bits, and a 3xTF32 split (wgmma or mma.sync)
 // would change the rounding of every product; the reference rejected the
 // TPU's reduced-precision passes for this posterior, so such a path must
 // first pass the posterior oracle gate (ROADMAP.md).
+#include <atomic>
 #include <cstdint>
 
 #include "hk_common.cuh"
 
 namespace {
-constexpr int BK = 16;      // K tile
-constexpr int STAGES = 3;   // shared-memory ring
-
-// A block of THREADS threads computes a BM x BN tile of C, TM x TN complex
-// outputs per thread; PREX loads X before the K loop; MINB blocks per SM
-// bound the registers (__launch_bounds__).
-template <int BM_, int BN_, int TM_, int TN_, bool PREX_, int THREADS_,
-          int MINB_>
+// A block of NY x NX threads computes a BM x BN tile of C, TM x TN complex
+// outputs per thread, over K tiles of BK in a ring of STAGES; PREX loads X
+// before the K loop; MINB blocks per SM bound the registers
+// (__launch_bounds__); APAD pad columns on op N's A rows.
+template <int BM_, int BN_, int BK_, int TM_, int TN_, int STAGES_,
+          bool PREX_, int MINB_, int APAD_ = 2>
 struct Tile {
-  static constexpr int BM = BM_, BN = BN_, TM = TM_, TN = TN_;
+  static constexpr int BM = BM_, BN = BN_, BK = BK_, TM = TM_, TN = TN_;
+  static constexpr int STAGES = STAGES_, MINB = MINB_;
   static constexpr bool PREX = PREX_;
-  static constexpr int THREADS = THREADS_, MINB = MINB_;
+  static constexpr int NY = BM / TM, NX = BN / TN, THREADS = NX * NY;
+  // op N stages A as As[m][LDA]: two pad columns move each row by 8 banks
+  static constexpr int LDA = BK + APAD_;
+  static_assert(BM % TM == 0 && BN % TN == 0 && TM % 2 == 0 &&
+                    TN % 2 == 0 && BK % 2 == 0 && APAD_ % 2 == 0,
+                "tile");
+  // A's stage: As[BM][LDA] for op N, As[BK][BM] for op T and H
+  static constexpr int A_TILE_N = BM * LDA, A_TILE_TH = BK * BM;
+  static constexpr int B_TILE = BK * BN;
 };
 
 __device__ __forceinline__ void cp_async16(void* dst, const void* src,
@@ -102,8 +136,8 @@ __device__ __forceinline__ void cmac(float2& acc, float2 a, float2 b) {
 }
 
 // Copy the R x C tile at (r0, c0) of the row-major matrix g (row length ld,
-// rows < rmax, columns < cmax) into shared s[R][C]; zeros outside.
-template <int R, int C, int THREADS>
+// rows < rmax, columns < cmax) into shared s, row length LD; zeros outside.
+template <int R, int C, int LD, int THREADS>
 __device__ __forceinline__ void load_tile(float2* s, const float2* g, int ld,
                                           int r0, int c0, int rmax, int cmax,
                                           bool vec) {
@@ -116,7 +150,7 @@ __device__ __forceinline__ void load_tile(float2* s, const float2* g, int ld,
         const int r = e / (C / 2), c = 2 * (e % (C / 2));
         const int gr = r0 + r, gc = c0 + c;
         const bool ok = gr < rmax && gc < cmax;
-        cp_async16(s + r * C + c, ok ? g + (long long)gr * ld + gc : g, ok);
+        cp_async16(s + r * LD + c, ok ? g + (long long)gr * ld + gc : g, ok);
       }
     }
   } else {
@@ -128,7 +162,7 @@ __device__ __forceinline__ void load_tile(float2* s, const float2* g, int ld,
         const int r = e / C, c = e % C;
         const int gr = r0 + r, gc = c0 + c;
         const bool ok = gr < rmax && gc < cmax;
-        cp_async8(s + r * C + c, ok ? g + (long long)gr * ld + gc : g, ok);
+        cp_async8(s + r * LD + c, ok ? g + (long long)gr * ld + gc : g, ok);
       }
     }
   }
@@ -146,20 +180,20 @@ struct Args {
   const int* active;         // null, or a flag per batch element
 };
 
-// OPA 0: A stored (M, K), staged as As[BM][BK]; 1/2: A stored (K, M),
+// OPA 0: A stored (M, K), staged as As[BM][LDA]; 1/2: A stored (K, M),
 // staged as As[BK][BM]. Thread (ty, tx) owns rows 2ty + {0,1} + 2NY p and
 // columns 2tx + {0,1} + 2NX q: every fragment read is a float4 of two
-// neighbours, conflict-free along tx and a broadcast along ty.
+// neighbours, consecutive along tx and a broadcast along ty.
 template <class T, int OPA>
 __global__ void __launch_bounds__(T::THREADS, T::MINB) cgemm_kernel(Args p) {
   if (p.active && !p.active[blockIdx.z]) return;
-  constexpr int BM = T::BM, BN = T::BN, TM = T::TM, TN = T::TN;
-  constexpr int THREADS = T::THREADS;
+  constexpr int BM = T::BM, BN = T::BN, BK = T::BK, TM = T::TM, TN = T::TN;
+  constexpr int THREADS = T::THREADS, STAGES = T::STAGES;
   constexpr bool PREX = T::PREX;
-  constexpr int NX = BN / TN, NY = BM / TM;
-  static_assert(NX * NY == THREADS && TM % 2 == 0 && TN % 2 == 0, "tile");
+  constexpr int NX = T::NX, NY = T::NY, LDA = T::LDA;
   constexpr bool CONJ = OPA == 2;
-  constexpr int A_TILE = BM * BK, B_TILE = BK * BN;
+  constexpr int A_TILE = OPA == 0 ? T::A_TILE_N : T::A_TILE_TH;
+  constexpr int B_TILE = T::B_TILE;
   extern __shared__ float4 smem4[];
   float2* As = reinterpret_cast<float2*>(smem4);
   float2* Bs = As + STAGES * A_TILE;
@@ -177,13 +211,13 @@ __global__ void __launch_bounds__(T::THREADS, T::MINB) cgemm_kernel(Args p) {
 
   auto load_stage = [&](int stage, int k0) {
     if (OPA == 0)
-      load_tile<BM, BK, THREADS>(As + stage * A_TILE, Ab, K, i0, k0, M, K,
-                                 p.vec_a);
+      load_tile<BM, BK, LDA, THREADS>(As + stage * A_TILE, Ab, K, i0, k0, M,
+                                      K, p.vec_a);
     else
-      load_tile<BK, BM, THREADS>(As + stage * A_TILE, Ab, M, k0, i0, K, M,
-                                 p.vec_a);
-    load_tile<BK, BN, THREADS>(Bs + stage * B_TILE, Bb, N, k0, j0, K, N,
-                               p.vec_b);
+      load_tile<BK, BM, BM, THREADS>(As + stage * A_TILE, Ab, M, k0, i0, K,
+                                     M, p.vec_a);
+    load_tile<BK, BN, BN, THREADS>(Bs + stage * B_TILE, Bb, N, k0, j0, K, N,
+                                   p.vec_b);
   };
 
   const int nk = (K + BK - 1) / BK;
@@ -251,7 +285,8 @@ __global__ void __launch_bounds__(T::THREADS, T::MINB) cgemm_kernel(Args p) {
 #pragma unroll
         for (int r = 0; r < TM; ++r) {
           const int m = (r / 2) * 2 * NY + 2 * ty + r % 2;
-          const float4 u = *reinterpret_cast<const float4*>(as + m * BK + kk);
+          const float4 u =
+              *reinterpret_cast<const float4*>(as + m * LDA + kk);
           a0[r] = make_float2(u.x, u.y);
           a1[r] = make_float2(u.z, u.w);
         }
@@ -327,7 +362,9 @@ __global__ void __launch_bounds__(T::THREADS, T::MINB) cgemm_kernel(Args p) {
 
 template <class T, int OPA>
 int launch(const Args& a, int batch, cudaStream_t stream) {
-  constexpr size_t smem = sizeof(float2) * STAGES * BK * (T::BM + T::BN);
+  constexpr int smem =
+      (int)sizeof(float2) * T::STAGES *
+      ((OPA == 0 ? T::A_TILE_N : T::A_TILE_TH) + T::B_TILE);
   // within the 48 KB of dynamic shared memory a kernel gets without opt-in
   static_assert(smem <= 48 * 1024, "tile ring needs the opt-in attribute");
   dim3 grid((a.N + T::BN - 1) / T::BN, (a.M + T::BM - 1) / T::BM, batch);
@@ -342,21 +379,97 @@ int launch_op(const Args& a, int opA, int batch, cudaStream_t stream) {
   return launch<T, 2>(a, batch, stream);
 }
 
-// the tile shapes hk_cgemm picks from (M, K)
-using SkinnyM = Tile<16, 64, 2, 4, false, 128, 4>;   // M <= 16
-using SkinnyK = Tile<32, 64, 2, 4, true, 256, 3>;    // K <= 16
-using Large = Tile<64, 64, 4, 4, false, 256, 2>;
+// The tiles: (BM, BN, BK, TM, TN, STAGES, PREX, MINB[, APAD])
+using SkinnyM = Tile<16, 64, 16, 2, 4, 3, false, 4>;     // M <= 16
+using SkinnyK = Tile<32, 64, 16, 2, 4, 3, true, 3>;      // K <= 16
+using T64x64 = Tile<64, 64, 16, 4, 4, 3, false, 2, 0>;   // multiples of 64
+using T60x68 = Tile<60, 68, 12, 4, 4, 3, false, 2>;      // 120 x 204
+using T60x40 = Tile<60, 40, 8, 4, 4, 4, false, 3>;       // 120 x 120, t = 80
+
+// the tiles' indices in hk_cgemm_tile and hk_cgemm_plan (the order of
+// ops/kernels/cgemm.py TILES)
+enum TileId { SKINNY_M, SKINNY_K, TILE_64X64, TILE_60X68, TILE_60X40,
+              N_TILES };
+
+// The tile sizes of the products above 16 rows and 16 k, in the order the
+// plan prefers them on a tie.
+struct Dims {
+  TileId id;
+  int bm, bn, bk;
+};
+
+template <class T>
+constexpr Dims dims(TileId id) {
+  return {id, T::BM, T::BN, T::BK};
+}
+
+constexpr Dims LARGE[] = {dims<T60x68>(TILE_60X68), dims<T60x40>(TILE_60X40),
+                          dims<T64x64>(TILE_64X64)};
+
+long long round_up(int n, int to) { return (long long)(n + to - 1) / to * to; }
+
+int sm_count() {
+  constexpr int MAX_DEVICES = 64;
+  static std::atomic<int> sms[MAX_DEVICES];
+  int dev = 0;
+  cudaGetDevice(&dev);
+  dev = dev < 0 || dev >= MAX_DEVICES ? 0 : dev;
+  int n = sms[dev].load(std::memory_order_relaxed);
+  if (n == 0) {
+    if (cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) !=
+            cudaSuccess ||
+        n <= 0)
+      n = 132;
+    sms[dev].store(n, std::memory_order_relaxed);
+  }
+  return n;
+}
+
+// The tile of one call. M <= 16 and K <= 16 take their own. Else the tile
+// of LARGE that computes the least pad, rows x columns x K each rounded up
+// to it (the first on a tie): 60 x 68 at 120 x 204 and n = 180, 60 x 40 at
+// 120 x 120 and t = 80, 64 x 64 at the multiples of 64. Where its blocks
+// would fill less than half the SMs (a few chains), 16 x 64, whose blocks
+// are four times as many, spreads the work over more of them.
+TileId plan_tile(int batch, int M, int N, int K) {
+  if (M <= 16) return SKINNY_M;
+  if (K <= 16) return SKINNY_K;
+  const Dims* best = &LARGE[0];
+  long long least = -1;
+  for (const Dims& t : LARGE) {
+    const long long work =
+        round_up(M, t.bm) * round_up(N, t.bn) * round_up(K, t.bk);
+    if (least < 0 || work < least) {
+      best = &t;
+      least = work;
+    }
+  }
+  const long long blocks = (long long)batch * ((M + best->bm - 1) / best->bm) *
+                           ((N + best->bn - 1) / best->bn);
+  return 2 * blocks < sm_count() ? SKINNY_M : best->id;
+}
+
+int launch_tile(TileId id, const Args& a, int opA, int batch,
+                cudaStream_t stream) {
+  switch (id) {
+    case SKINNY_M: return launch_op<SkinnyM>(a, opA, batch, stream);
+    case SKINNY_K: return launch_op<SkinnyK>(a, opA, batch, stream);
+    case TILE_64X64: return launch_op<T64x64>(a, opA, batch, stream);
+    case TILE_60X68: return launch_op<T60x68>(a, opA, batch, stream);
+    case TILE_60X40: return launch_op<T60x40>(a, opA, batch, stream);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
 
 bool aligned16(const void* ptr) {
   return (reinterpret_cast<uintptr_t>(ptr) & 15) == 0;
 }
-}  // namespace
 
-HK_API int hk_cgemm(const float2* A, const float2* B, const float2* X,
-                    float2* C, int batch, int M, int N, int K, int opA,
-                    int a_batched, float alpha, float beta,
-                    const int* active, cudaStream_t stream) {
-  if (opA < 0 || opA > 2 || batch <= 0 || M <= 0 || N <= 0 || K <= 0)
+int run(const float2* A, const float2* B, const float2* X, float2* C,
+        int batch, int M, int N, int K, int opA, int a_batched, float alpha,
+        float beta, const int* active, int tile, cudaStream_t stream) {
+  if (opA < 0 || opA > 2 || batch <= 0 || M <= 0 || N <= 0 || K <= 0 ||
+      tile < -1 || tile >= N_TILES)
     return (int)cudaErrorInvalidValue;
   Args a;
   a.A = A;
@@ -375,9 +488,35 @@ HK_API int hk_cgemm(const float2* A, const float2* B, const float2* X,
   a.vec_a = aligned16(A) && (opA == 0 ? K : M) % 2 == 0;
   a.vec_b = aligned16(B) && N % 2 == 0;
   a.vec_c = aligned16(C) && (X == nullptr || aligned16(X)) && N % 2 == 0;
-  if (M <= 16) return launch_op<SkinnyM>(a, opA, batch, stream);
-  if (K <= 16) return launch_op<SkinnyK>(a, opA, batch, stream);
-  return launch_op<Large>(a, opA, batch, stream);
+  const TileId id = tile < 0 ? plan_tile(batch, M, N, K) : (TileId)tile;
+  return launch_tile(id, a, opA, batch, stream);
+}
+}  // namespace
+
+HK_API int hk_cgemm(const float2* A, const float2* B, const float2* X,
+                    float2* C, int batch, int M, int N, int K, int opA,
+                    int a_batched, float alpha, float beta,
+                    const int* active, cudaStream_t stream) {
+  return run(A, B, X, C, batch, M, N, K, opA, a_batched, alpha, beta, active,
+             -1, stream);
+}
+
+// The same product on a tile of the caller's choice (a TileId), whatever
+// the shape: the check that the bits do not depend on the plan. tile -1 is
+// hk_cgemm's plan.
+HK_API int hk_cgemm_tile(const float2* A, const float2* B, const float2* X,
+                         float2* C, int batch, int M, int N, int K, int opA,
+                         int a_batched, float alpha, float beta,
+                         const int* active, int tile, cudaStream_t stream) {
+  return run(A, B, X, C, batch, M, N, K, opA, a_batched, alpha, beta, active,
+             tile, stream);
+}
+
+// The tile hk_cgemm's plan takes for a shape on the current device (an
+// index of hk_cgemm_tile's), or -1 for a shape it does not take.
+HK_API int hk_cgemm_plan(int batch, int M, int N, int K) {
+  if (batch <= 0 || M <= 0 || N <= 0 || K <= 0) return -1;
+  return plan_tile(batch, M, N, K);
 }
 
 HK_API const char* hk_error_string(int err) {

@@ -39,6 +39,8 @@ U = ctypes.c_uint
 # argument types of every C entry point (all return int: cudaError_t)
 SIGNATURES = {
     "hk_cgemm": [P, P, P, P, I, I, I, I, I, I, F, F, P, P],
+    "hk_cgemm_tile": [P, P, P, P, I, I, I, I, I, I, F, F, P, I, P],
+    "hk_cgemm_plan": [I, I, I, I],
     "hk_herm_inv": [P, P, I, I, P, P, P, F, I, P, P],
     "hk_herm_chol_solve": [P, P, P, P, I, I, I, P],
     "hk_draw_rhs": [P, P, P, U, P, U, P, P, I, I, I, I, P, P],

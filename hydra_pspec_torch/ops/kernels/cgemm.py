@@ -5,12 +5,18 @@ kernel ``gcr_megachain`` (``ops/pallas/megastep.py:41`` ``_cmm``, used at
 ``:145-152, 191-194, 203-207, 221, 233``, and the Newton-Schulz steps of
 ``ops/pallas/megachain.py:385-388``), and the products of the blocked
 Hermitian inverse and factor-solve. At the main path's large products
-(128 x 128 x 256 per chain) it is bound by the FP32 FMA rate: 64 x 64
-output tiles of 4 x 4 complex accumulators per thread, fed by a 3-stage
-``cp.async`` ring of 16-deep K tiles; the M = 16 and K = 16 products get
-their own tiles, chosen from the shape alone, never the batch count. No
+(120 x 120 x 204 a chain: n = 120 channels, t = 204 times) it is bound by
+the FP32 FMA rate. Its tiles fit those widths: 60 x 68 output tiles of
+4 x 4 complex accumulators a thread (255 threads) cover 120 x 204 with no
+pad, 60 x 40 tiles cover 120 x 120 and the grouped rows' 80 times, 64 x 64
+tiles the widths that are multiples of 64, each fed by a ``cp.async`` ring
+of K tiles; the M <= 16 and K <= 16 products have their own tiles, and
+16 x 64 tiles also serve small batches. The C launcher plans the tile
+from the shape and the batch count (the tile that computes the least
+pad, unless its blocks fill less than half the SMs). No
 tensor cores (TF32 would bring back the precision loss the reference
-rejected) and no split-K, so results are deterministic and each chain's
+rejected) and no split-K: every output is one thread's sum over k in
+ascending order, so the bits do not depend on the tile, and each chain's
 output depends on that chain alone.
 
 CPU tensors take :func:`plain_cgemm`; CUDA tensors launch the kernel.
@@ -20,6 +26,10 @@ import torch
 from . import _build
 
 OPS = {"N": 0, "T": 1, "H": 2}
+# the kernel's tiles (BM x BN, K tile) in the order of csrc/cgemm.cu's
+# TileId: the index that its C entries hk_cgemm_tile takes and
+# hk_cgemm_plan returns
+TILES = ("16x64 k16", "32x64 k16", "64x64 k16", "60x68 k12", "60x40 k8")
 
 
 def _op(a, op):
